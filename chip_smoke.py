@@ -1,24 +1,40 @@
 #!/usr/bin/env python3
-"""Drive the splatco_torch render path on one NVIDIA card and hold its CUDA
-kernel against its plain PyTorch version.
+"""Drive the splatco_torch render and training paths on one NVIDIA card and
+hold each CUDA kernel against its plain PyTorch version.
 
-    python3 chip_smoke.py [--seed N] [--frames N]
+    python3 chip_smoke.py [--seed N] [--frames N] [--steps N]
 
 Run from the repository root.  Phases, each of which fails loudly:
   1. the card's name and power limit (nvidia-smi),
   2. build every kernel under splatco_torch/csrc with nvcc for sm_90a,
-  3. kernel check: a random projected scene (~200k gaussians, 1600x1088)
-     through the port's binning, then the CUDA blend kernel against its
-     plain version on the card,
-  4. main path at full width: the README quick-start model (feat_dim 32,
-     n_offsets 10, num_channels 15, plane_size 2800 -> plane levels
+  3. kernel checks: a random projected scene (~200k gaussians, 1600x1088)
+     through the port's binning, then the CUDA blend kernel and the CUDA
+     blend-backward kernel (seeded image cotangent) against their plain
+     versions on the card; two backward launches must be bit-identical,
+  4. render path at full width: the README quick-start model (feat_dim
+     32, n_offsets 10, num_channels 15, plane_size 2800 -> plane levels
      [700, 700, 1400] with TPA on level 0, contractor, bbox_scale 0.3)
      with 65,536 anchors from a seeded normal cloud (655,360 gaussians),
      rendered at activate_level 2 from orbit cameras at 1600x1088 through
-     `render_set`; the kernel's launch count must equal the frames,
-  5. one frame's stages timed, and the kernel timed against its plain
-     version at that frame's shapes, with its bound,
-  6. a small model rendered on the card and on the CPU must agree.
+     `render_set`; the forward kernel's launch count must equal the
+     frames,
+  5. one frame's stages timed, and the forward kernel timed against its
+     plain version at that frame's shapes, with its bound,
+  6. a small model rendered on the card and on the CPU must agree,
+  7. training path at full width: the same model, mv = 4 orbit views at
+     1600x1088 with smooth seeded target images, the port's
+     `make_train_step` with the default OptimizationConfig and every loss
+     term on: 1 warm-up and `--steps` timed steps at activate_level 0,
+     one step timed stage by stage, then the optimizer rebuilt and 2
+     steps at level 2.  Every loss must be finite, every trained leaf
+     must move and stay finite, and each kernel must launch mv times per
+     step,
+  8. the backward kernel timed against its plain version at a training
+     view's shapes (with that view's loss cotangent), with its bound,
+  9. determinism: two full-width steps from the same state must give
+     bit-identical params, optimizer state and statistics,
+ 10. one step of a small model on the card and on the CPU: the losses
+     must agree.
 Prints a `kernels` JSON line, then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
 there is no CUDA card.
@@ -37,7 +53,8 @@ import time
 import numpy as np
 import torch
 
-from splatco_torch.config import ModelConfig
+from splatco_torch.config import (ModelConfig, OptimizationConfig,
+                                  PipelineConfig)
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.eval.render_driver import render_set
 from splatco_torch.models.renderer import (generate_neural_gaussians,
@@ -45,10 +62,15 @@ from splatco_torch.models.renderer import (generate_neural_gaussians,
 from splatco_torch.models.splatco import decode_kwargs, init_model
 from splatco_torch.ops import cuda_lib
 from splatco_torch.ops.binning import TILE, bin_gaussians
+from splatco_torch.ops.losses import l1_loss, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
 from splatco_torch.ops.rasterize import tile_grid
-from splatco_torch.ops.rasterize_cuda import (KERNEL, raster_fwd,
+from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, KERNEL, raster_bwd,
+                                              raster_bwd_plain, raster_fwd,
                                               raster_fwd_plain)
+from splatco_torch.train.optimizer import (group_schedules, label_params,
+                                           make_optimizer)
+from splatco_torch.train.step import init_stats, make_train_step
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, fp32 outside
 # the tensor cores
@@ -59,11 +81,24 @@ PEAK_FP32_PER_S = 67e12
 # T (1 - alpha), compare, w, three colour multiply-adds)
 OPS_PER_EVAL = 16
 OPS_PER_CONTRIB = 10
+# the backward: the forward's replay per pixel evaluation; per
+# contribution 1 - alpha, T (1 - alpha), compare, w, gc, prefix, dalpha,
+# dpower, the six moment and three colour terms and the nine running sums;
+# per record its nine gradients from the sums
+OPS_PER_EVAL_BWD = 16
+OPS_PER_CONTRIB_BWD = 35
+OPS_PER_RECORD_BWD = 12
 # kernel vs plain version on the same inputs: the same float32 operations
 # in the same order (the kernel is built with --fmad=false), so they agree
 # up to the library exp; held to the bound the CPU tests use against JAX
 RASTER_TOL = 1e-5
+# the backward's per-record sums over a tile's 1024 pixels are taken in
+# another order than the plain version's, so each of its nine rows is held
+# to this share of the row's largest |value|
+RASTER_BWD_TOL = 1e-5
 WIDTH, HEIGHT = 1600, 1088
+MV = PipelineConfig().mv  # views per training step: 4
+TERMS = dict(consistency_on=1.0, tv_w=4e-7, stats_on=1.0)
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -116,6 +151,32 @@ def compare_kernel(binned, tiles_x, tiles_y, work=None):
     torch.cuda.synchronize()
     return (float((rgb - p_rgb).abs().max()),
             float((t_fin - p_t).abs().max()))
+
+
+def compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin, bg, work=None):
+    """Max |kernel - plain| of the backward on the same inputs, and the
+    largest of the nine rows' max |d| over that row's max |value|.  Two
+    kernel launches must agree bit for bit."""
+    args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+            tiles_y, HEIGHT, WIDTH, grad, rgb, t_fin, bg)
+    got = raster_bwd(*args)
+    again = raster_bwd(*args)
+    want = raster_bwd_plain(*args, work=work)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("two raster_bwd launches differ")
+    diff = (got - want).abs()
+    scale = want.abs().amax(dim=1).clamp_min(1e-30)
+    return float(diff.max()), float((diff.amax(dim=1) / scale).max())
+
+
+def bound(n_bytes: int, n_ops: int):
+    """(ms, what bounds it): the larger of bytes over the memory rate and
+    operations over the fp32 rate."""
+    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
+    ops_ms = 1e3 * n_ops / PEAK_FP32_PER_S
+    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms
+                                   else "bytes")
 
 
 def quickstart_config() -> ModelConfig:
@@ -203,10 +264,290 @@ def small_model_agrees(seed: int, dev: torch.device) -> float:
     return float(diff.max())
 
 
+def flat(tree, prefix=""):
+    """{path: tensor} of a nested dict/list tree, paths as the JAX
+    package's keystr names them."""
+    if isinstance(tree, dict):
+        items = ((f"['{k}']", v) for k, v in tree.items())
+    elif isinstance(tree, list):
+        items = ((f"[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree}
+    out = {}
+    for key, val in items:
+        out.update(flat(val, prefix + key))
+    return out
+
+
+def smooth_targets(n: int, seed: int, dev: torch.device):
+    """n smooth target images [3, HEIGHT, WIDTH] in [0, 1] made by numpy
+    from `seed`: four random low-frequency waves per channel shared by all
+    views, plus one weak wave of each view's own, so that the views'
+    pairwise SSIM passes the consistency term's 0.6 gate."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:HEIGHT, 0:WIDTH].astype(np.float32)
+
+    def wave(amp):
+        fx, fy = rng.uniform(-6.0, 6.0, 2) * 2 * math.pi / np.array(
+            [WIDTH, HEIGHT])
+        return np.float32(amp) * np.sin(
+            np.float32(fx) * x + np.float32(fy) * y
+            + np.float32(rng.uniform(0.0, 2 * math.pi)))
+
+    base = np.stack([0.5 + sum(wave(rng.uniform(0.05, 0.15))
+                               for _ in range(4)) for _ in range(3)])
+    return [torch.as_tensor(np.clip(base + np.stack(
+        [wave(0.03) for _ in range(3)]), 0.0, 1.0)).to(dev)
+        for _ in range(n)]
+
+
+def camera_extent(cams) -> float:
+    """The NeRF++ radius the JAX trainer scales its spatial LRs by: 1.1 x
+    the largest distance of a camera from the cameras' mean centre."""
+    centres = torch.stack([c.camera_center for c in cams])
+    return 1.1 * float((centres - centres.mean(dim=0)).norm(dim=1).max())
+
+
+class StageTimer:
+    """`stage(name)` for make_train_step: CUDA events around each phase
+    (named for torch.profiler too), summed by name."""
+
+    def __init__(self):
+        self.marks = []
+
+    @contextlib.contextmanager
+    def __call__(self, name):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.profiler.record_function(name):
+            yield
+        stop.record()
+        self.marks.append((name, start, stop))
+
+    def ms(self):
+        torch.cuda.synchronize()
+        out = {}
+        for name, a, b in self.marks:
+            out[name] = out.get(name, 0.0) + a.elapsed_time(b)
+        return out
+
+
+class Trainer:
+    """The training main path at one size: mv orbit views with smooth
+    targets, the default OptimizationConfig, every loss term on.  `step`
+    takes one SVC step from the carried (params, opt_state, stats)."""
+
+    def __init__(self, params, state, cfg, seed, dev):
+        self.state, self.cfg, self.dev = state, cfg, dev
+        self.cams = orbit_cameras(MV, dev)
+        self.gts = smooth_targets(MV, seed, dev)
+        self.bg = torch.zeros(3, device=dev)
+        self.opt = OptimizationConfig()
+        self.extent = camera_extent(self.cams)
+        self.generator = torch.Generator(device=dev).manual_seed(seed)
+        self.iteration = 0
+        self.rebuild(params, 0)
+
+    def rebuild(self, params, level: int):
+        """A new optimizer for `level`, as the JAX trainer rebuilds it when
+        the level rises: fresh moments and statistics, the schedules'
+        counts fast-forwarded to the iteration."""
+        self.level = level
+        self.tx = make_optimizer(self.opt, params, self.extent, level,
+                                 device=self.dev)
+        opt_state = self.tx.init(params)
+        opt_state["sched_count"] = {
+            g: torch.full_like(c, self.iteration)
+            for g, c in opt_state["sched_count"].items()}
+        stats = init_stats(params["anchors"]["anchor"].shape[0],
+                           self.cfg.n_offsets, device=self.dev)
+        self.carry = (params, opt_state, stats)
+        self.fn = make_train_step(self.cfg, self.opt, MV, level, self.tx,
+                                  device=self.dev)
+
+    def step(self, stage=None, carry=None, generator=None):
+        carry = carry or self.carry
+        out = self.fn(*carry[:2], self.state.active, self.state.contractor,
+                      carry[2], self.cams, self.gts, self.bg,
+                      generator or self.generator, self.iteration,
+                      TERMS["consistency_on"], TERMS["tv_w"],
+                      TERMS["stats_on"], stage=stage)
+        self.iteration += 1
+        self.carry = out[:3]
+        return out[3]
+
+    def check_trained(self, before):
+        """Every leaf of a group with lr > 0 that got a gradient (a
+        nonzero first moment) moved, every leaf of a frozen group stayed,
+        and all are finite.  Returns (moved, trained) leaf counts."""
+        params, opt_state, _ = self.carry
+        labels = flat(label_params(params))
+        scheds = group_schedules(self.opt, self.extent, self.level)
+        lr = {g: float(fn(opt_state["sched_count"][g]))
+              for g, fn in scheds.items()}
+        after, mu = flat(params), flat(opt_state["mu"])
+        moved = trained = 0
+        for key, leaf in after.items():
+            if not bool(torch.isfinite(leaf).all()):
+                raise AssertionError(f"{key} is not finite")
+            changed = not torch.equal(leaf, before[key])
+            if lr[labels[key]] == 0.0 and changed:
+                raise AssertionError(f"frozen leaf {key} moved")
+            if lr[labels[key]] > 0.0 and bool(mu[key].any()):
+                trained += 1
+                if not changed:
+                    raise AssertionError(f"trained leaf {key} did not move")
+                moved += 1
+        return moved, trained
+
+
+def train_phase(params, state, cfg, args, dev):
+    """Phase 7: returns the trainer (its carry is the state after the last
+    step), the launches and ms/step."""
+    trainer = Trainer(params, state, cfg, args.seed, dev)
+    before = flat(params)
+    metrics = []
+    cuda_lib.LAUNCHES.clear()
+    metrics.append(trainer.step())  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(args.steps):
+        metrics.append(trainer.step())
+    stop.record()
+    stop.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
+    step_ms = start.elapsed_time(stop) / args.steps
+    timer = StageTimer()
+    metrics.append(trainer.step(stage=timer))
+    stages = timer.ms()
+    moved0 = trainer.check_trained(before)
+    level0 = trainer.carry
+    before = flat(level0[0])
+    trainer.rebuild(level0[0], 2)
+    for _ in range(2):
+        metrics.append(trainer.step())
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    moved2 = trainer.check_trained(before)
+    n_steps = len(metrics)
+
+    losses = [{k: float(m[k]) for k in ("loss", "l1", "con")}
+              for m in metrics]
+    print(f"training: {MV} views at {WIDTH}x{HEIGHT}, {n_steps} steps "
+          f"(1 warm-up, {args.steps} timed, 1 staged at level 0; 2 at "
+          f"level 2), spatial lr scale {trainer.extent:.4f}; "
+          f"{step_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} ms/step "
+          f"(host clock); launches {launches}")
+    print(f"loss trajectory: {json.dumps([round(l['loss'], 6) for l in losses])}")
+    print(f"l1 {json.dumps([round(l['l1'], 6) for l in losses])} con "
+          f"{json.dumps([round(l['con'], 6) for l in losses])}")
+    print(f"max_slots {int(metrics[-1]['max_slots'])} num_clipped (sum "
+          f"over views) {int(metrics[-1]['num_clipped'])}")
+    print(f"level-0 step stages ms (CUDA events): {json.dumps(stages)}")
+    print(f"trained leaves moved: level 0 {moved0[0]}/{moved0[1]}, level 2 "
+          f"{moved2[0]}/{moved2[1]}")
+    if not all(math.isfinite(v) for l in losses for v in l.values()):
+        raise AssertionError("a training loss is not finite")
+    if not losses[0]["con"] > 0.0:
+        raise AssertionError("the consistency term did not run")
+    for name in (KERNEL, BWD_KERNEL):
+        if launches.get(name, 0) != MV * n_steps:
+            raise AssertionError(f"{name} launched {launches.get(name, 0)} "
+                                 f"times for {n_steps} steps of {MV} views")
+    return trainer, launches, step_ms
+
+
+def view_cotangent(trainer, view: int):
+    """A training view rendered from the trainer's params (no noise) and
+    the cotangent its photometric loss sends back to the image: binned
+    records, padded grad, rgb and T_final."""
+    params, cfg, cam = trainer.carry[0], trainer.cfg, trainer.cams[view]
+    with torch.no_grad():
+        binned, _ = frame_stages(params, trainer.state, cam, cfg,
+                                 trainer.level)
+        tiles_x, tiles_y = tile_grid(cam.image_height, cam.image_width)
+        rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
+                                binned.tile_end, tiles_x, tiles_y,
+                                cam.image_height, cam.image_width)
+    image = (rgb + trainer.bg[:, None, None] * t_fin[None])[
+        :, :HEIGHT, :WIDTH].requires_grad_()
+    lam = trainer.opt.lambda_dssim
+    gt = trainer.gts[view]
+    loss = (1.0 - lam) * l1_loss(image, gt) + lam * (1.0 - ssim(image, gt))
+    (g_img,) = torch.autograd.grad(loss, image)
+    grad = torch.zeros_like(rgb)
+    grad[:, :HEIGHT, :WIDTH] = g_img
+    return binned, grad, rgb, t_fin
+
+
+def steps_repeat(trainer, seed: int):
+    """Phase 9: two steps from the same state (and the same noise seed)
+    give bit-identical params, optimizer state and statistics."""
+    carry = trainer.carry
+    outs = []
+    for _ in range(2):
+        trainer.step(carry=carry, generator=torch.Generator(
+            device=trainer.dev).manual_seed(seed))
+        p, o, st = trainer.carry
+        outs.append({**flat(p, "params"), **flat(o, "opt"),
+                     **{f"stats.{f}": getattr(st, f)
+                        for f in ("opacity_accum", "anchor_demon",
+                                  "offset_gradient_accum", "offset_denom")}})
+    torch.cuda.synchronize()
+    differ = [k for k in outs[0] if not torch.equal(outs[0][k], outs[1][k])]
+    print(f"determinism: two steps from the same state, {len(outs[0])} "
+          f"tensors, {len(differ)} differ {differ[:8]}")
+    if differ:
+        raise AssertionError("two training steps from the same state differ")
+    trainer.carry = carry
+
+
+def small_step_agrees(seed: int, dev: torch.device) -> float:
+    """Phase 10: one step (q = 0) of a small model on the card and on the
+    CPU, from the same seeded params; the losses agree to 1e-4 relative
+    (matmul, exp and pixel sums round differently on the two)."""
+    cfg = ModelConfig(feat_dim=16, n_offsets=4, voxel_size=0.05,
+                      plane_size=64, num_channels=9, appearance_dim=0,
+                      contractor=True, scene_center=[0.0, 0.0, 0.0],
+                      scene_length=[2.0, 2.0, 2.0])
+    pts = np.random.default_rng(seed).normal(size=(300, 3)).astype(
+        np.float32) * 0.4
+    losses = []
+    for d in (dev, torch.device("cpu")):
+        params, state = init_model(cfg, pts, device=d,
+                                   generator=torch.Generator().manual_seed(
+                                       seed))
+        cams = [look_at_camera(e, [0, 0, 0], [0, -1, 0], 1.0, 0.75, 64, 48,
+                               uid=i, device=d)
+                for i, e in enumerate([[0, 0, -3.0], [0.5, 0.3, -2.8]])]
+        gts = [torch.full((3, 48, 64), v, device=d) for v in (0.6, 0.4)]
+        opt = OptimizationConfig()
+        tx = make_optimizer(opt, params, 1.0, 0, device=d)
+        step = make_train_step(cfg, opt, 2, 0, tx, q_noise=0.0, device=d)
+        out = step(params, tx.init(params), state.active, state.contractor,
+                   init_stats(params["anchors"]["anchor"].shape[0],
+                              cfg.n_offsets, device=d),
+                   cams, gts, torch.zeros(3, device=d), None, 0,
+                   TERMS["consistency_on"], TERMS["tv_w"],
+                   TERMS["stats_on"])
+        losses.append(float(out[3]["loss"]))
+    rel = abs(losses[0] - losses[1]) / abs(losses[1])
+    print(f"small model step card vs CPU: loss {losses[0]:.8f} vs "
+          f"{losses[1]:.8f}, rel {rel:.3e}")
+    if not rel <= 1e-4:
+        raise AssertionError("card and CPU training steps disagree")
+    return rel
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=8)
+    ap.add_argument("--steps", type=int, default=5)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
@@ -230,7 +571,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    # 3. kernel check on a random projected scene
+    # 3. kernel checks on a random projected scene
     proj, colors, opac = random_projected_scene(200_000, args.seed, dev)
     tiles_x, tiles_y = tile_grid(HEIGHT, WIDTH)
     binned = bin_gaussians(proj, colors, opac, TILE, tiles_x, tiles_y)
@@ -240,6 +581,20 @@ def main() -> int:
           f"{err_rgb:.3e} T {err_t:.3e} (tolerance {RASTER_TOL})")
     if not max(err_rgb, err_t) <= RASTER_TOL:
         raise AssertionError("raster_fwd disagrees with its plain version")
+    rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
+                            binned.tile_end, tiles_x, tiles_y, HEIGHT, WIDTH)
+    grad = torch.zeros_like(rgb)
+    grad[:, :HEIGHT, :WIDTH] = torch.randn(
+        (3, HEIGHT, WIDTH), generator=torch.Generator().manual_seed(
+            args.seed)).to(dev)
+    err_abs, err_row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb,
+                                   t_fin, torch.tensor([0.2, 0.3, 0.4],
+                                                       device=dev))
+    print(f"random scene: backward kernel vs plain max |d| {err_abs:.3e}, "
+          f"largest row-relative {err_row:.3e} (tolerance "
+          f"{RASTER_BWD_TOL}); two launches bit-identical")
+    if not err_row <= RASTER_BWD_TOL:
+        raise AssertionError("raster_bwd disagrees with its plain version")
 
     # 4. main path at full width
     cfg = quickstart_config()
@@ -260,13 +615,13 @@ def main() -> int:
         cuda_lib.LAUNCHES.clear()
         fps = render_set(out_dir, "orbit", 0, cams, params, state.active,
                          state.contractor, level, cfg)
-        launches = dict(cuda_lib.LAUNCHES)
+        render_launches = dict(cuda_lib.LAUNCHES)
     print(f"render_set: {args.frames} frames at {WIDTH}x{HEIGHT}, "
           f"{1e3 / fps:.3f} ms/frame (CUDA events, after a warm-up frame)"
-          f"; launches {launches}")
-    if launches.get(KERNEL, 0) != args.frames:
-        raise AssertionError(f"{KERNEL} launched {launches.get(KERNEL, 0)}"
-                             f" times for {args.frames} frames")
+          f"; launches {render_launches}")
+    if render_launches != {KERNEL: args.frames}:
+        raise AssertionError(f"render_set launched {render_launches} for "
+                             f"{args.frames} frames")
 
     with torch.inference_mode():
         vis = prefilter_voxel(params["anchors"], state.active, cams[0])
@@ -303,28 +658,64 @@ def main() -> int:
     n_bytes = (9 * 4 * pairs + 2 * 4 * tiles_x * tiles_y
                + 4 * 4 * tiles_x * tiles_y * TILE * TILE)
     evals, contribs = int(work["evals"]), int(work["contribs"])
-    n_ops = OPS_PER_EVAL * evals + OPS_PER_CONTRIB * contribs
-    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / PEAK_FP32_PER_S
+    fwd_bound = bound(n_bytes, OPS_PER_EVAL * evals
+                      + OPS_PER_CONTRIB * contribs)
     print(f"blend work: {pairs} pairs, {evals} pixel evaluations, "
           f"{contribs} contributions, {n_bytes} bytes; bound "
-          f"{max(bytes_ms, ops_ms):.4f} ms")
+          f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
 
     small_model_agrees(args.seed, dev)
 
-    print(json.dumps({"kernels": [{
-        "name": KERNEL,
-        "route": "cuda",
-        "source": "splatco_torch/csrc/raster_fwd.cu",
-        "replaces": "splatco_tpu/ops/rasterize_pallas.py:182",
-        "launches": launches.get(KERNEL, 0),
-        "max_abs_err": err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(bytes_ms, ops_ms),
-        "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-        "library_ms": None,
-    }]}))
+    # 7. training at full width
+    trainer, train_launches, step_ms = train_phase(params, state, cfg,
+                                                   args, dev)
+
+    # 8. the backward kernel at a training view's shapes
+    binned, grad, rgb, t_fin = view_cotangent(trainer, MV - 1)
+    bwd_work = {}
+    bwd_err, bwd_row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb,
+                                   t_fin, trainer.bg, bwd_work)
+    print(f"training view {MV - 1}: backward kernel vs plain max |d| "
+          f"{bwd_err:.3e}, largest row-relative {bwd_row:.3e}")
+    if not bwd_row <= RASTER_BWD_TOL:
+        raise AssertionError("raster_bwd disagrees with its plain version "
+                             "at the training path's shapes")
+    bargs = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+             tiles_y, HEIGHT, WIDTH, grad, rgb, t_fin, trainer.bg)
+    bwd_ms = cuda_time_ms(lambda: raster_bwd(*bargs), 20)
+    bwd_plain_ms = cuda_time_ms(lambda: raster_bwd_plain(*bargs), 2)
+    pairs = binned.records.shape[1]
+    pixels = tiles_x * tiles_y * TILE * TILE
+    n_bytes = 2 * 9 * 4 * pairs + 2 * 4 * tiles_x * tiles_y + 7 * 4 * pixels
+    evals, contribs = int(bwd_work["evals"]), int(bwd_work["contribs"])
+    bwd_bound = bound(n_bytes, OPS_PER_EVAL_BWD * evals
+                      + OPS_PER_CONTRIB_BWD * contribs
+                      + OPS_PER_RECORD_BWD * pairs)
+    print(f"blend backward work: {pairs} pairs, {evals} pixel evaluations, "
+          f"{contribs} contributions, {n_bytes} bytes; bound "
+          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); kernel {bwd_ms:.4f} ms, "
+          f"plain {bwd_plain_ms:.2f} ms")
+
+    # 9. determinism, 10. small model step card vs CPU
+    steps_repeat(trainer, args.seed + 1)
+    small_step_agrees(args.seed, dev)
+
+    def entry(name, source, line, launches, err, ms, plain, bnd):
+        return {"name": name, "route": "cuda",
+                "source": f"splatco_torch/csrc/{source}",
+                "replaces": f"splatco_tpu/ops/rasterize_pallas.py:{line}",
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry(KERNEL, "raster_fwd.cu", 182,
+              render_launches.get(KERNEL, 0) + train_launches.get(KERNEL, 0),
+              err, kernel_ms, plain_ms, fwd_bound),
+        entry(BWD_KERNEL, "raster_bwd.cu", 241,
+              train_launches.get(BWD_KERNEL, 0), bwd_err, bwd_ms,
+              bwd_plain_ms, bwd_bound),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

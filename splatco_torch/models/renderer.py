@@ -1,9 +1,14 @@
-"""Neural-gaussian decode + render, forward (counterpart of
+"""Neural-gaussian decode + render (counterpart of
 splatco_tpu/models/renderer.py with the `backend="pallas"` path).
 
 As in the JAX package, every anchor stays in its padded [C, ...] slot and
 masking works by zeroing opacity: the binner emits no pairs for radius 0,
 so masked gaussians cost nothing downstream.
+
+The viewspace proxy reproduces the reference's screen-space points trick:
+the caller passes zeros [C*K, 2] that require grad, they are added to the
+projected means, and their gradient is the per-gaussian screen-space
+gradient the densification statistics read.
 """
 from __future__ import annotations
 
@@ -79,10 +84,13 @@ def generate_neural_gaussians(
     compat_raw_domain: bool = False,
     use_spatial_ctx: bool = False,
     plane_feats=None,
+    q_noise: float = 0.0,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """Decode anchors -> per-offset gaussians (padded, masked).  Returns
     xyz [C*K,3], color, opacity (masked), scaling, rot, neural_opacity,
-    mask."""
+    mask.  q_noise > 0 with a generator adds the tri-plane quantization
+    noise (training)."""
     if use_spatial_ctx:
         raise NotImplementedError(
             "use_spatial_ctx (models/context_grid.py) is not ported yet; "
@@ -99,7 +107,8 @@ def generate_neural_gaussians(
                       dim=1)
     geo_fea = feature_planes_forward(
         params["planes"], xyz_norm, g_fea, visible_mask,
-        activate_level=activate_level, plane_feats=plane_feats)
+        activate_level=activate_level, plane_feats=plane_feats, q=q_noise,
+        generator=generator)
 
     ob_view = anchor - camera.camera_center
     ob_dist = torch.linalg.vector_norm(ob_view, dim=1, keepdim=True)
@@ -133,8 +142,13 @@ def generate_neural_gaussians(
         params["decoders"], cat_local if add_cov_dist else cat_local_wod
     ).reshape(c * k, 7)
 
-    scaling_rep = grid_scaling.repeat_interleave(k, dim=0)  # [C*K,6]
-    anchor_rep = anchor.repeat_interleave(k, dim=0)
+    # each anchor row repeated k times, as an expand (its backward is a
+    # sum over k, deterministic on the card)
+    def rep(a):
+        return a[:, None].expand(c, k, a.shape[1]).reshape(c * k, -1)
+
+    scaling_rep = rep(grid_scaling)  # [C*K,6]
+    anchor_rep = rep(anchor)
     scaling = scaling_rep[:, 3:] * torch.sigmoid(scale_rot[:, :3])
     rot = normalize(scale_rot[:, 3:7], eps=1e-12)
     xyz = anchor_rep + offsets.reshape(c * k, 3) * scaling_rep[:, :3]
@@ -151,23 +165,36 @@ def render(
     camera: Camera,
     bg: torch.Tensor,
     visible_mask: Optional[torch.Tensor] = None,
+    viewspace_proxy: Optional[torch.Tensor] = None,
     *,
     activate_level: int = 0,
+    is_training: bool = False,
+    q_noise: float = 0.03,
+    generator: Optional[torch.Generator] = None,
     kmax: int = 12,
     plane_feats=None,
     **decode_kwargs,
 ) -> RenderOutput:
-    """Full eval render: decode -> EWA projection -> binning -> blend."""
+    """Full render: decode -> EWA projection -> binning -> blend.  In
+    training (`is_training`) the tri-plane features get U(-1/2, 1/2) *
+    q_noise noise drawn from `generator`; eval uses q = 0.
+    `viewspace_proxy` [C*K, 2], when given, is added to the projected
+    means (see the module docstring)."""
     if visible_mask is None:
         visible_mask = active
     g = generate_neural_gaussians(
         params, contractor, camera, visible_mask,
         activate_level=activate_level, plane_feats=plane_feats,
+        q_noise=q_noise if is_training else 0.0, generator=generator,
         **decode_kwargs)
 
     proj = project_gaussians_cols(g["xyz"], g["scaling"], g["rot"], camera)
     radius = torch.where(g["opacity"] > 0.0, proj.radius, 0.0)
-    proj = proj._replace(radius=radius)
+    mx, my = proj.mx, proj.my
+    if viewspace_proxy is not None:
+        mx = mx + viewspace_proxy[:, 0]
+        my = my + viewspace_proxy[:, 1]
+    proj = proj._replace(mx=mx, my=my, radius=radius)
     image, aux = rasterize(proj, g["color"], g["opacity"], bg,
                            camera.image_height, camera.image_width,
                            kmax=kmax, return_aux=True)

@@ -1,20 +1,20 @@
-"""CSCM tri-plane pyramid + fusion heads, eval path (counterpart of
-splatco_tpu/models/triplane.py at q = 0: no quantization noise).
+"""CSCM tri-plane pyramid + fusion heads (counterpart of
+splatco_tpu/models/triplane.py).
 
   * level i feature: bilinear sample of the 3 planes (align_corners, zeros
-    outside, u on the H axis) at the contracted anchor coordinates,
+    outside, u on the H axis) at the contracted anchor coordinates, plus
+    U(-1/2, 1/2) * q quantization noise in training (q = 0 at eval),
   * level 0 additionally samples the TriPlaneAttention-modulated planes,
     interleaved per plane as [xy, xyTA, xz, xzTA, yz, yzTA],
   * geo_fea = sum over active levels of concat(BN+Linear(plane_feat),
-    BN+Linear(anchor_ctx)), BN being masked train-mode BN (models/mlp.py).
-
-The training-only pieces (quantization noise, `tv_loss`) come with the
-training slice.
+    BN+Linear(anchor_ctx)), BN being masked train-mode BN (models/mlp.py),
+  * TV regulariser: smooth-L1 of adjacent texel differences, mean of the
+    6 axis terms, level-weighted 0.5^(2-level).
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -180,20 +180,39 @@ def sample_level_feats(params, xyz_norm: torch.Tensor,
     return tuple(out)
 
 
+def quantization_noise(feats: List[torch.Tensor], q: float,
+                       generator: torch.Generator) -> List[torch.Tensor]:
+    """feats + U(-1/2, 1/2) * q, drawn from `generator` (on the features'
+    device).  The draws cannot repeat `jax.random`'s, so the port and the
+    JAX package add different noise of the same distribution."""
+    return [f + (torch.rand(f.shape, generator=generator, device=f.device,
+                            dtype=f.dtype) - 0.5) * q for f in feats]
+
+
 def feature_planes_forward(params, xyz_norm: torch.Tensor,
                            g_fea: torch.Tensor, mask: torch.Tensor,
-                           activate_level: int = 0, plane_feats=None
+                           activate_level: int = 0, plane_feats=None,
+                           q: float = 0.0,
+                           generator: Optional[torch.Generator] = None
                            ) -> torch.Tensor:
     """geo_fea [N, 2*out_dim] = hierarchical compensation sum.
 
     xyz_norm: [N,3] contracted coords in (-2,2); g_fea: [N,D] anchor
     context shared by all levels; mask: [N] valid rows (BN statistics);
-    plane_feats: optional precomputed `sample_level_feats` output."""
+    plane_feats: optional precomputed `sample_level_feats` output.  With
+    q > 0 and a `generator`, quantization noise is added to the sampled
+    features of every level and to level 0's TPA features (fresh draws on
+    every call, so each view of a training step gets its own)."""
     if plane_feats is None:
         plane_feats = sample_level_feats(params, xyz_norm, activate_level)
+    noisy = q > 0.0 and generator is not None
     total = None
     for i in range(activate_level + 1):
         feats, ta_feats = plane_feats[i]
+        if noisy:
+            feats = quantization_noise(feats, q, generator)
+            if i == 0:
+                ta_feats = quantization_noise(ta_feats, q, generator)
         if i == 0:
             feat = torch.cat([feats[0], ta_feats[0], feats[1], ta_feats[1],
                               feats[2], ta_feats[2]], dim=-1)
@@ -205,4 +224,25 @@ def feature_planes_forward(params, xyz_norm: torch.Tensor,
         rrr = linear(ctx["lin"], masked_batchnorm(ctx["bn"], g_fea, mask))
         res = torch.cat([rr, rrr], dim=-1)
         total = res if total is None else total + res
+    return total
+
+
+def smooth_l1_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    d = a - b
+    ad = d.abs()
+    return torch.where(ad < 1.0, 0.5 * d * d, ad - 0.5).sum()
+
+
+def tv_loss(params, w: float, activate_level: int = 0) -> torch.Tensor:
+    """Total-variation regulariser over the active plane levels."""
+    total = 0.0
+    for lvl in range(activate_level + 1):
+        wl = w * (0.5 ** (2 - lvl))
+        g = params["grids"][lvl]
+        lv = 0.0
+        for name in ("xy", "xz", "yz"):
+            p = g[name]
+            lv = lv + smooth_l1_sum(p[:, 1:, :], p[:, :-1, :])
+            lv = lv + smooth_l1_sum(p[:, :, 1:], p[:, :, :-1])
+        total = total + wl * lv / 6.0
     return total

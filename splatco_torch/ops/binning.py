@@ -12,7 +12,12 @@
      clip, so its bits order like the value).  Emission is j-major, as
      the JAX slot array is, so depth ties break the same way,
   4. the 9 record columns are gathered into SoA [9, P] float32 and the
-     per-tile [start, end) ranges come from a count per tile.
+     per-tile [start, end) ranges come from a count per tile,
+  5. the slot map `slot_pos` [kmax, N] gives, for each (slot j, gaussian),
+     the position of its record in the sorted record array, or -1 (the
+     inverse of the sort's permutation over the j-major emission).  The
+     backward gathers the per-record gradients through it and sums over
+     j: a deterministic per-gaussian reduce with no scatter-add.
 
 The JAX package's static budgets (`kmax_pack`, `class_spec`, chunk maps)
 exist only to give XLA static shapes; they have no counterpart here.
@@ -39,6 +44,8 @@ class BinnedGaussians(NamedTuple):
     num_clipped: torch.Tensor  # [] i64: gaussians whose rect was clipped
     max_slots: torch.Tensor    # [] i64: most reach-valid tiles of one
                                #   gaussian
+    slot_pos: torch.Tensor     # [kmax, N] i64: record position of each
+                               #   (slot, gaussian), -1 where none
 
 
 def _rects(mx, my, rad, tile_size: int, tiles_x: int, tiles_y: int,
@@ -144,6 +151,9 @@ def bin_gaussians(proj: ProjectedCols, colors: torch.Tensor,
     order = torch.argsort(key, stable=True)
     gid = gid[order]
     tile = tile[order]
+    slot_pos = torch.full((kmax * n,), -1, dtype=torch.int64,
+                          device=mx.device)
+    slot_pos[slot[order]] = torch.arange(order.shape[0], device=mx.device)
 
     cols = torch.stack([mx, my, ca, cb, cc, op, colors[:, 0], colors[:, 1],
                         colors[:, 2]]).to(torch.float32)
@@ -155,4 +165,5 @@ def bin_gaussians(proj: ProjectedCols, colors: torch.Tensor,
         records=records, gauss_id=gid,
         tile_start=tile_start.to(torch.int32),
         tile_end=tile_end.to(torch.int32),
-        num_clipped=clipped.sum(), max_slots=max_slots)
+        num_clipped=clipped.sum(), max_slots=max_slots,
+        slot_pos=slot_pos.reshape(kmax, n))

@@ -1,14 +1,30 @@
-"""Rasterization entry point, forward only (counterpart of the forward of
-splatco_tpu/ops/rasterize.py): tile binning (ops/binning.py) + the blend
-kernel (ops/rasterize_cuda.py), then image = rgb + bg * T_final cropped to
-H x W.  The backward comes with the training slice."""
+"""Differentiable rasterization entry point (counterpart of
+splatco_tpu/ops/rasterize.py, the v2 32 px path).
+
+  forward : tile binning (ops/binning.py) + the blend kernel
+            (`raster_fwd`), then image = rgb + bg * T_final cropped to
+            H x W,
+  backward: the blend's backward kernel (`raster_bwd`) -> per-record
+            gradients [9, P] -> gathered into [9, kmax, N] through the
+            binning's slot map (zeros where a slot has no record) and
+            summed over the slots: a deterministic per-gaussian reduce with
+            no index_add_, scatter or float atomic.
+
+Gradients flow to the means (mx, my), conics, colours, opacities and bg.
+The binning (tile assignment, depth order) is not differentiated, and
+depth and radius get no gradient, as in the JAX package.  The
+densification statistics read dL/d(mx, my) through a zero "viewspace
+proxy" the caller adds to the means.
+"""
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
-from splatco_torch.ops.rasterize_cuda import raster_fwd
+from splatco_torch.ops.rasterize_cuda import raster_bwd, raster_fwd
 
 
 def tile_grid(image_height: int, image_width: int):
@@ -16,28 +32,75 @@ def tile_grid(image_height: int, image_width: int):
     return -(-image_width // TILE), -(-image_height // TILE)
 
 
+def reduce_slots(per_record: torch.Tensor, slot_pos: torch.Tensor
+                 ) -> torch.Tensor:
+    """Per-gaussian sums [9, N] of per-record rows [9, P]: gather through
+    the slot map [kmax, N] (-1 = no record) and sum over the slots."""
+    if per_record.shape[1] == 0:
+        return per_record.new_zeros((per_record.shape[0], slot_pos.shape[1]))
+    gathered = per_record[:, slot_pos.clamp_min(0)]      # [9, kmax, N]
+    return torch.where(slot_pos[None] >= 0, gathered, 0.0).sum(dim=1)
+
+
+class _Rasterize(torch.autograd.Function):
+    """The blend with its hand-written backward (the counterpart of the
+    JAX package's `jax.custom_vjp`).  `aux` is a dict the forward fills
+    with the binning counters."""
+
+    @staticmethod
+    def forward(ctx, mx, my, ca, cb, cc, colors, opacities, depth, radius,
+                bg, image_height: int, image_width: int, kmax: int,
+                aux: Dict):
+        tiles_x, tiles_y = tile_grid(image_height, image_width)
+        proj = ProjectedCols(mx=mx, my=my, depth=depth, ca=ca, cb=cb, cc=cc,
+                             radius=radius)
+        binned = bin_gaussians(proj, colors, opacities, TILE, tiles_x,
+                               tiles_y, kmax=kmax)
+        rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
+                                binned.tile_end, tiles_x, tiles_y,
+                                image_height, image_width)
+        image = (rgb + bg[:, None, None] * t_fin[None]
+                 )[:, :image_height, :image_width]
+        aux.update(num_clipped=binned.num_clipped,
+                   num_pairs=binned.records.shape[1],
+                   max_slots=binned.max_slots, num_overflow=0)
+        ctx.save_for_backward(binned.records, binned.tile_start,
+                              binned.tile_end, binned.slot_pos, rgb, t_fin,
+                              bg)
+        ctx.shape = (image_height, image_width, tiles_x, tiles_y)
+        return image
+
+    @staticmethod
+    def backward(ctx, g_img):
+        records, tile_start, tile_end, slot_pos, rgb, t_fin, bg = \
+            ctx.saved_tensors
+        h, w, tiles_x, tiles_y = ctx.shape
+        gpad = torch.zeros_like(rgb)
+        gpad[:, :h, :w] = g_img
+        per_rec = raster_bwd(records, tile_start, tile_end, tiles_x,
+                             tiles_y, h, w, gpad, rgb, t_fin,
+                             bg.detach().contiguous())
+        per_g = reduce_slots(per_rec, slot_pos)
+        d_bg = (g_img * t_fin[None, :h, :w]).sum(dim=(1, 2))
+        d_colors = per_g[6:9].T.contiguous()
+        return (per_g[0], per_g[1], per_g[2], per_g[3], per_g[4], d_colors,
+                per_g[5], None, None, d_bg, None, None, None, None)
+
+
 def rasterize(proj: ProjectedCols, colors: torch.Tensor,
               opacities: torch.Tensor, bg: torch.Tensor, image_height: int,
               image_width: int, kmax: int = 12, return_aux: bool = False):
-    """Render projected gaussians -> image [3,H,W].  With return_aux=True
+    """Render projected gaussians -> image [3,H,W], differentiable w.r.t.
+    the means, conics, colours, opacities and bg.  With return_aux=True
     also returns the binning counters: num_clipped (gaussians whose rect
     was clipped to kmax tiles: the image is approximate there), num_pairs
     (the (tile, gaussian) records blended), max_slots and num_overflow
     (always 0: there is no static slot budget to overflow)."""
-    tiles_x, tiles_y = tile_grid(image_height, image_width)
-    binned = bin_gaussians(proj, colors, opacities, TILE, tiles_x, tiles_y,
-                           kmax=kmax)
-    rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
-                            binned.tile_end, tiles_x, tiles_y, image_height,
-                            image_width)
-    image = (rgb + bg[:, None, None] * t_fin[None]
-             )[:, :image_height, :image_width]
+    aux: Dict = {}
+    image = _Rasterize.apply(proj.mx, proj.my, proj.ca, proj.cb, proj.cc,
+                             colors, opacities, proj.depth,
+                             proj.radius.to(torch.float32), bg,
+                             image_height, image_width, kmax, aux)
     if not return_aux:
         return image
-    aux = {
-        "num_clipped": binned.num_clipped,
-        "num_pairs": binned.records.shape[1],
-        "max_slots": binned.max_slots,
-        "num_overflow": 0,
-    }
     return image, aux

@@ -1,17 +1,23 @@
-"""Tile alpha-blend forward: the CUDA kernel's wrapper and its plain
-PyTorch version (counterpart of `_fwd_kernel` / `forward_pallas` in
+"""Tile alpha-blend forward and backward: the CUDA kernels' wrappers and
+their plain PyTorch versions (counterparts of `_fwd_kernel` /
+`forward_pallas` and `_bwd_kernel` / `backward_pallas` in
 splatco_tpu/ops/rasterize_pallas.py).
 
 `raster_fwd` takes the binned records (SoA [9, P] float32: mx, my, ca, cb,
 cc, op, r, g, b; per-tile [start, end) int32) and returns rgb [3, Hp, Wp]
 (no background) and the final transmittance [Hp, Wp] in image layout.
-For CUDA tensors it launches `csrc/raster_fwd.cu`; for CPU tensors it
-runs `raster_fwd_plain`.  There is no fallback from one to the other.
+`raster_bwd` takes the same records, the image's cotangent [3, Hp, Wp]
+(zero outside H x W), the forward's rgb and T_final and the background
+[3], and returns the per-record gradients [9, P] in record order.
+For CUDA tensors each launches its kernel (`csrc/raster_fwd.cu`,
+`csrc/raster_bwd.cu`); for CPU tensors it runs its plain version.  There
+is no fallback from one to the other.
 
-The plain version is vectorised over tiles and pixels and serial over
-each tile's records, so it rounds exactly as the kernel's per-pixel loop
-does: on the same inputs the two agree bit for bit, up to the library
-`exp` (both use CUDA's `expf` on the card).
+The plain versions are vectorised over tiles and pixels and serial over
+each tile's records, so they round exactly as the kernels' per-pixel
+loops do: on the same inputs the forwards agree bit for bit, up to the
+library `exp` (both use CUDA's `expf` on the card); the backwards differ
+only in the order of the sums over a tile's pixels.
 """
 from __future__ import annotations
 
@@ -27,7 +33,9 @@ from splatco_torch.ops.binning import NUM_REC, TILE
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
 T_EPS = 1e-4
+OP_MIN = 1e-12
 KERNEL = "raster_fwd"
+BWD_KERNEL = "raster_bwd"
 
 
 def _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y):
@@ -42,6 +50,34 @@ def _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y):
                              f"[{tiles_x * tiles_y}] on {records.device}")
 
 
+def _pixel_grid(tiles_x: int, tiles_y: int, height: int, width: int,
+                dev: torch.device):
+    """Pixel centres (px, py) [T, 1024] float32 of every tile, row-major
+    within the tile, and the in-image mask."""
+    t_idx = torch.arange(tiles_x * tiles_y, device=dev)
+    p_idx = torch.arange(TILE * TILE, device=dev)
+    x = (t_idx % tiles_x)[:, None] * TILE + (p_idx % TILE)[None, :]
+    y = (t_idx // tiles_x)[:, None] * TILE + (p_idx // TILE)[None, :]
+    return x.to(torch.float32), y.to(torch.float32), (x < width) & (
+        y < height)
+
+
+def _untile(v: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """[C, T, 1024] tile layout -> [C, Hp, Wp] image layout."""
+    c = v.shape[0]
+    return (v.reshape(c, tiles_y, tiles_x, TILE, TILE)
+            .permute(0, 1, 3, 2, 4)
+            .reshape(c, tiles_y * TILE, tiles_x * TILE))
+
+
+def _tile(v: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """[C, Hp, Wp] image layout -> [C, T, 1024] tile layout."""
+    c = v.shape[0]
+    return (v.reshape(c, tiles_y, TILE, tiles_x, TILE)
+            .permute(0, 1, 3, 2, 4)
+            .reshape(c, tiles_y * tiles_x, TILE * TILE))
+
+
 def raster_fwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
                      tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
                      height: int, width: int,
@@ -53,12 +89,7 @@ def raster_fwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
     contributions ("contribs") this input needs."""
     dev = records.device
     num_tiles = tiles_x * tiles_y
-    t_idx = torch.arange(num_tiles, device=dev)
-    p_idx = torch.arange(TILE * TILE, device=dev)
-    x = (t_idx % tiles_x)[:, None] * TILE + (p_idx % TILE)[None, :]
-    y = (t_idx // tiles_x)[:, None] * TILE + (p_idx // TILE)[None, :]
-    px, py = x.to(torch.float32), y.to(torch.float32)
-    live = (x < width) & (y < height)                     # [T, 1024]
+    px, py, live = _pixel_grid(tiles_x, tiles_y, height, width, dev)
     trans = torch.ones((num_tiles, TILE * TILE), device=dev)
     acc = torch.zeros((3, num_tiles, TILE * TILE), device=dev)
     start = tile_start.to(torch.int64)
@@ -90,13 +121,8 @@ def raster_fwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
         work["evals"] = evals
         work["contribs"] = contribs
 
-    def image(v):  # [C, T, 1024] -> [C, Hp, Wp]
-        c = v.shape[0]
-        return (v.reshape(c, tiles_y, tiles_x, TILE, TILE)
-                .permute(0, 1, 3, 2, 4)
-                .reshape(c, tiles_y * TILE, tiles_x * TILE))
-
-    return image(acc), image(trans[None])[0]
+    return (_untile(acc, tiles_x, tiles_y),
+            _untile(trans[None], tiles_x, tiles_y)[0])
 
 
 @functools.lru_cache(maxsize=None)
@@ -135,3 +161,127 @@ def raster_fwd(records: torch.Tensor, tile_start: torch.Tensor,
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
     cuda_lib.LAUNCHES[KERNEL] += 1
     return rgb, t_final
+
+
+def _check_bwd_inputs(records, tiles_x, tiles_y, grad, rgb, t_final, bg):
+    hp, wp = tiles_y * TILE, tiles_x * TILE
+    for name, t, shape in (("grad", grad, (3, hp, wp)),
+                           ("rgb", rgb, (3, hp, wp)),
+                           ("t_final", t_final, (hp, wp)),
+                           ("bg", bg, (3,))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape \
+                or not t.is_contiguous() or t.device != records.device:
+            raise ValueError(f"{name} must be contiguous float32 {shape} on "
+                             f"{records.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+
+
+def raster_bwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
+                     tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
+                     height: int, width: int, grad: torch.Tensor,
+                     rgb: torch.Tensor, t_final: torch.Tensor,
+                     bg: torch.Tensor,
+                     work: Optional[Dict[str, torch.Tensor]] = None
+                     ) -> torch.Tensor:
+    """The blend's gradient in plain PyTorch: step l replays the l-th
+    record of every tile for all of its pixels at once (the forward's
+    arithmetic), forms dL/dpower and reduces the nine per-record sums over
+    the tile's pixels.  Returns the per-record gradients [9, P].  With
+    `work` given, it also counts the pixel evaluations up to termination
+    ("evals") and the contributions ("contribs")."""
+    dev = records.device
+    num_tiles = tiles_x * tiles_y
+    px, py, live = _pixel_grid(tiles_x, tiles_y, height, width, dev)
+    g = _tile(grad, tiles_x, tiles_y)                      # [3, T, 1024]
+    acc = _tile(rgb, tiles_x, tiles_y)
+    t_fin = _tile(t_final[None], tiles_x, tiles_y)[0]
+    gtot = ((acc[0] * g[0] + acc[1] * g[1] + acc[2] * g[2])
+            + (bg[0] * g[0] + bg[1] * g[1] + bg[2] * g[2]) * t_fin)
+    trans = torch.ones((num_tiles, TILE * TILE), device=dev)
+    prefix = torch.zeros((num_tiles, TILE * TILE), device=dev)
+    out = torch.zeros_like(records)
+    start = tile_start.to(torch.int64)
+    count = (tile_end - tile_start).to(torch.int64)
+    evals = torch.zeros((), dtype=torch.int64, device=dev)
+    contribs = torch.zeros((), dtype=torch.int64, device=dev)
+    steps = int(count.max()) if num_tiles else 0
+    for step in range(steps):
+        has = count > step
+        rows = torch.where(has, start + step, 0)
+        rec = records[:, rows][:, :, None]
+        mx, my, ca, cb, cc, op = rec[0], rec[1], rec[2], rec[3], rec[4], rec[5]
+        dx = mx - px
+        dy = my - py
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        alpha = torch.clamp_max(op * torch.exp(power), ALPHA_MAX)
+        todo = live & has[:, None]
+        ok = todo & (power <= 0.0) & (alpha >= ALPHA_MIN)
+        one_m = 1.0 - alpha
+        test_t = trans * one_m
+        stop = ok & (test_t < T_EPS)
+        contrib = ok & ~stop
+        w = torch.where(contrib, alpha * trans, 0.0)
+        gc = rec[6] * g[0] + rec[7] * g[1] + rec[8] * g[2]
+        prefix = torch.where(contrib, prefix + gc * w, prefix)
+        d_alpha = torch.where(
+            contrib, gc * trans - (gtot - prefix)
+            / torch.clamp_min(one_m, 1.0 - ALPHA_MAX), 0.0)
+        d_power = torch.where(alpha < ALPHA_MAX, d_alpha * alpha, 0.0)
+        dpx = d_power * dx
+        dpy = d_power * dy
+        s = torch.stack([d_power, dpx, dpy, dpx * dx, dpx * dy, dpy * dy,
+                         g[0] * w, g[1] * w, g[2] * w]).sum(dim=-1)
+        ca, cb, cc, op = ca[:, 0], cb[:, 0], cc[:, 0], op[:, 0]
+        grads = torch.stack([-(ca * s[1] + cb * s[2]),
+                             -(cb * s[1] + cc * s[2]),
+                             -0.5 * s[3], -s[4], -0.5 * s[5],
+                             s[0] / torch.clamp_min(op, OP_MIN),
+                             s[6], s[7], s[8]])             # [9, T]
+        out[:, rows[has]] = grads[:, has]
+        trans = torch.where(contrib, test_t, trans)
+        live = live & ~stop
+        if work is not None:
+            evals += todo.sum()
+            contribs += contrib.sum()
+    if work is not None:
+        work["evals"] = evals
+        work["contribs"] = contribs
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_kernel():
+    fn = cuda_lib.load(BWD_KERNEL).raster_bwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, p, p, p, p, p, p]
+    fn.restype = i
+    return fn
+
+
+def raster_bwd(records: torch.Tensor, tile_start: torch.Tensor,
+               tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
+               height: int, width: int, grad: torch.Tensor,
+               rgb: torch.Tensor, t_final: torch.Tensor, bg: torch.Tensor
+               ) -> torch.Tensor:
+    """Per-record gradients [9, P] of the blend (rows mx, my, ca, cb, cc,
+    op, r, g, b) for the image cotangent `grad` [3, Hp, Wp]."""
+    _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y)
+    _check_bwd_inputs(records, tiles_x, tiles_y, grad, rgb, t_final, bg)
+    if records.device.type == "cpu":
+        return raster_bwd_plain(records, tile_start, tile_end, tiles_x,
+                                tiles_y, height, width, grad, rgb, t_final,
+                                bg)
+    if records.device.type != "cuda":
+        raise ValueError(f"raster_bwd: unsupported device {records.device}")
+    out = torch.zeros_like(records)
+    fn = _bwd_kernel()
+    with torch.cuda.device(records.device):
+        stream = torch.cuda.current_stream(records.device).cuda_stream
+        err = fn(records.data_ptr(), records.shape[1],
+                 tile_start.data_ptr(), tile_end.data_ptr(), tiles_x,
+                 tiles_y, height, width, grad.data_ptr(), rgb.data_ptr(),
+                 t_final.data_ptr(), bg.data_ptr(), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err}")
+    cuda_lib.LAUNCHES[BWD_KERNEL] += 1
+    return out

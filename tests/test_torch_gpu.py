@@ -2,23 +2,35 @@
 there is no card).  These need no JAX, so they run on a machine without
 it:  python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-The blend kernel is built with --fmad=false and repeats its plain
-version's float32 operations in the same order, so the two agree to the
-CPU tests' bound of 1e-5 (in practice bit for bit, up to the library exp).
+The blend kernels are built with --fmad=false and repeat their plain
+versions' float32 operations in the same order, so the forwards agree to
+the CPU tests' bound of 1e-5 (in practice bit for bit, up to the library
+exp).  The backward's per-record sums over a tile's 1024 pixels are taken
+in another order than the plain version's, so each of its nine rows is
+held to 1e-5 of that row's largest |value|.
 """
+import dataclasses
 import math
 
+import numpy as np
 import pytest
 import torch
 
+from splatco_torch.config import ModelConfig, OptimizationConfig
+from splatco_torch.data.cameras import look_at_camera
+from splatco_torch.models.splatco import init_model
 from splatco_torch.ops import cuda_lib
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import tile_grid
-from splatco_torch.ops.rasterize_cuda import (KERNEL, raster_fwd,
+from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, KERNEL, raster_bwd,
+                                              raster_bwd_plain, raster_fwd,
                                               raster_fwd_plain)
+from splatco_torch.train.optimizer import make_optimizer
+from splatco_torch.train.step import init_stats, make_train_step
 
 pytestmark = pytest.mark.gpu
+BWD_TOL = 1e-5  # of each row's max |value|: pixel sums in another order
 
 
 @pytest.fixture
@@ -65,3 +77,78 @@ def test_raster_fwd_kernel_matches_plain(card, n, h, w):
     assert float((t_fin - p_t).abs().max()) <= 1e-5
     again, _ = raster_fwd(*args)
     assert torch.equal(rgb, again)  # no atomics: run to run identical
+
+
+@pytest.mark.parametrize("n,h,w", [(3000, 200, 300), (0, 64, 64),
+                                   (500, 37, 70)])
+def test_raster_bwd_kernel_matches_plain(card, n, h, w):
+    proj, colors, opac = scene(n, h, w, n + h, card)
+    tiles_x, tiles_y = tile_grid(h, w)
+    binned = bin_gaussians(proj, colors, opac, TILE, tiles_x, tiles_y)
+    args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+            tiles_y, h, w)
+    rgb, t_fin = raster_fwd(*args)
+    grad = torch.zeros_like(rgb)
+    grad[:, :h, :w] = torch.randn((3, h, w), generator=torch.Generator()
+                                  .manual_seed(n + w)).to(card)
+    bargs = args + (grad, rgb, t_fin,
+                    torch.tensor([0.2, 0.3, 0.4], device=card))
+    before = cuda_lib.LAUNCHES[BWD_KERNEL]
+    got = raster_bwd(*bargs)
+    assert cuda_lib.LAUNCHES[BWD_KERNEL] == before + 1
+    want = raster_bwd_plain(*bargs)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == binned.records.shape
+    if want.numel():
+        scale = want.abs().amax(dim=1, keepdim=True)
+        assert bool(((got - want).abs() <= BWD_TOL * scale).all())
+        assert bool(scale.min() > 0)
+    again = raster_bwd(*bargs)
+    assert torch.equal(got, again)  # no atomics: run to run identical
+
+
+def toy_step(dev):
+    """One SVC step (q = 0) of a small seeded model on `dev`."""
+    cfg = ModelConfig(feat_dim=16, n_offsets=4, voxel_size=0.05,
+                      plane_size=64, num_channels=9, appearance_dim=0,
+                      contractor=True, scene_center=[0.0, 0.0, 0.0],
+                      scene_length=[2.0, 2.0, 2.0])
+    pts = np.random.default_rng(0).normal(size=(300, 3)).astype(
+        np.float32) * 0.4
+    params, state = init_model(cfg, pts, device=dev,
+                               generator=torch.Generator().manual_seed(0))
+    cams = [look_at_camera(e, [0, 0, 0], [0, -1, 0], 1.0, 0.75, 64, 48,
+                           uid=i, device=dev)
+            for i, e in enumerate([[0, 0, -3], [0.5, 0.3, -2.8]])]
+    gts = [torch.full((3, 48, 64), v, device=dev) for v in (0.6, 0.4)]
+    opt = OptimizationConfig()
+    tx = make_optimizer(opt, params, 1.0, 0, device=dev)
+    step = make_train_step(cfg, opt, 2, 0, tx, q_noise=0.0, device=dev)
+    return step(params, tx.init(params), state.active, state.contractor,
+                init_stats(params["anchors"]["anchor"].shape[0],
+                           cfg.n_offsets, device=dev),
+                cams, gts, torch.zeros(3, device=dev), None, 0, 1.0, 4e-7,
+                1.0)
+
+
+def leaves(tree):
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    if dataclasses.is_dataclass(tree):
+        return leaves([getattr(tree, f.name)
+                       for f in dataclasses.fields(tree)])
+    return [tree]
+
+
+def test_train_step_repeats_bit_for_bit_and_matches_cpu(card):
+    before = dict(cuda_lib.LAUNCHES)
+    first = toy_step(card)
+    assert cuda_lib.LAUNCHES[BWD_KERNEL] == before.get(BWD_KERNEL, 0) + 2
+    second = toy_step(card)
+    for a, b in zip(leaves(first[:3]), leaves(second[:3])):
+        assert torch.equal(a, b)
+    cpu = toy_step(torch.device("cpu"))
+    loss, want = float(first[3]["loss"]), float(cpu[3]["loss"])
+    assert abs(loss - want) <= 1e-4 * abs(want)

@@ -20,7 +20,7 @@ import torch
 from PIL import Image
 from test_model_render import small_cfg
 
-from splatco_torch.config import ModelConfig
+from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.eval.render_driver import load_trained, render_set
 from splatco_torch.models.contraction import Contractor
@@ -28,6 +28,8 @@ from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import (decode_kwargs, init_model,
                                           params_from_numpy)
 from splatco_torch.train.checkpoint import load_model_checkpoint
+from splatco_torch.train.optimizer import make_optimizer, opt_state_from_numpy
+from splatco_torch.train.step import init_stats, make_train_step
 from splatco_tpu.data.cameras import look_at_camera as j_look_at
 from splatco_tpu.eval import render_driver as j_driver
 from splatco_tpu.models.contraction import Contractor as j_Contractor
@@ -249,6 +251,12 @@ ENTRY_POINTS = {
     "look_at_camera": lambda: look_at_camera(*CAM),
     "load_trained": lambda: load_trained(port_cfg(small_cfg())),
     "load_model_checkpoint": lambda: load_model_checkpoint("unused", 1),
+    "make_optimizer": lambda: make_optimizer(OptimizationConfig(), {}, 1.0,
+                                             0),
+    "make_train_step": lambda: make_train_step(
+        port_cfg(small_cfg()), OptimizationConfig(), 2, 0, tx=None),
+    "init_stats": lambda: init_stats(8, 4),
+    "opt_state_from_numpy": lambda: opt_state_from_numpy({}),
 }
 
 
