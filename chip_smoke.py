@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the splatco_torch render and training paths on one NVIDIA card and
+"""Drive the splatco_torch render and training paths on one NVIDIA card, in
+both rasterizer configurations (32 px tiles, v2; 16 px tiles, v3), and
 hold each CUDA kernel against its plain PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--frames N] [--steps N]
@@ -34,8 +35,21 @@ Run from the repository root.  Phases, each of which fails loudly:
   9. determinism: two full-width steps from the same state must give
      bit-identical params, optimizer state and statistics,
  10. one step of a small model on the card and on the CPU: the losses
-     must agree.
-Prints a `kernels` JSON line, then, as the last line,
+     must agree,
+ 11. v3 kernel checks: phase 3's scene binned on the 16 px grid (kmax
+     32), the 16 px blend kernel and its backward against their plain
+     versions; two backward launches must be bit-identical,
+ 12. v3 render at full width: the same model through
+     `render_set(..., tile16=True)` with kmax 32; the 16 px forward
+     kernel's launches must equal the frames and no other kernel may
+     launch; one frame's stages, the kernel timed against its plain
+     version, with its bound,
+ 13. v3 training at full width: phase 7 with `make_train_step(...,
+     tile16=True)` and kmax 32: each 16 px kernel launches mv times per
+     step and the 32 px kernels never; the 16 px backward timed at a
+     training view against its plain version, with its bound; two steps
+     from one state bit-identical.
+Prints a `kernels` JSON line (all four kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
 there is no CUDA card.
 """
@@ -43,6 +57,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import math
 import subprocess
@@ -60,12 +75,13 @@ from splatco_torch.eval.render_driver import render_set
 from splatco_torch.models.renderer import (generate_neural_gaussians,
                                            prefilter_voxel, render)
 from splatco_torch.models.splatco import decode_kwargs, init_model
-from splatco_torch.ops import cuda_lib
-from splatco_torch.ops.binning import TILE, bin_gaussians
+from splatco_torch.ops import cuda_lib, raster_v3
+from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.losses import l1_loss, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
-from splatco_torch.ops.rasterize import tile_grid
-from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, KERNEL, raster_bwd,
+from splatco_torch.ops.rasterize import bin_frame, tile_grid
+from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
+                                              FWD_KERNELS, KERNEL, raster_bwd,
                                               raster_bwd_plain, raster_fwd,
                                               raster_fwd_plain)
 from splatco_torch.train.optimizer import (group_schedules, label_params,
@@ -99,6 +115,19 @@ RASTER_BWD_TOL = 1e-5
 WIDTH, HEIGHT = 1600, 1088
 MV = PipelineConfig().mv  # views per training step: 4
 TERMS = dict(consistency_on=1.0, tv_w=4e-7, stats_on=1.0)
+# v3's kmax counts 16 px tiles: the JAX trainer's kmax_cap
+# (splatco_tpu/train/loop.py), which its auto-escalation reaches once rects
+# clip
+KMAX_V3 = 32
+KERNEL16 = FWD_KERNELS[raster_v3.TILE]
+BWD_KERNEL16 = BWD_KERNELS[raster_v3.TILE]
+# each kernel's C entry point and the TPU kernel it replaces
+REPLACES = {
+    KERNEL: "splatco_tpu/ops/rasterize_pallas.py:182",
+    BWD_KERNEL: "splatco_tpu/ops/rasterize_pallas.py:241",
+    KERNEL16: "splatco_tpu/ops/raster_v3.py:420",
+    BWD_KERNEL16: "splatco_tpu/ops/raster_v3.py:467",
+}
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -142,29 +171,39 @@ def random_projected_scene(n: int, seed: int, dev: torch.device):
             opac.to(dev))
 
 
-def compare_kernel(binned, tiles_x, tiles_y, work=None):
+def grid(tile16: bool):
+    """(tiles_x, tiles_y) of the configuration at WIDTH x HEIGHT."""
+    return (raster_v3.tile_grid if tile16 else tile_grid)(HEIGHT, WIDTH)
+
+
+def tile_of(tile16: bool) -> int:
+    return raster_v3.TILE if tile16 else TILE
+
+
+def compare_kernel(binned, tiles_x, tiles_y, work=None, tile=TILE):
     """Max |kernel - plain| of rgb and of T on the same binned records."""
     args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
             tiles_y, HEIGHT, WIDTH)
-    rgb, t_fin = raster_fwd(*args)
-    p_rgb, p_t = raster_fwd_plain(*args, work=work)
+    rgb, t_fin = raster_fwd(*args, tile=tile)
+    p_rgb, p_t = raster_fwd_plain(*args, work=work, tile=tile)
     torch.cuda.synchronize()
     return (float((rgb - p_rgb).abs().max()),
             float((t_fin - p_t).abs().max()))
 
 
-def compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin, bg, work=None):
+def compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin, bg, work=None,
+                tile=TILE):
     """Max |kernel - plain| of the backward on the same inputs, and the
     largest of the nine rows' max |d| over that row's max |value|.  Two
     kernel launches must agree bit for bit."""
     args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
             tiles_y, HEIGHT, WIDTH, grad, rgb, t_fin, bg)
-    got = raster_bwd(*args)
-    again = raster_bwd(*args)
-    want = raster_bwd_plain(*args, work=work)
+    got = raster_bwd(*args, tile=tile)
+    again = raster_bwd(*args, tile=tile)
+    want = raster_bwd_plain(*args, work=work, tile=tile)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise AssertionError("two raster_bwd launches differ")
+        raise AssertionError(f"two {tile} px backward launches differ")
     diff = (got - want).abs()
     scale = want.abs().amax(dim=1).clamp_min(1e-30)
     return float(diff.max()), float((diff.amax(dim=1) / scale).max())
@@ -177,6 +216,36 @@ def bound(n_bytes: int, n_ops: int):
     ops_ms = 1e3 * n_ops / PEAK_FP32_PER_S
     return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
+
+
+def fwd_bound(binned, work, tiles_x, tiles_y, tile):
+    """The blend's bound on these inputs: each record read once (9
+    floats), each tile's range, rgb and T written once per pixel; the
+    operations of the evaluations and contributions `work` counted."""
+    pairs = binned.records.shape[1]
+    n_bytes = (9 * 4 * pairs + 2 * 4 * tiles_x * tiles_y
+               + 4 * 4 * tiles_x * tiles_y * tile * tile)
+    evals, contribs = int(work["evals"]), int(work["contribs"])
+    bnd = bound(n_bytes, OPS_PER_EVAL * evals + OPS_PER_CONTRIB * contribs)
+    print(f"{tile} px blend work: {pairs} pairs, {evals} pixel evaluations, "
+          f"{contribs} contributions, {n_bytes} bytes; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})")
+    return bnd
+
+
+def bwd_bound(binned, work, tiles_x, tiles_y, tile):
+    """The backward's bound: records read and gradients written once,
+    the ranges, and grad, rgb and T read once per pixel."""
+    pairs = binned.records.shape[1]
+    pixels = tiles_x * tiles_y * tile * tile
+    n_bytes = 2 * 9 * 4 * pairs + 2 * 4 * tiles_x * tiles_y + 7 * 4 * pixels
+    evals, contribs = int(work["evals"]), int(work["contribs"])
+    bnd = bound(n_bytes, OPS_PER_EVAL_BWD * evals
+                + OPS_PER_CONTRIB_BWD * contribs + OPS_PER_RECORD_BWD * pairs)
+    print(f"{tile} px blend backward work: {pairs} pairs, {evals} pixel "
+          f"evaluations, {contribs} contributions, {n_bytes} bytes; bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})")
+    return bnd
 
 
 def quickstart_config() -> ModelConfig:
@@ -195,11 +264,11 @@ def orbit_cameras(n: int, dev: torch.device):
             for i in range(n)]
 
 
-def frame_stages(params, state, cam, cfg, level):
-    """One frame's stages as render() runs them, each timed with CUDA
-    events (and named for torch.profiler); returns (binned records,
-    {stage: ms})."""
-    tiles_x, tiles_y = tile_grid(cam.image_height, cam.image_width)
+def frame_stages(params, state, cam, cfg, level, tile16=False):
+    """One frame's stages as render() runs them in the configuration, each
+    timed with CUDA events (and named for torch.profiler); returns (binned
+    records, {stage: ms})."""
+    tiles_x, tiles_y = grid(tile16)
     marks = []
 
     @contextlib.contextmanager
@@ -223,11 +292,12 @@ def frame_stages(params, state, cam, cfg, level):
         proj = proj._replace(radius=torch.where(g["opacity"] > 0.0,
                                                 proj.radius, 0.0))
     with stage("binning"):
-        binned = bin_gaussians(proj, g["color"], g["opacity"], TILE,
-                               tiles_x, tiles_y, kmax=cfg.kmax)
+        binned = bin_frame(proj, g["color"], g["opacity"], tile_of(tile16),
+                           HEIGHT, WIDTH, cfg.kmax)[0]
     with stage("blend"):
         raster_fwd(binned.records, binned.tile_start, binned.tile_end,
-                   tiles_x, tiles_y, cam.image_height, cam.image_width)
+                   tiles_x, tiles_y, cam.image_height, cam.image_width,
+                   tile=tile_of(tile16))
     marks[-1][2].synchronize()
     return binned, {name: a.elapsed_time(b) for name, a, b in marks}
 
@@ -335,11 +405,13 @@ class StageTimer:
 
 class Trainer:
     """The training main path at one size: mv orbit views with smooth
-    targets, the default OptimizationConfig, every loss term on.  `step`
-    takes one SVC step from the carried (params, opt_state, stats)."""
+    targets, the default OptimizationConfig, every loss term on, in the
+    rasterizer configuration `tile16`.  `step` takes one SVC step from the
+    carried (params, opt_state, stats)."""
 
-    def __init__(self, params, state, cfg, seed, dev):
+    def __init__(self, params, state, cfg, seed, dev, tile16=False):
         self.state, self.cfg, self.dev = state, cfg, dev
+        self.tile16 = tile16
         self.cams = orbit_cameras(MV, dev)
         self.gts = smooth_targets(MV, seed, dev)
         self.bg = torch.zeros(3, device=dev)
@@ -364,7 +436,7 @@ class Trainer:
                            self.cfg.n_offsets, device=self.dev)
         self.carry = (params, opt_state, stats)
         self.fn = make_train_step(self.cfg, self.opt, MV, level, self.tx,
-                                  device=self.dev)
+                                  device=self.dev, tile16=self.tile16)
 
     def step(self, stage=None, carry=None, generator=None):
         carry = carry or self.carry
@@ -402,15 +474,16 @@ class Trainer:
         return moved, trained
 
 
-def train_phase(params, state, cfg, args, dev):
-    """Phase 7: returns the trainer (its carry is the state after the last
-    step), the launches and ms/step."""
-    trainer = Trainer(params, state, cfg, args.seed, dev)
+def train_phase(params, state, cfg, args, dev, tile16=False):
+    """Phases 7 and 13: returns the trainer (its carry is the state after
+    the last step), the launches and ms/step."""
+    trainer = Trainer(params, state, cfg, args.seed, dev, tile16)
     before = flat(params)
     metrics = []
     cuda_lib.LAUNCHES.clear()
     metrics.append(trainer.step())  # warm-up
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -421,6 +494,7 @@ def train_phase(params, state, cfg, args, dev):
     stop.synchronize()
     wall_ms = 1e3 * (time.perf_counter() - t0) / args.steps
     step_ms = start.elapsed_time(stop) / args.steps
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     timer = StageTimer()
     metrics.append(trainer.step(stage=timer))
     stages = timer.ms()
@@ -437,11 +511,13 @@ def train_phase(params, state, cfg, args, dev):
 
     losses = [{k: float(m[k]) for k in ("loss", "l1", "con")}
               for m in metrics]
-    print(f"training: {MV} views at {WIDTH}x{HEIGHT}, {n_steps} steps "
+    print(f"training ({tile_of(tile16)} px tiles, kmax {cfg.kmax}): {MV} "
+          f"views at {WIDTH}x{HEIGHT}, {n_steps} steps "
           f"(1 warm-up, {args.steps} timed, 1 staged at level 0; 2 at "
           f"level 2), spatial lr scale {trainer.extent:.4f}; "
           f"{step_ms:.3f} ms/step (CUDA events), {wall_ms:.3f} ms/step "
-          f"(host clock); launches {launches}")
+          f"(host clock), peak device memory {peak_gib:.3f} GiB; launches "
+          f"{launches}")
     print(f"loss trajectory: {json.dumps([round(l['loss'], 6) for l in losses])}")
     print(f"l1 {json.dumps([round(l['l1'], 6) for l in losses])} con "
           f"{json.dumps([round(l['con'], 6) for l in losses])}")
@@ -454,10 +530,11 @@ def train_phase(params, state, cfg, args, dev):
         raise AssertionError("a training loss is not finite")
     if not losses[0]["con"] > 0.0:
         raise AssertionError("the consistency term did not run")
-    for name in (KERNEL, BWD_KERNEL):
-        if launches.get(name, 0) != MV * n_steps:
-            raise AssertionError(f"{name} launched {launches.get(name, 0)} "
-                                 f"times for {n_steps} steps of {MV} views")
+    kernels = (FWD_KERNELS[tile_of(tile16)], BWD_KERNELS[tile_of(tile16)])
+    if launches != {name: MV * n_steps for name in kernels}:
+        raise AssertionError(f"training launched {launches} for {n_steps} "
+                             f"steps of {MV} views: each of {kernels} "
+                             f"{MV * n_steps} times, nothing else")
     return trainer, launches, step_ms
 
 
@@ -468,11 +545,12 @@ def view_cotangent(trainer, view: int):
     params, cfg, cam = trainer.carry[0], trainer.cfg, trainer.cams[view]
     with torch.no_grad():
         binned, _ = frame_stages(params, trainer.state, cam, cfg,
-                                 trainer.level)
-        tiles_x, tiles_y = tile_grid(cam.image_height, cam.image_width)
+                                 trainer.level, trainer.tile16)
+        tiles_x, tiles_y = grid(trainer.tile16)
         rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
                                 binned.tile_end, tiles_x, tiles_y,
-                                cam.image_height, cam.image_width)
+                                cam.image_height, cam.image_width,
+                                tile=tile_of(trainer.tile16))
     image = (rgb + trainer.bg[:, None, None] * t_fin[None])[
         :, :HEIGHT, :WIDTH].requires_grad_()
     lam = trainer.opt.lambda_dssim
@@ -543,6 +621,138 @@ def small_step_agrees(seed: int, dev: torch.device) -> float:
     return rel
 
 
+def kernel_checks(proj, colors, opac, seed: int, dev, tile16: bool,
+                  kmax: int):
+    """Phases 3 and 11: the blend kernel and its backward of the
+    configuration against their plain versions on a random scene."""
+    tile = tile_of(tile16)
+    binned, tiles_x, tiles_y = bin_frame(proj, colors, opac, tile, HEIGHT,
+                                         WIDTH, kmax)
+    err_rgb, err_t = compare_kernel(binned, tiles_x, tiles_y, tile=tile)
+    print(f"random scene, {tile} px tiles, kmax {kmax}: "
+          f"{binned.records.shape[1]} pairs, clipped "
+          f"{int(binned.num_clipped)}; kernel vs plain max |d| rgb "
+          f"{err_rgb:.3e} T {err_t:.3e} (tolerance {RASTER_TOL})")
+    if not max(err_rgb, err_t) <= RASTER_TOL:
+        raise AssertionError(f"the {tile} px blend kernel disagrees with its "
+                             "plain version")
+    rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
+                            binned.tile_end, tiles_x, tiles_y, HEIGHT, WIDTH,
+                            tile=tile)
+    grad = torch.zeros_like(rgb)
+    grad[:, :HEIGHT, :WIDTH] = torch.randn(
+        (3, HEIGHT, WIDTH), generator=torch.Generator().manual_seed(
+            seed)).to(dev)
+    err_abs, err_row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb,
+                                   t_fin, torch.tensor([0.2, 0.3, 0.4],
+                                                       device=dev),
+                                   tile=tile)
+    print(f"random scene, {tile} px tiles: backward kernel vs plain max "
+          f"|d| {err_abs:.3e}, largest row-relative {err_row:.3e} "
+          f"(tolerance {RASTER_BWD_TOL}); two launches bit-identical")
+    if not err_row <= RASTER_BWD_TOL:
+        raise AssertionError(f"the {tile} px backward kernel disagrees with "
+                             "its plain version")
+
+
+def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
+    """Phases 4-5 and 12: `render_set` over `cams` in the configuration
+    (launches counted from 0 around it), frame 0's render and stages, and
+    the blend kernel at frame 0's shapes against its plain version and
+    its bound.  Returns the kernel's numbers."""
+    tile = tile_of(tile16)
+    name = FWD_KERNELS[tile]
+    frames = len(cams)
+    with tempfile.TemporaryDirectory() as out_dir:
+        cuda_lib.LAUNCHES.clear()
+        fps = render_set(out_dir, "orbit", 0, cams, params, state.active,
+                         state.contractor, level, cfg, tile16=tile16)
+        launches = dict(cuda_lib.LAUNCHES)
+    print(f"render_set ({tile} px tiles, kmax {cfg.kmax}): {frames} frames "
+          f"at {WIDTH}x{HEIGHT}, {1e3 / fps:.3f} ms/frame (CUDA events, "
+          f"after a warm-up frame); launches {launches}")
+    if launches != {name: frames}:
+        raise AssertionError(f"render_set launched {launches} for {frames} "
+                             "frames")
+
+    tiles_x, tiles_y = grid(tile16)
+    with torch.inference_mode():
+        vis = prefilter_voxel(params["anchors"], state.active, cams[0])
+        out = render(params, state.active, state.contractor, cams[0],
+                     torch.zeros(3, device=dev), visible_mask=vis,
+                     activate_level=level, kmax=cfg.kmax, tile16=tile16,
+                     **decode_kwargs(cfg))
+        img = out.image
+        if img.shape != (3, HEIGHT, WIDTH) or not bool(
+                torch.isfinite(img).all()) or not float(img.std()) > 0:
+            raise AssertionError("main-path image is not finite and varied")
+        print(f"frame 0 ({tile} px tiles): {out.num_pairs} pairs, "
+              f"num_clipped {int(out.num_clipped)}, max_slots "
+              f"{int(out.max_slots)}, selected "
+              f"{int(out.selection_mask.sum())} gaussians, image mean "
+              f"{float(img.mean()):.4f} std {float(img.std()):.4f}")
+
+        frame_stages(params, state, cams[0], cfg, level, tile16)  # warm-up
+        binned, stages = frame_stages(params, state, cams[0], cfg, level,
+                                      tile16)
+        print(f"frame 0 stages ms ({tile} px tiles, CUDA events): "
+              f"{json.dumps(stages)}")
+        work = {}
+        err_rgb, err_t = compare_kernel(binned, tiles_x, tiles_y, work,
+                                        tile=tile)
+        err = max(err_rgb, err_t)
+        print(f"main path ({tile} px tiles): kernel vs plain max |d| rgb "
+              f"{err_rgb:.3e} T {err_t:.3e}")
+        if not err <= RASTER_TOL:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 "at the main path's shapes")
+        rargs = (binned.records, binned.tile_start, binned.tile_end,
+                 tiles_x, tiles_y, HEIGHT, WIDTH)
+        kernel_ms = cuda_time_ms(lambda: raster_fwd(*rargs, tile=tile), 20)
+        plain_ms = cuda_time_ms(
+            lambda: raster_fwd_plain(*rargs, tile=tile), 2)
+    bnd = fwd_bound(binned, work, tiles_x, tiles_y, tile)
+    print(f"{name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms")
+    return {"launches": launches, "err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound": bnd}
+
+
+def backward_at_view(trainer):
+    """Phases 8 and 13: the configuration's backward kernel at a training
+    view's shapes (with that view's loss cotangent) against its plain
+    version and its bound."""
+    tile = tile_of(trainer.tile16)
+    name = BWD_KERNELS[tile]
+    tiles_x, tiles_y = grid(trainer.tile16)
+    binned, grad, rgb, t_fin = view_cotangent(trainer, MV - 1)
+    work = {}
+    err, row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin,
+                           trainer.bg, work, tile=tile)
+    print(f"training view {MV - 1} ({tile} px tiles): backward kernel vs "
+          f"plain max |d| {err:.3e}, largest row-relative {row:.3e}")
+    if not row <= RASTER_BWD_TOL:
+        raise AssertionError(f"{name} disagrees with its plain version at "
+                             "the training path's shapes")
+    bargs = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+             tiles_y, HEIGHT, WIDTH, grad, rgb, t_fin, trainer.bg)
+    ms = cuda_time_ms(lambda: raster_bwd(*bargs, tile=tile), 20)
+    plain_ms = cuda_time_ms(lambda: raster_bwd_plain(*bargs, tile=tile), 2)
+    bnd = bwd_bound(binned, work, tiles_x, tiles_y, tile)
+    print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.2f} ms")
+    return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd}
+
+
+def entry(name, launches, numbers):
+    """One kernel's record of the `kernels` line."""
+    return {"name": name, "route": "cuda",
+            "source": f"splatco_torch/csrc/{name}.cu",
+            "replaces": REPLACES[name], "launches": launches,
+            "max_abs_err": numbers["err"], "ms": numbers["ms"],
+            "plain_ms": numbers["plain_ms"],
+            "bound_ms": numbers["bound"][0],
+            "bound_by": numbers["bound"][1], "library_ms": None}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -573,31 +783,10 @@ def main() -> int:
 
     # 3. kernel checks on a random projected scene
     proj, colors, opac = random_projected_scene(200_000, args.seed, dev)
-    tiles_x, tiles_y = tile_grid(HEIGHT, WIDTH)
-    binned = bin_gaussians(proj, colors, opac, TILE, tiles_x, tiles_y)
-    err_rgb, err_t = compare_kernel(binned, tiles_x, tiles_y)
-    print(f"random scene: {binned.records.shape[1]} pairs, clipped "
-          f"{int(binned.num_clipped)}; kernel vs plain max |d| rgb "
-          f"{err_rgb:.3e} T {err_t:.3e} (tolerance {RASTER_TOL})")
-    if not max(err_rgb, err_t) <= RASTER_TOL:
-        raise AssertionError("raster_fwd disagrees with its plain version")
-    rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
-                            binned.tile_end, tiles_x, tiles_y, HEIGHT, WIDTH)
-    grad = torch.zeros_like(rgb)
-    grad[:, :HEIGHT, :WIDTH] = torch.randn(
-        (3, HEIGHT, WIDTH), generator=torch.Generator().manual_seed(
-            args.seed)).to(dev)
-    err_abs, err_row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb,
-                                   t_fin, torch.tensor([0.2, 0.3, 0.4],
-                                                       device=dev))
-    print(f"random scene: backward kernel vs plain max |d| {err_abs:.3e}, "
-          f"largest row-relative {err_row:.3e} (tolerance "
-          f"{RASTER_BWD_TOL}); two launches bit-identical")
-    if not err_row <= RASTER_BWD_TOL:
-        raise AssertionError("raster_bwd disagrees with its plain version")
-
-    # 4. main path at full width
     cfg = quickstart_config()
+    kernel_checks(proj, colors, opac, args.seed, dev, False, cfg.kmax)
+
+    # 4-5. render path at full width
     pts = np.random.default_rng(args.seed).normal(
         size=(65536, 3)).astype(np.float32) * 1.2
     t0 = time.perf_counter()
@@ -611,110 +800,37 @@ def main() -> int:
           f", init {time.perf_counter() - t0:.1f} s")
     cams = orbit_cameras(args.frames, dev)
     level = 2
-    with tempfile.TemporaryDirectory() as out_dir:
-        cuda_lib.LAUNCHES.clear()
-        fps = render_set(out_dir, "orbit", 0, cams, params, state.active,
-                         state.contractor, level, cfg)
-        render_launches = dict(cuda_lib.LAUNCHES)
-    print(f"render_set: {args.frames} frames at {WIDTH}x{HEIGHT}, "
-          f"{1e3 / fps:.3f} ms/frame (CUDA events, after a warm-up frame)"
-          f"; launches {render_launches}")
-    if render_launches != {KERNEL: args.frames}:
-        raise AssertionError(f"render_set launched {render_launches} for "
-                             f"{args.frames} frames")
+    fwd = render_phase(params, state, cfg, cams, level, dev, False)
 
-    with torch.inference_mode():
-        vis = prefilter_voxel(params["anchors"], state.active, cams[0])
-        out = render(params, state.active, state.contractor, cams[0],
-                     torch.zeros(3, device=dev), visible_mask=vis,
-                     activate_level=level, **decode_kwargs(cfg))
-        img = out.image
-        if img.shape != (3, HEIGHT, WIDTH) or not bool(
-                torch.isfinite(img).all()) or not float(img.std()) > 0:
-            raise AssertionError("main-path image is not finite and varied")
-        print(f"frame 0: {out.num_pairs} pairs, num_clipped "
-              f"{int(out.num_clipped)}, selected "
-              f"{int(out.selection_mask.sum())} gaussians, image mean "
-              f"{float(img.mean()):.4f} std {float(img.std()):.4f}")
-
-        # 5. stages and the kernel at the main path's shapes
-        frame_stages(params, state, cams[0], cfg, level)  # warm-up
-        binned, stages = frame_stages(params, state, cams[0], cfg, level)
-        print(f"frame 0 stages ms (CUDA events): {json.dumps(stages)}")
-        work = {}
-        err_rgb, err_t = compare_kernel(binned, tiles_x, tiles_y, work)
-        err = max(err_rgb, err_t)
-        print(f"main path: kernel vs plain max |d| rgb {err_rgb:.3e} T "
-              f"{err_t:.3e}")
-        if not err <= RASTER_TOL:
-            raise AssertionError("raster_fwd disagrees with its plain "
-                                 "version at the main path's shapes")
-        rargs = (binned.records, binned.tile_start, binned.tile_end,
-                 tiles_x, tiles_y, HEIGHT, WIDTH)
-        kernel_ms = cuda_time_ms(lambda: raster_fwd(*rargs), 20)
-        plain_ms = cuda_time_ms(lambda: raster_fwd_plain(*rargs), 2)
-
-    pairs = binned.records.shape[1]
-    n_bytes = (9 * 4 * pairs + 2 * 4 * tiles_x * tiles_y
-               + 4 * 4 * tiles_x * tiles_y * TILE * TILE)
-    evals, contribs = int(work["evals"]), int(work["contribs"])
-    fwd_bound = bound(n_bytes, OPS_PER_EVAL * evals
-                      + OPS_PER_CONTRIB * contribs)
-    print(f"blend work: {pairs} pairs, {evals} pixel evaluations, "
-          f"{contribs} contributions, {n_bytes} bytes; bound "
-          f"{fwd_bound[0]:.4f} ms ({fwd_bound[1]})")
-
+    # 6. small model card vs CPU
     small_model_agrees(args.seed, dev)
 
-    # 7. training at full width
-    trainer, train_launches, step_ms = train_phase(params, state, cfg,
-                                                   args, dev)
-
-    # 8. the backward kernel at a training view's shapes
-    binned, grad, rgb, t_fin = view_cotangent(trainer, MV - 1)
-    bwd_work = {}
-    bwd_err, bwd_row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb,
-                                   t_fin, trainer.bg, bwd_work)
-    print(f"training view {MV - 1}: backward kernel vs plain max |d| "
-          f"{bwd_err:.3e}, largest row-relative {bwd_row:.3e}")
-    if not bwd_row <= RASTER_BWD_TOL:
-        raise AssertionError("raster_bwd disagrees with its plain version "
-                             "at the training path's shapes")
-    bargs = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
-             tiles_y, HEIGHT, WIDTH, grad, rgb, t_fin, trainer.bg)
-    bwd_ms = cuda_time_ms(lambda: raster_bwd(*bargs), 20)
-    bwd_plain_ms = cuda_time_ms(lambda: raster_bwd_plain(*bargs), 2)
-    pairs = binned.records.shape[1]
-    pixels = tiles_x * tiles_y * TILE * TILE
-    n_bytes = 2 * 9 * 4 * pairs + 2 * 4 * tiles_x * tiles_y + 7 * 4 * pixels
-    evals, contribs = int(bwd_work["evals"]), int(bwd_work["contribs"])
-    bwd_bound = bound(n_bytes, OPS_PER_EVAL_BWD * evals
-                      + OPS_PER_CONTRIB_BWD * contribs
-                      + OPS_PER_RECORD_BWD * pairs)
-    print(f"blend backward work: {pairs} pairs, {evals} pixel evaluations, "
-          f"{contribs} contributions, {n_bytes} bytes; bound "
-          f"{bwd_bound[0]:.4f} ms ({bwd_bound[1]}); kernel {bwd_ms:.4f} ms, "
-          f"plain {bwd_plain_ms:.2f} ms")
+    # 7-8. training at full width, the backward kernel at a training view
+    trainer, train_launches, _ = train_phase(params, state, cfg, args, dev)
+    bwd = backward_at_view(trainer)
 
     # 9. determinism, 10. small model step card vs CPU
     steps_repeat(trainer, args.seed + 1)
     small_step_agrees(args.seed, dev)
+    del trainer
 
-    def entry(name, source, line, launches, err, ms, plain, bnd):
-        return {"name": name, "route": "cuda",
-                "source": f"splatco_torch/csrc/{source}",
-                "replaces": f"splatco_tpu/ops/rasterize_pallas.py:{line}",
-                "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain, "bound_ms": bnd[0], "bound_by": bnd[1],
-                "library_ms": None}
+    # 11-13. the v3 configuration: kernel checks, render, training
+    cfg3 = dataclasses.replace(cfg, kmax=KMAX_V3)
+    kernel_checks(proj, colors, opac, args.seed, dev, True, cfg3.kmax)
+    del proj, colors, opac
+    fwd3 = render_phase(params, state, cfg3, cams, level, dev, True)
+    trainer3, train3_launches, _ = train_phase(params, state, cfg3, args,
+                                               dev, tile16=True)
+    bwd3 = backward_at_view(trainer3)
+    steps_repeat(trainer3, args.seed + 1)
 
     print(json.dumps({"kernels": [
-        entry(KERNEL, "raster_fwd.cu", 182,
-              render_launches.get(KERNEL, 0) + train_launches.get(KERNEL, 0),
-              err, kernel_ms, plain_ms, fwd_bound),
-        entry(BWD_KERNEL, "raster_bwd.cu", 241,
-              train_launches.get(BWD_KERNEL, 0), bwd_err, bwd_ms,
-              bwd_plain_ms, bwd_bound),
+        entry(KERNEL, fwd["launches"].get(KERNEL, 0)
+              + train_launches.get(KERNEL, 0), fwd),
+        entry(BWD_KERNEL, train_launches.get(BWD_KERNEL, 0), bwd),
+        entry(KERNEL16, fwd3["launches"].get(KERNEL16, 0)
+              + train3_launches.get(KERNEL16, 0), fwd3),
+        entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0), bwd3),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

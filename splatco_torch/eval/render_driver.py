@@ -12,7 +12,7 @@ import os
 import struct
 import time
 import zlib
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -77,10 +77,12 @@ def load_trained(cfg: ModelConfig, iteration: int = -1, device=None):
 def render_set(model_path: str, name: str, iteration: int,
                cameras: List[Camera], params, active: torch.Tensor,
                contractor: Contractor, activate_level: int,
-               cfg: ModelConfig) -> float:
+               cfg: ModelConfig, tile16: Optional[bool] = None) -> float:
     """Render `cameras` into <model_path>/<name>/ours_<iteration>/renders
     (and gt/ where a camera has an image); returns frames per second,
-    timed with CUDA events on the card and the host clock on the CPU."""
+    timed with CUDA events on the card and the host clock on the CPU.
+    `tile16` picks the rasterizer configuration (ops/rasterize.py; None:
+    the SPLATCO_RASTER switch)."""
     out_dir = os.path.join(model_path, name, f"ours_{iteration}")
     render_dir = os.path.join(out_dir, "renders")
     gt_dir = os.path.join(out_dir, "gt")
@@ -95,7 +97,7 @@ def render_set(model_path: str, name: str, iteration: int,
         vis = prefilter_voxel(params["anchors"], active, cam)
         return render(params, active, contractor, cam, bg, visible_mask=vis,
                       activate_level=activate_level, kmax=cfg.kmax,
-                      **dkw).image
+                      tile16=tile16, **dkw).image
 
     on_card = dev.type == "cuda"
     images = []

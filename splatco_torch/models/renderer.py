@@ -173,13 +173,15 @@ def render(
     generator: Optional[torch.Generator] = None,
     kmax: int = 12,
     plane_feats=None,
+    tile16: Optional[bool] = None,
     **decode_kwargs,
 ) -> RenderOutput:
     """Full render: decode -> EWA projection -> binning -> blend.  In
     training (`is_training`) the tri-plane features get U(-1/2, 1/2) *
     q_noise noise drawn from `generator`; eval uses q = 0.
     `viewspace_proxy` [C*K, 2], when given, is added to the projected
-    means (see the module docstring)."""
+    means (see the module docstring).  `tile16` picks the rasterizer
+    configuration (ops/rasterize.py; None: the SPLATCO_RASTER switch)."""
     if visible_mask is None:
         visible_mask = active
     g = generate_neural_gaussians(
@@ -197,7 +199,7 @@ def render(
     proj = proj._replace(mx=mx, my=my, radius=radius)
     image, aux = rasterize(proj, g["color"], g["opacity"], bg,
                            camera.image_height, camera.image_width,
-                           kmax=kmax, return_aux=True)
+                           kmax=kmax, return_aux=True, tile16=tile16)
     radii = radius.to(torch.int32)
     return RenderOutput(
         image=image,

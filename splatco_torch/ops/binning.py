@@ -1,4 +1,6 @@
-"""Tile binning on the 32 px grid (counterpart of splatco_tpu/ops/binning.py).
+"""Tile binning (counterpart of splatco_tpu/ops/binning.py) on the 32 px
+grid of the v2 configuration, or at any tile size: ops/raster_v3.py bins
+the v3 configuration's 16 px grid with the same steps.
 
   1. per-gaussian tile rects, clipped to `kmax` tiles around the centre
      (`_rects`, identical to the JAX package's, with the `num_clipped`
@@ -122,22 +124,42 @@ def _slot_grid(mx, my, ca, cb, cc, op, x0, y0, sx_c, counts,
                        num_tiles).to(torch.int32)
 
 
+def slot_tiles(proj: ProjectedCols, opacities: torch.Tensor,
+               tile_size: int, tiles_x: int, tiles_y: int, kmax: int):
+    """(tile_of_slot [kmax, N] int32 with `num_tiles` for an invalid slot,
+    clipped [N] bool): steps 1-2 above."""
+    x0, y0, sx_c, counts, clipped = _rects(
+        proj.mx, proj.my, proj.radius.to(torch.float32), tile_size,
+        tiles_x, tiles_y, kmax)
+    tile_of_slot = _slot_grid(proj.mx, proj.my, proj.ca, proj.cb, proj.cc,
+                              opacities.to(torch.float32), x0, y0, sx_c,
+                              counts, tile_size, tiles_x, kmax,
+                              tiles_x * tiles_y)
+    return tile_of_slot, clipped
+
+
 def bin_gaussians(proj: ProjectedCols, colors: torch.Tensor,
                   opacities: torch.Tensor, tile_size: int, tiles_x: int,
                   tiles_y: int, kmax: int = 12) -> BinnedGaussians:
     """Bin projected gaussians into depth-ordered per-tile segments.
     colors [N,3], opacities [N]; gaussians with radius 0 emit nothing."""
+    tile_of_slot, clipped = slot_tiles(proj, opacities, tile_size, tiles_x,
+                                       tiles_y, kmax)
+    return bin_slots(proj, colors, opacities, tile_of_slot, clipped,
+                     tiles_x * tiles_y)
+
+
+def bin_slots(proj: ProjectedCols, colors: torch.Tensor,
+              opacities: torch.Tensor, tile_of_slot: torch.Tensor,
+              clipped: torch.Tensor, num_tiles: int) -> BinnedGaussians:
+    """Steps 3-5 above for a slot grid [kmax, N]: slot j of a gaussian is
+    emitted j-major, so among gaussians at equal depth in one tile the
+    lower slot rank, then the lower gaussian index, comes first."""
     n = proj.mx.shape[0]
-    num_tiles = tiles_x * tiles_y
+    kmax = tile_of_slot.shape[0]
     mx, my = proj.mx, proj.my
     ca, cb, cc = proj.ca, proj.cb, proj.cc
     op = opacities.to(torch.float32)
-    rad = proj.radius.to(torch.float32)
-
-    x0, y0, sx_c, counts, clipped = _rects(
-        mx, my, rad, tile_size, tiles_x, tiles_y, kmax)
-    tile_of_slot = _slot_grid(mx, my, ca, cb, cc, op, x0, y0, sx_c, counts,
-                              tile_size, tiles_x, kmax, num_tiles)
     valid = tile_of_slot < num_tiles
     max_slots = valid.sum(dim=0).max() if n else torch.zeros(
         (), dtype=torch.int64, device=mx.device)

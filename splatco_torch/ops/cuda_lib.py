@@ -3,8 +3,8 @@
 Each source `splatco_torch/csrc/<name>.cu` has a plain C interface and is
 compiled by `nvcc` for `sm_90a` into its own shared library, loaded with
 `ctypes`.  Libraries go to `splatco_torch/_build/` (gitignored) under a
-name that hashes the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded.  Nothing is built at import: `build`
+name that hashes the source, every header in `csrc/` and the flags, so an
+edited source or header is rebuilt and a stale library is never loaded.  Nothing is built at import: `build`
 runs on first use, or up front (one `nvcc` per source, all started
 together) when a script calls it.
 
@@ -53,7 +53,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
+    """The library of `csrc/<name>.cu`, named by a hash of the source, the
+    headers it may include (every `csrc/*.cuh`) and the flags."""
+    parts = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in parts)
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

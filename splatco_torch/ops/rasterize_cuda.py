@@ -1,17 +1,21 @@
 """Tile alpha-blend forward and backward: the CUDA kernels' wrappers and
 their plain PyTorch versions (counterparts of `_fwd_kernel` /
 `forward_pallas` and `_bwd_kernel` / `backward_pallas` in
-splatco_tpu/ops/rasterize_pallas.py).
+splatco_tpu/ops/rasterize_pallas.py), for a pixel tile of 32 px (the v2
+configuration, the default) or 16 px (the v3 configuration: see
+ops/raster_v3.py).
 
 `raster_fwd` takes the binned records (SoA [9, P] float32: mx, my, ca, cb,
-cc, op, r, g, b; per-tile [start, end) int32) and returns rgb [3, Hp, Wp]
-(no background) and the final transmittance [Hp, Wp] in image layout.
+cc, op, r, g, b; per-tile [start, end) int32, tiles row-major) and returns
+rgb [3, Hp, Wp] (no background) and the final transmittance [Hp, Wp] in
+image layout, Hp = tile * tiles_y, Wp = tile * tiles_x.
 `raster_bwd` takes the same records, the image's cotangent [3, Hp, Wp]
 (zero outside H x W), the forward's rgb and T_final and the background
 [3], and returns the per-record gradients [9, P] in record order.
-For CUDA tensors each launches its kernel (`csrc/raster_fwd.cu`,
-`csrc/raster_bwd.cu`); for CPU tensors it runs its plain version.  There
-is no fallback from one to the other.
+For CUDA tensors each launches its kernel for the tile size
+(`csrc/raster_fwd.cu`, `csrc/raster_bwd.cu` at 32 px;
+`csrc/raster_fwd16.cu`, `csrc/raster_bwd16.cu` at 16 px); for CPU tensors
+it runs its plain version.  There is no fallback from one to the other.
 
 The plain versions are vectorised over tiles and pixels and serial over
 each tile's records, so they round exactly as the kernels' per-pixel
@@ -36,6 +40,9 @@ T_EPS = 1e-4
 OP_MIN = 1e-12
 KERNEL = "raster_fwd"
 BWD_KERNEL = "raster_bwd"
+# kernel (and C entry point) of each pixel tile size
+FWD_KERNELS = {TILE: KERNEL, 16: "raster_fwd16"}
+BWD_KERNELS = {TILE: BWD_KERNEL, 16: "raster_bwd16"}
 
 
 def _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y):
@@ -51,37 +58,40 @@ def _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y):
 
 
 def _pixel_grid(tiles_x: int, tiles_y: int, height: int, width: int,
-                dev: torch.device):
-    """Pixel centres (px, py) [T, 1024] float32 of every tile, row-major
+                dev: torch.device, tile: int):
+    """Pixel centres (px, py) [T, tile^2] float32 of every tile, row-major
     within the tile, and the in-image mask."""
     t_idx = torch.arange(tiles_x * tiles_y, device=dev)
-    p_idx = torch.arange(TILE * TILE, device=dev)
-    x = (t_idx % tiles_x)[:, None] * TILE + (p_idx % TILE)[None, :]
-    y = (t_idx // tiles_x)[:, None] * TILE + (p_idx // TILE)[None, :]
+    p_idx = torch.arange(tile * tile, device=dev)
+    x = (t_idx % tiles_x)[:, None] * tile + (p_idx % tile)[None, :]
+    y = (t_idx // tiles_x)[:, None] * tile + (p_idx // tile)[None, :]
     return x.to(torch.float32), y.to(torch.float32), (x < width) & (
         y < height)
 
 
-def _untile(v: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
-    """[C, T, 1024] tile layout -> [C, Hp, Wp] image layout."""
+def _untile(v: torch.Tensor, tiles_x: int, tiles_y: int,
+            tile: int) -> torch.Tensor:
+    """[C, T, tile^2] tile layout -> [C, Hp, Wp] image layout."""
     c = v.shape[0]
-    return (v.reshape(c, tiles_y, tiles_x, TILE, TILE)
+    return (v.reshape(c, tiles_y, tiles_x, tile, tile)
             .permute(0, 1, 3, 2, 4)
-            .reshape(c, tiles_y * TILE, tiles_x * TILE))
+            .reshape(c, tiles_y * tile, tiles_x * tile))
 
 
-def _tile(v: torch.Tensor, tiles_x: int, tiles_y: int) -> torch.Tensor:
-    """[C, Hp, Wp] image layout -> [C, T, 1024] tile layout."""
+def _tile(v: torch.Tensor, tiles_x: int, tiles_y: int,
+          tile: int) -> torch.Tensor:
+    """[C, Hp, Wp] image layout -> [C, T, tile^2] tile layout."""
     c = v.shape[0]
-    return (v.reshape(c, tiles_y, TILE, tiles_x, TILE)
+    return (v.reshape(c, tiles_y, tile, tiles_x, tile)
             .permute(0, 1, 3, 2, 4)
-            .reshape(c, tiles_y * tiles_x, TILE * TILE))
+            .reshape(c, tiles_y * tiles_x, tile * tile))
 
 
 def raster_fwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
                      tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
                      height: int, width: int,
-                     work: Optional[Dict[str, torch.Tensor]] = None
+                     work: Optional[Dict[str, torch.Tensor]] = None,
+                     tile: int = TILE
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The blend in plain PyTorch: step l processes the l-th record of
     every tile for all of its pixels at once.  With `work` given, it also
@@ -89,9 +99,9 @@ def raster_fwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
     contributions ("contribs") this input needs."""
     dev = records.device
     num_tiles = tiles_x * tiles_y
-    px, py, live = _pixel_grid(tiles_x, tiles_y, height, width, dev)
-    trans = torch.ones((num_tiles, TILE * TILE), device=dev)
-    acc = torch.zeros((3, num_tiles, TILE * TILE), device=dev)
+    px, py, live = _pixel_grid(tiles_x, tiles_y, height, width, dev, tile)
+    trans = torch.ones((num_tiles, tile * tile), device=dev)
+    acc = torch.zeros((3, num_tiles, tile * tile), device=dev)
     start = tile_start.to(torch.int64)
     count = (tile_end - tile_start).to(torch.int64)
     evals = torch.zeros((), dtype=torch.int64, device=dev)
@@ -121,13 +131,13 @@ def raster_fwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
         work["evals"] = evals
         work["contribs"] = contribs
 
-    return (_untile(acc, tiles_x, tiles_y),
-            _untile(trans[None], tiles_x, tiles_y)[0])
+    return (_untile(acc, tiles_x, tiles_y, tile),
+            _untile(trans[None], tiles_x, tiles_y, tile)[0])
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = cuda_lib.load(KERNEL).raster_fwd
+def _kernel(name: str):
+    fn = getattr(cuda_lib.load(name), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, p, p, p]
     fn.restype = i
@@ -136,21 +146,22 @@ def _kernel():
 
 def raster_fwd(records: torch.Tensor, tile_start: torch.Tensor,
                tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
-               height: int, width: int
+               height: int, width: int, tile: int = TILE
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Blend the binned records: (rgb [3, Hp, Wp], t_final [Hp, Wp])."""
+    name = FWD_KERNELS[tile]
     _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y)
     if records.device.type == "cpu":
         return raster_fwd_plain(records, tile_start, tile_end, tiles_x,
-                                tiles_y, height, width)
+                                tiles_y, height, width, tile=tile)
     if records.device.type != "cuda":
-        raise ValueError(f"raster_fwd: unsupported device {records.device}")
-    hp, wp = tiles_y * TILE, tiles_x * TILE
+        raise ValueError(f"{name}: unsupported device {records.device}")
+    hp, wp = tiles_y * tile, tiles_x * tile
     rgb = torch.empty((3, hp, wp), dtype=torch.float32,
                       device=records.device)
     t_final = torch.empty((hp, wp), dtype=torch.float32,
                           device=records.device)
-    fn = _kernel()
+    fn = _kernel(name)
     with torch.cuda.device(records.device):
         stream = torch.cuda.current_stream(records.device).cuda_stream
         err = fn(records.data_ptr(), records.shape[1],
@@ -158,13 +169,14 @@ def raster_fwd(records: torch.Tensor, tile_start: torch.Tensor,
                  tiles_y, height, width, rgb.data_ptr(), t_final.data_ptr(),
                  stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
-    cuda_lib.LAUNCHES[KERNEL] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    cuda_lib.LAUNCHES[name] += 1
     return rgb, t_final
 
 
-def _check_bwd_inputs(records, tiles_x, tiles_y, grad, rgb, t_final, bg):
-    hp, wp = tiles_y * TILE, tiles_x * TILE
+def _check_bwd_inputs(records, tiles_x, tiles_y, grad, rgb, t_final, bg,
+                      tile):
+    hp, wp = tiles_y * tile, tiles_x * tile
     for name, t, shape in (("grad", grad, (3, hp, wp)),
                            ("rgb", rgb, (3, hp, wp)),
                            ("t_final", t_final, (hp, wp)),
@@ -181,7 +193,8 @@ def raster_bwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
                      height: int, width: int, grad: torch.Tensor,
                      rgb: torch.Tensor, t_final: torch.Tensor,
                      bg: torch.Tensor,
-                     work: Optional[Dict[str, torch.Tensor]] = None
+                     work: Optional[Dict[str, torch.Tensor]] = None,
+                     tile: int = TILE
                      ) -> torch.Tensor:
     """The blend's gradient in plain PyTorch: step l replays the l-th
     record of every tile for all of its pixels at once (the forward's
@@ -191,14 +204,14 @@ def raster_bwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
     ("evals") and the contributions ("contribs")."""
     dev = records.device
     num_tiles = tiles_x * tiles_y
-    px, py, live = _pixel_grid(tiles_x, tiles_y, height, width, dev)
-    g = _tile(grad, tiles_x, tiles_y)                      # [3, T, 1024]
-    acc = _tile(rgb, tiles_x, tiles_y)
-    t_fin = _tile(t_final[None], tiles_x, tiles_y)[0]
+    px, py, live = _pixel_grid(tiles_x, tiles_y, height, width, dev, tile)
+    g = _tile(grad, tiles_x, tiles_y, tile)                # [3, T, tile^2]
+    acc = _tile(rgb, tiles_x, tiles_y, tile)
+    t_fin = _tile(t_final[None], tiles_x, tiles_y, tile)[0]
     gtot = ((acc[0] * g[0] + acc[1] * g[1] + acc[2] * g[2])
             + (bg[0] * g[0] + bg[1] * g[1] + bg[2] * g[2]) * t_fin)
-    trans = torch.ones((num_tiles, TILE * TILE), device=dev)
-    prefix = torch.zeros((num_tiles, TILE * TILE), device=dev)
+    trans = torch.ones((num_tiles, tile * tile), device=dev)
+    prefix = torch.zeros((num_tiles, tile * tile), device=dev)
     out = torch.zeros_like(records)
     start = tile_start.to(torch.int64)
     count = (tile_end - tile_start).to(torch.int64)
@@ -250,8 +263,8 @@ def raster_bwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
 
 
 @functools.lru_cache(maxsize=None)
-def _bwd_kernel():
-    fn = cuda_lib.load(BWD_KERNEL).raster_bwd
+def _bwd_kernel(name: str):
+    fn = getattr(cuda_lib.load(name), name)
     p, i = ctypes.c_void_p, ctypes.c_int
     fn.argtypes = [p, ctypes.c_longlong, p, p, i, i, i, i, p, p, p, p, p, p]
     fn.restype = i
@@ -261,20 +274,22 @@ def _bwd_kernel():
 def raster_bwd(records: torch.Tensor, tile_start: torch.Tensor,
                tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
                height: int, width: int, grad: torch.Tensor,
-               rgb: torch.Tensor, t_final: torch.Tensor, bg: torch.Tensor
-               ) -> torch.Tensor:
+               rgb: torch.Tensor, t_final: torch.Tensor, bg: torch.Tensor,
+               tile: int = TILE) -> torch.Tensor:
     """Per-record gradients [9, P] of the blend (rows mx, my, ca, cb, cc,
     op, r, g, b) for the image cotangent `grad` [3, Hp, Wp]."""
+    name = BWD_KERNELS[tile]
     _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y)
-    _check_bwd_inputs(records, tiles_x, tiles_y, grad, rgb, t_final, bg)
+    _check_bwd_inputs(records, tiles_x, tiles_y, grad, rgb, t_final, bg,
+                      tile)
     if records.device.type == "cpu":
         return raster_bwd_plain(records, tile_start, tile_end, tiles_x,
                                 tiles_y, height, width, grad, rgb, t_final,
-                                bg)
+                                bg, tile=tile)
     if records.device.type != "cuda":
-        raise ValueError(f"raster_bwd: unsupported device {records.device}")
+        raise ValueError(f"{name}: unsupported device {records.device}")
     out = torch.zeros_like(records)
-    fn = _bwd_kernel()
+    fn = _bwd_kernel(name)
     with torch.cuda.device(records.device):
         stream = torch.cuda.current_stream(records.device).cuda_stream
         err = fn(records.data_ptr(), records.shape[1],
@@ -282,6 +297,6 @@ def raster_bwd(records: torch.Tensor, tile_start: torch.Tensor,
                  tiles_y, height, width, grad.data_ptr(), rgb.data_ptr(),
                  t_final.data_ptr(), bg.data_ptr(), out.data_ptr(), stream)
     if err != 0:
-        raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err}")
-    cuda_lib.LAUNCHES[BWD_KERNEL] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    cuda_lib.LAUNCHES[name] += 1
     return out

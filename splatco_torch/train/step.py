@@ -54,10 +54,12 @@ def init_stats(capacity: int, n_offsets: int, device=None) -> TrainStats:
 
 def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
                     activate_level: int, tx: Optimizer,
-                    q_noise: float = 0.03, device=None) -> Callable:
+                    q_noise: float = 0.03, device=None,
+                    tile16: Optional[bool] = None) -> Callable:
     """The SVC step for a fixed activate_level and mv, with the optimizer
     `tx` (train/optimizer.make_optimizer), running on `device` (default
-    the card).
+    the card).  `tile16` picks the rasterizer configuration
+    (ops/rasterize.py; None: the SPLATCO_RASTER switch).
 
     step(params, opt_state, active, contractor, stats, cameras, gts, bg,
          generator, iteration, consistency_on, tv_w, stats_on,
@@ -108,7 +110,7 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
                     viewspace_proxy=proxy if i == mv - 1 else None,
                     activate_level=activate_level, is_training=True,
                     q_noise=q_noise, generator=generator, kmax=cfg.kmax,
-                    plane_feats=plane_feats, **dkw)
+                    plane_feats=plane_feats, tile16=tile16, **dkw)
             with phase("losses"):
                 max_slots = torch.maximum(max_slots, out.max_slots)
                 num_clipped = num_clipped + out.num_clipped

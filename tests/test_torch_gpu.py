@@ -1,5 +1,6 @@
 """splatco_torch's CUDA kernels on the card (marker `gpu`; skipped where
-there is no card).  These need no JAX, so they run on a machine without
+there is no card), in both rasterizer configurations (32 px tiles, v2;
+16 px tiles, v3).  These need no JAX, so they run on a machine without
 it:  python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 The blend kernels are built with --fmad=false and repeat their plain
@@ -19,13 +20,13 @@ import torch
 from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.models.splatco import init_model
-from splatco_torch.ops import cuda_lib
+from splatco_torch.ops import cuda_lib, raster_v3
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import tile_grid
-from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, KERNEL, raster_bwd,
-                                              raster_bwd_plain, raster_fwd,
-                                              raster_fwd_plain)
+from splatco_torch.ops.rasterize_cuda import (BWD_KERNELS, FWD_KERNELS,
+                                              raster_bwd, raster_bwd_plain,
+                                              raster_fwd, raster_fwd_plain)
 from splatco_torch.train.optimizer import make_optimizer
 from splatco_torch.train.step import init_stats, make_train_step
 
@@ -60,54 +61,89 @@ def scene(n, h, w, seed, dev):
             torch.rand((n, 3), generator=g).to(dev), u(0.05, 0.99).to(dev))
 
 
-@pytest.mark.parametrize("n,h,w", [(3000, 200, 300), (0, 64, 64),
-                                   (500, 37, 70)])
-def test_raster_fwd_kernel_matches_plain(card, n, h, w):
-    proj, colors, opac = scene(n, h, w, n + h, card)
+def binned_scene(n, h, w, dev, tile16):
+    """A random scene binned in the configuration: (binned, tiles_x,
+    tiles_y, tile)."""
+    proj, colors, opac = scene(n, h, w, n + h, dev)
+    if tile16:
+        tiles_x, tiles_y = raster_v3.tile_grid(h, w)
+        return (raster_v3.bin_gaussians_v3(proj, colors, opac, tiles_x,
+                                           tiles_y, kmax=32),
+                tiles_x, tiles_y, raster_v3.TILE)
     tiles_x, tiles_y = tile_grid(h, w)
-    binned = bin_gaussians(proj, colors, opac, TILE, tiles_x, tiles_y)
+    return (bin_gaussians(proj, colors, opac, TILE, tiles_x, tiles_y),
+            tiles_x, tiles_y, TILE)
+
+
+def check_fwd_kernel(dev, n, h, w, tile16):
+    binned, tiles_x, tiles_y, tile = binned_scene(n, h, w, dev, tile16)
     args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
             tiles_y, h, w)
-    before = cuda_lib.LAUNCHES[KERNEL]
-    rgb, t_fin = raster_fwd(*args)
-    assert cuda_lib.LAUNCHES[KERNEL] == before + 1
-    p_rgb, p_t = raster_fwd_plain(*args)
+    name = FWD_KERNELS[tile]
+    before = cuda_lib.LAUNCHES[name]
+    rgb, t_fin = raster_fwd(*args, tile=tile)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    assert rgb.shape == (3, tiles_y * tile, tiles_x * tile)
+    p_rgb, p_t = raster_fwd_plain(*args, tile=tile)
     torch.cuda.synchronize()
     assert float((rgb - p_rgb).abs().max()) <= 1e-5
     assert float((t_fin - p_t).abs().max()) <= 1e-5
-    again, _ = raster_fwd(*args)
+    again, _ = raster_fwd(*args, tile=tile)
     assert torch.equal(rgb, again)  # no atomics: run to run identical
 
 
-@pytest.mark.parametrize("n,h,w", [(3000, 200, 300), (0, 64, 64),
-                                   (500, 37, 70)])
-def test_raster_bwd_kernel_matches_plain(card, n, h, w):
-    proj, colors, opac = scene(n, h, w, n + h, card)
-    tiles_x, tiles_y = tile_grid(h, w)
-    binned = bin_gaussians(proj, colors, opac, TILE, tiles_x, tiles_y)
+def check_bwd_kernel(dev, n, h, w, tile16):
+    binned, tiles_x, tiles_y, tile = binned_scene(n, h, w, dev, tile16)
     args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
             tiles_y, h, w)
-    rgb, t_fin = raster_fwd(*args)
+    rgb, t_fin = raster_fwd(*args, tile=tile)
     grad = torch.zeros_like(rgb)
     grad[:, :h, :w] = torch.randn((3, h, w), generator=torch.Generator()
-                                  .manual_seed(n + w)).to(card)
+                                  .manual_seed(n + w)).to(dev)
     bargs = args + (grad, rgb, t_fin,
-                    torch.tensor([0.2, 0.3, 0.4], device=card))
-    before = cuda_lib.LAUNCHES[BWD_KERNEL]
-    got = raster_bwd(*bargs)
-    assert cuda_lib.LAUNCHES[BWD_KERNEL] == before + 1
-    want = raster_bwd_plain(*bargs)
+                    torch.tensor([0.2, 0.3, 0.4], device=dev))
+    name = BWD_KERNELS[tile]
+    before = cuda_lib.LAUNCHES[name]
+    got = raster_bwd(*bargs, tile=tile)
+    assert cuda_lib.LAUNCHES[name] == before + 1
+    want = raster_bwd_plain(*bargs, tile=tile)
     torch.cuda.synchronize()
     assert got.shape == want.shape == binned.records.shape
     if want.numel():
         scale = want.abs().amax(dim=1, keepdim=True)
         assert bool(((got - want).abs() <= BWD_TOL * scale).all())
         assert bool(scale.min() > 0)
-    again = raster_bwd(*bargs)
+    again = raster_bwd(*bargs, tile=tile)
     assert torch.equal(got, again)  # no atomics: run to run identical
 
 
-def toy_step(dev):
+@pytest.mark.parametrize("n,h,w", [(3000, 200, 300), (0, 64, 64),
+                                   (500, 37, 70)])
+def test_raster_fwd_kernel_matches_plain(card, n, h, w):
+    check_fwd_kernel(card, n, h, w, tile16=False)
+
+
+@pytest.mark.parametrize("n,h,w", [(3000, 200, 300), (0, 64, 64),
+                                   (500, 37, 70)])
+def test_raster_bwd_kernel_matches_plain(card, n, h, w):
+    check_bwd_kernel(card, n, h, w, tile16=False)
+
+
+# 80 x 112: the 16 px grid is 2 x the 32 px parents (8 x 6 tiles), wider
+# than the image's ceil(size / 16)
+@pytest.mark.parametrize("n,h,w", [(3000, 200, 300), (0, 64, 64),
+                                   (500, 80, 112)])
+def test_raster_fwd16_kernel_matches_plain(card, n, h, w):
+    check_fwd_kernel(card, n, h, w, tile16=True)
+
+
+@pytest.mark.parametrize("n,h,w", [(3000, 200, 300), (0, 64, 64),
+                                   (500, 80, 112)])
+def test_raster_bwd16_kernel_matches_plain(card, n, h, w):
+    check_bwd_kernel(card, n, h, w, tile16=True)
+
+
+def toy_step(dev, tile16=None):
     """One SVC step (q = 0) of a small seeded model on `dev`."""
     cfg = ModelConfig(feat_dim=16, n_offsets=4, voxel_size=0.05,
                       plane_size=64, num_channels=9, appearance_dim=0,
@@ -123,7 +159,8 @@ def toy_step(dev):
     gts = [torch.full((3, 48, 64), v, device=dev) for v in (0.6, 0.4)]
     opt = OptimizationConfig()
     tx = make_optimizer(opt, params, 1.0, 0, device=dev)
-    step = make_train_step(cfg, opt, 2, 0, tx, q_noise=0.0, device=dev)
+    step = make_train_step(cfg, opt, 2, 0, tx, q_noise=0.0, device=dev,
+                           tile16=tile16)
     return step(params, tx.init(params), state.active, state.contractor,
                 init_stats(params["anchors"]["anchor"].shape[0],
                            cfg.n_offsets, device=dev),
@@ -142,13 +179,26 @@ def leaves(tree):
     return [tree]
 
 
-def test_train_step_repeats_bit_for_bit_and_matches_cpu(card):
-    before = dict(cuda_lib.LAUNCHES)
-    first = toy_step(card)
-    assert cuda_lib.LAUNCHES[BWD_KERNEL] == before.get(BWD_KERNEL, 0) + 2
-    second = toy_step(card)
+def check_step(dev, tile16):
+    """Each of the configuration's kernels launches once per view, two
+    steps are bit-identical, and the loss equals the CPU's to 1e-4
+    relative (matmul, exp and pixel sums round differently)."""
+    tile = raster_v3.TILE if tile16 else TILE
+    kernels = (FWD_KERNELS[tile], BWD_KERNELS[tile])
+    cuda_lib.LAUNCHES.clear()
+    first = toy_step(dev, tile16)
+    assert dict(cuda_lib.LAUNCHES) == {name: 2 for name in kernels}
+    second = toy_step(dev, tile16)
     for a, b in zip(leaves(first[:3]), leaves(second[:3])):
         assert torch.equal(a, b)
-    cpu = toy_step(torch.device("cpu"))
+    cpu = toy_step(torch.device("cpu"), tile16)
     loss, want = float(first[3]["loss"]), float(cpu[3]["loss"])
     assert abs(loss - want) <= 1e-4 * abs(want)
+
+
+def test_train_step_repeats_bit_for_bit_and_matches_cpu(card):
+    check_step(card, tile16=False)
+
+
+def test_v3_train_step_repeats_bit_for_bit_and_matches_cpu(card):
+    check_step(card, tile16=True)

@@ -90,9 +90,9 @@ def jax_steps(case, n_steps):
     return out
 
 
-def port_inputs(case, params, opt_state, stats):
+def port_inputs(case, params, opt_state, stats, tile16=None):
     """The port's step (q = 0) and its arguments, from JAX-side params,
-    optax state and stats."""
+    optax state and stats; `tile16` picks the rasterizer configuration."""
     jcfg, _, state, cam_args, gts = case
     cfg = ModelConfig(**{k: getattr(jcfg, k)
                          for k in ModelConfig.__dataclass_fields__})
@@ -109,7 +109,7 @@ def port_inputs(case, params, opt_state, stats):
                            device="cpu")
             for i, (eye, fx, fy, w, h) in enumerate(cam_args)]
     step = make_train_step(cfg, OptimizationConfig(), 2, 0, tx,
-                           q_noise=0.0, device="cpu")
+                           q_noise=0.0, device="cpu", tile16=tile16)
     return step, (tparams, tstate, torch.as_tensor(np.array(state.active)),
                   contractor, tstats, cams,
                   [torch.as_tensor(np.array(g)) for g in gts],
@@ -117,8 +117,8 @@ def port_inputs(case, params, opt_state, stats):
                   TERMS["tv_w"], TERMS["stats_on"])
 
 
-def port_step(case, params, opt_state, stats):
-    step, args = port_inputs(case, params, opt_state, stats)
+def port_step(case, params, opt_state, stats, tile16=None):
+    step, args = port_inputs(case, params, opt_state, stats, tile16)
     return step(*args)
 
 

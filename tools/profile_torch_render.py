@@ -2,11 +2,12 @@
 main-path size: per-stage CUDA-event times, the device's busy share, and
 torch.profiler's kernel table.
 
-    PYTHONPATH=. python tools/profile_torch_render.py [--frames 4]
+    PYTHONPATH=. python tools/profile_torch_render.py [--frames 4] [--v3]
         [--out PATH]
 
 Prints the summary and the kernel table; with --out it also writes them
-and the host-time table to PATH.
+and the host-time table to PATH.  --v3 renders in the v3 configuration
+(16 px tiles, kmax 32, as chip_smoke.py's phase 12).
 
 Frames are rendered stage by stage (chip_smoke.frame_stages) after one
 warm-up pass over the cameras: once timed with the host clock (wall) and
@@ -17,6 +18,7 @@ over the unprofiled wall time (one stream, so kernels do not overlap).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -33,10 +35,14 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=4)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--v3", action="store_true",
+                    help="16 px tiles (tile16=True) with kmax 32")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     dev = torch.device("cuda")
     cfg = cs.quickstart_config()
+    if args.v3:
+        cfg = dataclasses.replace(cfg, kmax=cs.KMAX_V3)
     pts = np.random.default_rng(args.seed).normal(
         size=(65536, 3)).astype(np.float32) * 1.2
     params, state = init_model(cfg, pts, device=dev,
@@ -46,19 +52,19 @@ def main() -> None:
     level = 2
     with torch.inference_mode():
         for cam in cams:  # warm-up
-            cs.frame_stages(params, state, cam, cfg, level)
+            cs.frame_stages(params, state, cam, cfg, level, args.v3)
         torch.cuda.synchronize()
         stage_ms = []
         t0 = time.perf_counter()
         for cam in cams:
             stage_ms.append(cs.frame_stages(params, state, cam, cfg,
-                                            level)[1])
+                                            level, args.v3)[1])
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for cam in cams:
-                cs.frame_stages(params, state, cam, cfg, level)
+                cs.frame_stages(params, state, cam, cfg, level, args.v3)
             torch.cuda.synchronize()
     events = prof.key_averages()
     # device time of kernels, memcpys and memsets (device-side events;
@@ -69,6 +75,8 @@ def main() -> None:
                     and e.key not in stage_ms[0])
     summary = {
         "frames": args.frames,
+        "tile_px": cs.tile_of(args.v3),
+        "kmax": cfg.kmax,
         "wall_ms_per_frame": 1e3 * wall_s / args.frames,
         "device_busy_ms_per_frame": device_us / 1e3 / args.frames,
         "device_busy_share": device_us / 1e6 / wall_s,

@@ -3,10 +3,11 @@ training size: per-phase CUDA-event times, the device's busy share, and
 torch.profiler's kernel table.
 
     PYTHONPATH=. python tools/profile_torch_train.py [--steps 3]
-        [--level 0] [--out PATH]
+        [--level 0] [--v3] [--out PATH]
 
 Prints the summary and the kernel table; with --out it also writes them
-and the host-time table to PATH.
+and the host-time table to PATH.  --v3 trains in the v3 configuration
+(16 px tiles, kmax 32, as chip_smoke.py's phase 13).
 
 The model is chip_smoke's quick-start-width model (655,360 gaussians);
 each step renders mv = 4 views at 1600x1088 (chip_smoke.Trainer).  After
@@ -19,6 +20,7 @@ stream, so kernels do not overlap).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import subprocess
@@ -37,6 +39,8 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--level", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--v3", action="store_true",
+                    help="16 px tiles (tile16=True) with kmax 32")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     dev = torch.device("cuda")
@@ -45,12 +49,14 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     cfg = cs.quickstart_config()
+    if args.v3:
+        cfg = dataclasses.replace(cfg, kmax=cs.KMAX_V3)
     pts = np.random.default_rng(args.seed).normal(
         size=(65536, 3)).astype(np.float32) * 1.2
     params, state = init_model(cfg, pts, device=dev,
                                generator=torch.Generator().manual_seed(
                                    args.seed))
-    trainer = cs.Trainer(params, state, cfg, args.seed, dev)
+    trainer = cs.Trainer(params, state, cfg, args.seed, dev, args.v3)
     if args.level:
         trainer.rebuild(params, args.level)
     trainer.step()  # warm-up
@@ -79,6 +85,8 @@ def main() -> None:
     summary = {
         "steps": args.steps,
         "activate_level": args.level,
+        "tile_px": cs.tile_of(args.v3),
+        "kmax": cfg.kmax,
         "views": cs.MV,
         "wall_ms_per_step": 1e3 * wall_s / args.steps,
         "device_busy_ms_per_step": device_us / 1e3 / args.steps,
