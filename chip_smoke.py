@@ -49,7 +49,17 @@ Run from the repository root.  Phases, each of which fails loudly:
      step and the 32 px kernels never; the 16 px backward timed at a
      training view against its plain version, with its bound; two steps
      from one state bit-identical.
-Prints a `kernels` JSON line (all four kernels), then, as the last line,
+ 14. the probes and the ablation: tools/micro_mosaic_torch.py and
+     tools/profile_torch_kernel_v3.py driven through their `run`, with
+     the launch counts of every probe mode and ablation variant exact;
+     then each of those kernels against its plain version on the card
+     (the row sums, the fp32 cumsum, the accumulation and the ablation's
+     full / nostage / noaccum exactly or to the forward's bound; the
+     TF32 cumsum against a float64 cumsum; the alpha-sum probe on the
+     tool's inputs with row 2 made positive, since a negative row 2
+     overflows exp), the plain versions and torch.cumsum timed, and each
+     kernel's bound.
+Prints a `kernels` JSON line (all nine kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
 there is no CUDA card.
 """
@@ -64,6 +74,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -75,7 +86,7 @@ from splatco_torch.eval.render_driver import render_set
 from splatco_torch.models.renderer import (generate_neural_gaussians,
                                            prefilter_voxel, render)
 from splatco_torch.models.splatco import decode_kwargs, init_model
-from splatco_torch.ops import cuda_lib, raster_v3
+from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
 from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.losses import l1_loss, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
@@ -92,6 +103,7 @@ from splatco_torch.train.step import init_stats, make_train_step
 # the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_PER_S = 495e12  # dense, on the tensor cores
 # fp32/SFU operations per pixel evaluation of a record (dx, dy, power,
 # compare, exp, alpha, clamp, compare) and per contribution (1 - alpha,
 # T (1 - alpha), compare, w, three colour multiply-adds)
@@ -127,7 +139,24 @@ REPLACES = {
     BWD_KERNEL: "splatco_tpu/ops/rasterize_pallas.py:241",
     KERNEL16: "splatco_tpu/ops/raster_v3.py:420",
     BWD_KERNEL16: "splatco_tpu/ops/raster_v3.py:467",
+    probes.EXTRACT: "tools/micro_mosaic.py:64",
+    probes.CUMSUM: "tools/micro_mosaic.py:88",
+    probes.ACCUM: "tools/micro_mosaic.py:140",
+    probes.BLEND: "tools/micro_mosaic.py:171",
+    raster_ablate.KERNEL: "tools/profile_kernel_v3.py:61",
 }
+# phase 14: the tools time each probe mode and ablation variant over this
+# many launches, after one checked launch and a warm-up
+PROBE_ITERS = 20
+# the fp32 cumsum adds in the plain version's order: held to 1e-6 of the
+# max |value|; the TF32 one rounds each input to 10 mantissa bits (~5e-4
+# relative) and sums on the tensor cores, held to 2e-3 of the max of a
+# float64 cumsum
+CUMSUM_FP32_TOL = 1e-6
+CUMSUM_TF32_TOL = 2e-3
+# the alpha-sum probe repeats its plain version's float32 operations in
+# order, up to the library exp: held to 1e-6 of the max |value|
+BLEND_PROBE_TOL = 1e-6
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -136,6 +165,24 @@ def cuda_time_ms(fn, iters: int) -> float:
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def queued_time_ms(fn, iters: int) -> float:
+    """As cuda_time_ms, but the runs are queued behind a sleep kernel
+    (~50 ms) and then run back to back: the device time of a kernel
+    shorter than its launch from Python, which cuda_time_ms would time as
+    the host's launch rate.  fn must not synchronise."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # cycles
     start.record()
     for _ in range(iters):
         fn()
@@ -209,11 +256,11 @@ def compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin, bg, work=None,
     return float(diff.max()), float((diff.amax(dim=1) / scale).max())
 
 
-def bound(n_bytes: int, n_ops: int):
+def bound(n_bytes: int, n_ops: int, peak_ops_per_s: float = PEAK_FP32_PER_S):
     """(ms, what bounds it): the larger of bytes over the memory rate and
-    operations over the fp32 rate."""
+    operations over their type's peak rate (default fp32)."""
     bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / PEAK_FP32_PER_S
+    ops_ms = 1e3 * n_ops / peak_ops_per_s
     return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms
                                    else "bytes")
 
@@ -742,15 +789,228 @@ def backward_at_view(trainer):
     return {"err": err, "ms": ms, "plain_ms": plain_ms, "bound": bnd}
 
 
+def window_columns(starts: np.ndarray) -> int:
+    """Distinct columns the 128-column windows at `starts` cover: what a
+    probe must read of each row it reads."""
+    cols = starts.astype(np.int64)[:, None] + np.arange(probes.WIN)
+    return int(np.unique(cols).size)
+
+
+def probe_checks(micro, dev):
+    """Phase 14, the probes of tools/micro_mosaic_torch.py: each kernel in
+    each mode against its plain version on the card (launches not
+    counted), the plain versions (and torch.cumsum) timed, the bounds.
+    `micro` is the tool's run (its kernel times).  Returns {kernel: the
+    numbers of its `kernels` entry}."""
+    import micro_mosaic_torch as mm
+
+    def ms_of(key):
+        return micro[key]["ms"]
+
+    inp = mm.inputs()
+    res = {}
+
+    # 5a: window row sums, at the tool's starts and at p % 128 = 0 / 127
+    data = torch.as_tensor(inp["data"], device=dev)
+    width = data.shape[1]
+    edge = torch.tensor([0, 127, 128, 255, 4096, width - 257, width - 256,
+                         width - 129], dtype=torch.int32, device=dev)
+    starts = torch.as_tensor(inp["starts"], device=dev)
+    errs = {m: 0.0 for m in probes.EXTRACT_MODES}
+    for st in (starts, edge):
+        want = probes.extract_rows_plain(data, st)
+        for mode in probes.EXTRACT_MODES:
+            got = probes.extract_rows(data, st, mode)
+            errs[mode] = max(errs[mode], float((got - want).abs().max()))
+            if not torch.equal(got, want):
+                raise AssertionError(f"extract[{mode}] differs from its "
+                                     "plain version")
+    n = starts.shape[0]
+    bnd = bound(4 * probes.REC * window_columns(inp["starts"]) + 4 * n
+                + 4 * n * probes.OUT_ROWS * probes.REC,
+                probes.REC * n * (probes.WIN - 1))
+    res[probes.EXTRACT] = {
+        "err": max(errs.values()), "ms": ms_of("extract[direct]"),
+        "plain_ms": queued_time_ms(
+            lambda: probes.extract_rows_plain(data, starts), 5),
+        "bound": bnd, "modes": {m: {"max_abs_err": errs[m],
+                                    "ms": ms_of(f"extract[{m}]")}
+                                for m in probes.EXTRACT_MODES}}
+    print(f"{probes.EXTRACT}: every mode equals the plain version bit for "
+          f"bit (tool's starts and p % 128 = 0 / 127); bound "
+          f"{bnd[0]:.6f} ms ({bnd[1]})")
+
+    # 5b: cumsum, fp32 against the plain version, TF32 against float64
+    xs = torch.as_tensor(inp["xs"], device=dev)
+    plain = probes.cumsum_rows_plain(xs)
+    ref64 = torch.cumsum(xs.double(), dim=0)
+    scale = float(ref64.abs().max())
+    rows, cols = xs.shape
+    macs = rows * (rows + 1) // 2 * cols  # L's nonzero part
+    modes = {}
+    for mode, peak in (("tf32", PEAK_TF32_PER_S), ("fp32", PEAK_FP32_PER_S)):
+        got = probes.cumsum_rows(xs, mode)
+        d_plain = float((got - plain).abs().max())
+        d64 = float((got.double() - ref64).abs().max()) / scale
+        modes[mode] = {"max_abs_err": d_plain, "rel_err_float64": d64,
+                       "ms": ms_of(f"cumsum[{mode}]"),
+                       "bound": bound(2 * 4 * rows * cols, 2 * macs, peak)}
+        print(f"{probes.CUMSUM}[{mode}]: vs plain max |d| {d_plain:.3e}, "
+              f"vs float64 {d64:.3e} of the max; bound "
+              f"{modes[mode]['bound'][0]:.6f} ms ({modes[mode]['bound'][1]})")
+    if not modes["fp32"]["max_abs_err"] <= CUMSUM_FP32_TOL * scale:
+        raise AssertionError("the fp32 cumsum differs from its plain version")
+    if not modes["tf32"]["rel_err_float64"] <= CUMSUM_TF32_TOL:
+        raise AssertionError("the TF32 cumsum is off by more than "
+                             f"{CUMSUM_TF32_TOL} of the max")
+    res[probes.CUMSUM] = {
+        "err": max(m["max_abs_err"] for m in modes.values()),
+        "ms": modes["tf32"]["ms"], "bound": modes["tf32"]["bound"],
+        "plain_ms": queued_time_ms(lambda: probes.cumsum_rows_plain(xs), 5),
+        "library_ms": queued_time_ms(lambda: torch.cumsum(xs, dim=0),
+                                   PROBE_ITERS),
+        "modes": {m: {k: v for k, v in d.items() if k != "bound"}
+                  for m, d in modes.items()}}
+
+    # 5c: accumulation in place
+    ones = torch.ones((8, 128), device=dev)
+    got = probes.accumulate_(torch.zeros_like(ones), ones)
+    want = probes.accumulate_plain_(torch.zeros_like(ones), ones)
+    if not (torch.equal(got, want) and bool((got == 2.0).all())):
+        raise AssertionError("the accumulation probe is not 2.0 everywhere")
+    buf = torch.zeros_like(ones)
+    res[probes.ACCUM] = {
+        "err": float((got - want).abs().max()), "ms": ms_of("accum"),
+        "plain_ms": queued_time_ms(
+            lambda: probes.accumulate_plain_(buf, ones), PROBE_ITERS),
+        "bound": bound(3 * 4 * ones.numel(), probes.ACC_STEPS // 2
+                       * ones.numel())}
+    print(f"{probes.ACCUM}: 2.0 everywhere, equal to the plain version")
+
+    # 5d: alpha sums.  The tool's row 2 is N(0, 1): where it is negative
+    # exp overflows and the sums are +-inf or NaN, so the kernel is held
+    # to its plain version on the same inputs with row 2 made positive
+    big = torch.as_tensor(inp["big"], device=dev)
+    st2 = torch.as_tensor(inp["st2"], device=dev)
+    for extract in probes.BLEND_MODES:
+        got = probes.alpha_sums(big, st2, extract)
+        print(f"{probes.BLEND}[extract={extract}] on the tool's inputs: "
+              f"{int((~torch.isfinite(got)).sum())} of {got.numel()} sums "
+              "not finite")
+    pos = big.clone()
+    pos[2] = pos[2].abs()
+    modes = {}
+    for extract in probes.BLEND_MODES:
+        got = probes.alpha_sums(pos, st2, extract)
+        want = probes.alpha_sums_plain(pos, st2, extract)
+        err = float((got - want).abs().max())
+        rel = err / float(want.abs().max())
+        modes[f"extract={extract}"] = {
+            "max_abs_err": err, "ms": ms_of(f"blend[extract={extract}]")}
+        print(f"{probes.BLEND}[extract={extract}] (|row 2|): vs plain max "
+              f"|d| {err:.3e}, {rel:.3e} of the max")
+        if not rel <= BLEND_PROBE_TOL:
+            raise AssertionError(f"{probes.BLEND} differs from its plain "
+                                 "version")
+    n = st2.shape[0]
+    bnd = bound(4 * 3 * window_columns(inp["st2"]) + 4 * n
+                + 4 * n * probes.PIX, 7 * n * probes.PIX * probes.WIN)
+    res[probes.BLEND] = {
+        "err": max(m["max_abs_err"] for m in modes.values()),
+        "ms": modes["extract=True"]["ms"],
+        "plain_ms": queued_time_ms(
+            lambda: probes.alpha_sums_plain(big, st2, True), 2),
+        "bound": bnd, "modes": modes}
+    print(f"{probes.BLEND}: bound {bnd[0]:.6f} ms ({bnd[1]})")
+    return res
+
+
+def ablation_checks(ablate):
+    """Phase 14, the ablation of tools/profile_torch_kernel_v3.py: each
+    variant's kernel output from the tool's run against its plain version
+    (full, nostage and noaccum to the forward's bound, noaccum's rgb 0),
+    the plain versions timed.  Returns the numbers of its `kernels`
+    entry."""
+    binned = ablate["binned"]
+    tiles_x, tiles_y = ablate["grid"]
+    args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+            tiles_y, HEIGHT, WIDTH)
+    modes = {}
+    for variant in raster_ablate.VARIANTS:
+        rgb, t_fin = ablate["out"][variant]
+        p_rgb, p_t = raster_ablate.raster_fwd16_ablate_plain(*args, variant)
+        err = max(float((rgb - p_rgb).abs().max()),
+                  float((t_fin - p_t).abs().max()))
+        modes[variant] = {
+            "max_abs_err": err, "ms": ablate["ms"][variant],
+            "plain_ms": cuda_time_ms(
+                lambda: raster_ablate.raster_fwd16_ablate_plain(*args,
+                                                               variant), 2)}
+        print(f"{raster_ablate.KERNEL}[{variant}]: vs plain max |d| "
+              f"{err:.3e}")
+        if not err <= RASTER_TOL:
+            raise AssertionError(f"{raster_ablate.KERNEL}[{variant}] differs "
+                                 "from its plain version")
+    full, noaccum = ablate["out"]["full"], ablate["out"]["noaccum"]
+    if bool(noaccum[0].any()) or not torch.equal(noaccum[1], full[1]):
+        raise AssertionError("noaccum: rgb must be 0 and T full's")
+    return {"err": max(m["max_abs_err"] for m in modes.values()),
+            "ms": modes["full"]["ms"], "plain_ms": modes["full"]["plain_ms"],
+            "bound": ablate["bound"], "modes": modes}
+
+
+def probe_phase(dev):
+    """Phase 14: both tools driven through `run` with the launch counts
+    from 0, then the checks.  Returns ({kernel: launches}, {kernel: the
+    numbers of its `kernels` entry})."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import micro_mosaic_torch as mm
+    import profile_torch_kernel_v3 as pk
+
+    cuda_lib.LAUNCHES.clear()
+    micro = mm.run(dev, PROBE_ITERS)
+    ablate = pk.run(dev, PROBE_ITERS)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    print(f"probe and ablation launches: {launches}")
+    # a checked launch, a warm-up and the timed ones; the alpha-sum probe
+    # is only timed, as in the JAX tool
+    each = 2 + PROBE_ITERS
+    want = {f"{probes.CUMSUM}[{m}]": each for m in probes.CUMSUM_MODES}
+    want.update({f"{probes.EXTRACT}[{m}]": each
+                 for m in probes.EXTRACT_MODES})
+    want[probes.ACCUM] = each
+    want.update({f"{probes.BLEND}[extract={e}]": 1 + PROBE_ITERS
+                 for e in probes.BLEND_MODES})
+    want.update({f"{raster_ablate.KERNEL}[{v}]": each
+                 for v in raster_ablate.VARIANTS})
+    if launches != want:
+        raise AssertionError(f"the tools launched {launches}, not {want}")
+    failed = [k for k, r in micro.items() if not r["ok"]]
+    if failed:
+        raise AssertionError(f"probes failed their bounds: {failed}")
+    numbers = probe_checks(micro, dev)
+    numbers[raster_ablate.KERNEL] = ablation_checks(ablate)
+    per_kernel = {name: sum(v for k, v in launches.items()
+                            if k.split("[")[0] == name)
+                  for name in numbers}
+    return per_kernel, numbers
+
+
 def entry(name, launches, numbers):
-    """One kernel's record of the `kernels` line."""
-    return {"name": name, "route": "cuda",
-            "source": f"splatco_torch/csrc/{name}.cu",
-            "replaces": REPLACES[name], "launches": launches,
-            "max_abs_err": numbers["err"], "ms": numbers["ms"],
-            "plain_ms": numbers["plain_ms"],
-            "bound_ms": numbers["bound"][0],
-            "bound_by": numbers["bound"][1], "library_ms": None}
+    """One kernel's record of the `kernels` line; a kernel with modes
+    also lists each mode's numbers."""
+    out = {"name": name, "route": "cuda",
+           "source": f"splatco_torch/csrc/{name}.cu",
+           "replaces": REPLACES[name], "launches": launches,
+           "max_abs_err": numbers["err"], "ms": numbers["ms"],
+           "plain_ms": numbers["plain_ms"],
+           "bound_ms": numbers["bound"][0],
+           "bound_by": numbers["bound"][1],
+           "library_ms": numbers.get("library_ms")}
+    if "modes" in numbers:
+        out["modes"] = numbers["modes"]
+    return out
 
 
 def main() -> int:
@@ -823,6 +1083,10 @@ def main() -> int:
                                                dev, tile16=True)
     bwd3 = backward_at_view(trainer3)
     steps_repeat(trainer3, args.seed + 1)
+    del trainer3
+
+    # 14. the probes and the ablation through their tools
+    probe_launches, probe_numbers = probe_phase(dev)
 
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
@@ -831,6 +1095,8 @@ def main() -> int:
         entry(KERNEL16, fwd3["launches"].get(KERNEL16, 0)
               + train3_launches.get(KERNEL16, 0), fwd3),
         entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0), bwd3),
+        *(entry(name, probe_launches[name], nums)
+          for name, nums in probe_numbers.items()),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,8 +2,9 @@
 // templated on the pixel tile's side: 32 (the v2 configuration,
 // raster_fwd.cu / raster_bwd.cu) or 16 (the v3 configuration,
 // raster_fwd16.cu / raster_bwd16.cu).  Each .cu file instantiates one
-// kernel behind a plain C entry point; cuda_lib.library_path hashes this
-// header with every source, so an edit here rebuilds all four.
+// kernel behind a plain C entry point (raster_fwd16_ablate.cu: the
+// forward's timing variants, see `Variant`); cuda_lib.library_path hashes
+// this header with every source, so an edit here rebuilds them all.
 //
 // The blend contract (splatco_tpu/ops/rasterize_reference.py): for every
 // pixel of a tile, walk the tile's depth-sorted records front to back:
@@ -36,12 +37,23 @@ constexpr int kRec = 9;   // mx, my, ca, cb, cc, op, r, g, b
 constexpr int kSums = 9;  // S, Sx, Sy, Sxx, Sxy, Syy, Sr, Sg, Sb
 constexpr unsigned kFull = 0xffffffffu;
 
+// Forward variants.  The production kernels are kFull; the others exist
+// only to time the parts of the forward (raster_fwd16_ablate.cu):
+//   kNoStage: records read by every thread straight from device memory,
+//     not staged through shared memory; the same image as kFull.
+//   kNoScan:  no transmittance chain: T stays 1, so w = alpha, and a
+//     pixel stops after the first record with alpha > 0.97 (that record
+//     included); T_final is 1.
+//   kNoAccum: the chain and its termination without the colour sums (the
+//     colours are not staged); rgb is 0, T_final is kFull's.
+enum Variant { kFullBlend = 0, kNoStage = 1, kNoScan = 2, kNoAccum = 3 };
+
 // Forward: rgb [3, Hp, Wp] without background and T_final [Hp, Wp] in
 // image layout.  What bounds it on an H100: the bytes are small (9 x 4 B
 // per record read once, 16 B per pixel written), so it is bound by fp32
 // and SFU work: ~16 operations and one exp per pixel evaluation up to
 // termination, ~10 more per contribution.
-template <int kTile>
+template <int kTile, int kVariant = kFullBlend>
 __global__ void __launch_bounds__(kThreads)
 fwd_kernel(const float* __restrict__ rec, long long num_rec,
            const int* __restrict__ tile_start,
@@ -50,12 +62,15 @@ fwd_kernel(const float* __restrict__ rec, long long num_rec,
   constexpr int kRows = kTile * kTile / kThreads;  // pixels per thread
   constexpr int kRowStep = kThreads / kTile;
   constexpr int kBatch = kThreads;                 // records staged at once
+  // rows staged: the colours are not read without the colour sums
+  constexpr int kStaged = kVariant == kNoAccum ? 6 : kRec;
   // the same float32 constants as the plain version's Python scalars
   const float alpha_min = (float)(1.0 / 255.0);
   const float alpha_max = (float)0.99;
   const float t_eps = (float)1e-4;
+  const float noscan_stop = (float)0.97;
 
-  __shared__ float s_rec[kRec][kBatch];
+  __shared__ float s_rec[kVariant == kNoStage ? 1 : kStaged][kBatch];
 
   const int tile = blockIdx.x;
   const int wp = tiles_x * kTile;
@@ -83,17 +98,25 @@ fwd_kernel(const float* __restrict__ rec, long long num_rec,
     for (int k = 0; k < kRows; ++k) any |= live[k];
     // also the barrier that frees s_rec from the previous batch
     if (__syncthreads_count(any) == 0) break;
-    const int i = base + threadIdx.x;
-    if (i < end) {
+    if constexpr (kVariant != kNoStage) {
+      const int i = base + threadIdx.x;
+      if (i < end) {
 #pragma unroll
-      for (int c = 0; c < kRec; ++c) s_rec[c][threadIdx.x] = rec[c * num_rec + i];
+        for (int c = 0; c < kStaged; ++c)
+          s_rec[c][threadIdx.x] = rec[c * num_rec + i];
+      }
+      __syncthreads();
     }
-    __syncthreads();
+    // row c of the batch's record j
+    auto at = [&](int c, int j) {
+      if constexpr (kVariant == kNoStage) return rec[c * num_rec + base + j];
+      else return s_rec[c][j];
+    };
     const int n = min(kBatch, end - base);
     for (int j = 0; j < n; ++j) {
-      const float mx = s_rec[0][j], my = s_rec[1][j];
-      const float ca = s_rec[2][j], cb = s_rec[3][j], cc = s_rec[4][j];
-      const float op = s_rec[5][j];
+      const float mx = at(0, j), my = at(1, j);
+      const float ca = at(2, j), cb = at(3, j), cc = at(4, j);
+      const float op = at(5, j);
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         if (!live[k]) continue;
@@ -103,15 +126,24 @@ fwd_kernel(const float* __restrict__ rec, long long num_rec,
         if (!(power <= 0.f)) continue;
         const float alpha = fminf(alpha_max, op * expf(power));
         if (!(alpha >= alpha_min)) continue;
+        if constexpr (kVariant == kNoScan) {
+          c0[k] = c0[k] + at(6, j) * alpha;
+          c1[k] = c1[k] + at(7, j) * alpha;
+          c2[k] = c2[k] + at(8, j) * alpha;
+          if (alpha > noscan_stop) live[k] = false;
+          continue;
+        }
         const float test_t = T[k] * (1.f - alpha);
         if (test_t < t_eps) {
           live[k] = false;
           continue;
         }
-        const float w = alpha * T[k];
-        c0[k] = c0[k] + s_rec[6][j] * w;
-        c1[k] = c1[k] + s_rec[7][j] * w;
-        c2[k] = c2[k] + s_rec[8][j] * w;
+        if constexpr (kVariant != kNoAccum) {
+          const float w = alpha * T[k];
+          c0[k] = c0[k] + at(6, j) * w;
+          c1[k] = c1[k] + at(7, j) * w;
+          c2[k] = c2[k] + at(8, j) * w;
+        }
         T[k] = test_t;
       }
     }
@@ -304,13 +336,14 @@ bwd_kernel(const float* __restrict__ rec, long long num_rec,
 // tile_start/tile_end: [tiles_x * tiles_y] int32; rgb: [3, Hp, Wp];
 // t_final: [Hp, Wp], Hp = kTile tiles_y, Wp = kTile tiles_x.  Launches on
 // `stream` and returns cudaGetLastError().
-template <int kTile>
+template <int kTile, int kVariant = kFullBlend>
 int launch_fwd(const float* rec, long long num_rec, const int* tile_start,
                const int* tile_end, int tiles_x, int tiles_y, int height,
                int width, float* rgb, float* t_final, void* stream) {
   const int num_tiles = tiles_x * tiles_y;
   if (num_tiles > 0) {
-    fwd_kernel<kTile><<<num_tiles, kThreads, 0, (cudaStream_t)stream>>>(
+    fwd_kernel<kTile, kVariant><<<num_tiles, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
         rec, num_rec, tile_start, tile_end, tiles_x, height, width, rgb,
         t_final);
   }

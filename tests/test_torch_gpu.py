@@ -8,7 +8,11 @@ versions' float32 operations in the same order, so the forwards agree to
 the CPU tests' bound of 1e-5 (in practice bit for bit, up to the library
 exp).  The backward's per-record sums over a tile's 1024 pixels are taken
 in another order than the plain version's, so each of its nine rows is
-held to 1e-5 of that row's largest |value|.
+held to 1e-5 of that row's largest |value|.  The probes (ops/probes.py)
+add in their plain versions' order and are held to them exactly, the
+alpha-sum probe to 1e-6 of the max (its library exp), the TF32 cumsum to
+2e-3 of the max of a float64 cumsum; the forward's ablation variants
+(ops/raster_ablate.py) as the forward.
 """
 import dataclasses
 import math
@@ -20,7 +24,7 @@ import torch
 from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.models.splatco import init_model
-from splatco_torch.ops import cuda_lib, raster_v3
+from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import tile_grid
@@ -202,3 +206,78 @@ def test_train_step_repeats_bit_for_bit_and_matches_cpu(card):
 
 def test_v3_train_step_repeats_bit_for_bit_and_matches_cpu(card):
     check_step(card, tile16=True)
+
+
+def probe_windows(dev):
+    """[16, 8320] seeded data and starts at every residue of interest:
+    the windows at p % 128 = 0 and 127, and the last one that fits."""
+    data = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(probes.REC, 8320)).astype(np.float32), device=dev)
+    starts = torch.tensor([0, 7, 127, 128, 255, 1000, 4096, 8063, 8064,
+                           8191], dtype=torch.int32, device=dev)
+    return data, starts
+
+
+def launched(key, fn):
+    before = cuda_lib.LAUNCHES[key]
+    out = fn()
+    assert cuda_lib.LAUNCHES[key] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("mode", probes.EXTRACT_MODES)
+def test_probe_extract_kernel_matches_plain(card, mode):
+    data, starts = probe_windows(card)
+    got = launched(f"{probes.EXTRACT}[{mode}]",
+                   lambda: probes.extract_rows(data, starts, mode))
+    assert torch.equal(got, probes.extract_rows_plain(data, starts))
+
+
+@pytest.mark.parametrize("mode", probes.CUMSUM_MODES)
+def test_probe_cumsum_kernel_matches_plain(card, mode):
+    x = torch.as_tensor(np.random.default_rng(2).normal(
+        size=(128, 256)).astype(np.float32), device=card)
+    got = launched(f"{probes.CUMSUM}[{mode}]",
+                   lambda: probes.cumsum_rows(x, mode))
+    ref = torch.cumsum(x.double(), dim=0)
+    scale = float(ref.abs().max())
+    if mode == "fp32":
+        assert float((got - probes.cumsum_rows_plain(x)).abs().max()) \
+            <= 1e-6 * scale
+    else:  # TF32 inputs: 10 mantissa bits
+        assert float((got.double() - ref).abs().max()) <= 2e-3 * scale
+
+
+def test_probe_accum_kernel_is_in_place_and_two(card):
+    out = torch.zeros((8, 128), device=card)
+    ones = torch.ones_like(out)
+    got = launched(probes.ACCUM, lambda: probes.accumulate_(out, ones))
+    assert got.data_ptr() == out.data_ptr()
+    assert bool((out == 2.0).all())
+
+
+@pytest.mark.parametrize("extract", probes.BLEND_MODES)
+def test_probe_blend_kernel_matches_plain(card, extract):
+    data, starts = probe_windows(card)
+    data[2] = data[2].abs()  # a negative row 2 overflows exp
+    got = launched(f"{probes.BLEND}[extract={extract}]",
+                   lambda: probes.alpha_sums(data, starts, extract))
+    want = probes.alpha_sums_plain(data, starts, extract)
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        want.abs().max())
+
+
+@pytest.mark.parametrize("variant", raster_ablate.VARIANTS)
+def test_raster_fwd16_ablate_matches_plain(card, variant):
+    binned, tiles_x, tiles_y, _ = binned_scene(3000, 200, 300, card, True)
+    args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+            tiles_y, 200, 300)
+    rgb, t_fin = launched(
+        f"{raster_ablate.KERNEL}[{variant}]",
+        lambda: raster_ablate.raster_fwd16_ablate(*args, variant=variant))
+    p_rgb, p_t = raster_ablate.raster_fwd16_ablate_plain(*args, variant)
+    assert float((rgb - p_rgb).abs().max()) <= 1e-5
+    assert float((t_fin - p_t).abs().max()) <= 1e-5
+    if variant in ("full", "nostage"):  # the production kernel's image
+        want = raster_fwd(*args, tile=raster_v3.TILE)
+        assert torch.equal(rgb, want[0]) and torch.equal(t_fin, want[1])
