@@ -11,7 +11,8 @@ in another order than the plain version's, so each of its nine rows is
 held to 1e-5 of that row's largest |value|.  The probes (ops/probes.py)
 add in their plain versions' order and are held to them exactly, the
 alpha-sum probe to 1e-6 of the max (its library exp), the TF32 cumsum to
-2e-3 of the max of a float64 cumsum; the forward's ablation variants
+5e-4 of the max of a float64 cumsum (measured 1.9e-4; inputs rounded to
+bf16 would give ~1.5e-3); the forward's ablation variants
 (ops/raster_ablate.py) as the forward.
 """
 import dataclasses
@@ -245,7 +246,7 @@ def test_probe_cumsum_kernel_matches_plain(card, mode):
         assert float((got - probes.cumsum_rows_plain(x)).abs().max()) \
             <= 1e-6 * scale
     else:  # TF32 inputs: 10 mantissa bits
-        assert float((got.double() - ref).abs().max()) <= 2e-3 * scale
+        assert float((got.double() - ref).abs().max()) <= 5e-4 * scale
 
 
 def test_probe_accum_kernel_is_in_place_and_two(card):

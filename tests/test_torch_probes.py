@@ -26,6 +26,7 @@ from test_torch_render import REPO
 
 from splatco_torch.ops import probes, raster_ablate
 from splatco_torch.ops.rasterize_cuda import raster_fwd_plain
+from splatco_torch.utils import measure
 from splatco_tpu.ops import raster_v3 as j_v3
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
@@ -248,8 +249,18 @@ def test_profile_tool_runs_on_cpu_at_a_small_size():
     tiles_x, tiles_y = res["grid"]
     assert binned.records.shape[1] > 0
     assert sorted(res["out"]) == sorted(raster_ablate.VARIANTS)
-    want = raster_fwd_plain(binned.records, binned.tile_start,
-                            binned.tile_end, tiles_x, tiles_y, 96, 160,
-                            tile=16)
+    args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+            tiles_y, 96, 160)
+    assert res["args"] == args  # what chip_smoke's checks rerun
+    want = raster_fwd_plain(*args, tile=16)
     assert torch.equal(res["out"]["full"][0], want[0])
     assert torch.equal(res["out"]["full"][1], want[1])
+
+
+@pytest.mark.parametrize("n_bytes, n_ops, by", [(3.35e9, 1e9, "bytes"),
+                                                (1e6, 67e9, "operations")])
+def test_bound_takes_the_larger_time(n_bytes, n_ops, by):
+    """measure.bound: bytes at 3.35 TB/s against fp32 operations at 67
+    Tflop/s, 1 ms for the side that bounds."""
+    ms, what = measure.bound(n_bytes, n_ops)
+    assert what == by and ms == pytest.approx(1.0)

@@ -21,8 +21,8 @@ order (data, starts, xs, big), so they equal its inputs.
 
 It runs on the card; each probe is timed with CUDA events over --iters
 launches queued behind a sleep kernel after a warm-up
-(chip_smoke.queued_time_ms): the device time, not the rate at which
-Python launches these microsecond kernels.  With --device cpu it runs
+(splatco_torch.utils.measure.cuda_time_ms): the device time, not the
+rate at which Python launches these microsecond kernels.  With --device cpu it runs
 the plain versions and skips the timing and probe 4, as the JAX tool's
 --device cpu does.  Exits 1 if any probe fails its bound.
 """
@@ -38,17 +38,18 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke as cs  # noqa: E402
 from splatco_torch.ops import probes  # noqa: E402
 from splatco_torch.utils.device import resolve_device  # noqa: E402
+from splatco_torch.utils.measure import cuda_time_ms  # noqa: E402
 
 N_CHUNKS = 64
 N_BIG = 8192
 # bounds: the JAX tool's for the row sums (float32 sums in another order
 # than numpy's pairwise one); the fp32 cumsum adds in numpy's order; TF32
-# keeps 10 mantissa bits of each input, ~5e-4 relative, over 128 terms
+# keeps 10 mantissa bits of each input: 5e-4 sits above its measured
+# 1.9e-4 and below the ~1.5e-3 of inputs rounded to bf16
 EXTRACT_TOL = 1e-4
-CUMSUM_TOL = {"tf32": 2e-3, "fp32": 1e-6}
+CUMSUM_TOL = {"tf32": 5e-4, "fp32": 1e-6}
 
 
 def inputs() -> dict:
@@ -79,7 +80,7 @@ def run(dev: torch.device, iters: int = 20) -> dict:
     out = {}
 
     def ms_of(fn):
-        return cs.queued_time_ms(fn, iters) if timing else None
+        return cuda_time_ms(fn, iters) if timing else None
 
     def show(ms, n=None):
         if ms is None:

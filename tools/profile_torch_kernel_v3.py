@@ -17,7 +17,8 @@ from np.random.default_rng(0); one look-at camera from (0, 0, -4) at
 
 On the card each variant is timed with CUDA events (mean of --iters
 launches after a warm-up) and printed with its us per tile beside the
-bound that chip_smoke.fwd_bound gives from full's work counts.  With
+bound that splatco_torch.utils.measure.fwd_bound gives from full's work
+counts.  With
 --device cpu it runs the plain versions and skips the timing.
 """
 from __future__ import annotations
@@ -32,7 +33,6 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-import chip_smoke as cs  # noqa: E402
 from splatco_torch.data.cameras import look_at_camera  # noqa: E402
 from splatco_torch.ops import raster_v3  # noqa: E402
 from splatco_torch.ops.projection import project_gaussians_cols  # noqa: E402
@@ -40,6 +40,7 @@ from splatco_torch.ops.raster_ablate import (TILE, VARIANTS,  # noqa: E402
                                              raster_fwd16_ablate)
 from splatco_torch.ops.rasterize_cuda import raster_fwd_plain  # noqa: E402
 from splatco_torch.utils.device import resolve_device  # noqa: E402
+from splatco_torch.utils.measure import cuda_time_ms, fwd_bound  # noqa: E402
 
 KMAX = 24
 
@@ -67,8 +68,9 @@ def binned_scene(dev: torch.device, n: int = 1 << 19, width: int = 1600,
 def run(dev: torch.device, iters: int = 20, n: int = 1 << 19,
         width: int = 1600, height: int = 1088) -> dict:
     """Launch every variant on the scene (once, then timed on the card),
-    print one line each; returns {"binned", "grid", "work", "bound",
-    "ms": {variant: ms or None}, "out": {variant: (rgb, t_final)}}."""
+    print one line each; returns {"binned", "grid", "args" (the variants'
+    arguments), "work", "bound", "ms": {variant: ms or None}, "out":
+    {variant: (rgb, t_final)}}."""
     binned, tiles_x, tiles_y = binned_scene(dev, n, width, height)
     args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
             tiles_y, height, width)
@@ -76,21 +78,21 @@ def run(dev: torch.device, iters: int = 20, n: int = 1 << 19,
     print(f"{n} gaussians at {width}x{height}: {binned.records.shape[1]} "
           f"pairs in {num_tiles} tiles of {TILE} px (kmax {KMAX}), clipped "
           f"{int(binned.num_clipped)}")
-    res = {"binned": binned, "grid": (tiles_x, tiles_y), "ms": {},
-           "out": {}}
+    res = {"binned": binned, "grid": (tiles_x, tiles_y), "args": args,
+           "ms": {}, "out": {}}
     for variant in VARIANTS:
         res["out"][variant] = raster_fwd16_ablate(*args, variant=variant)
     if dev.type == "cuda":
         work = {}
         raster_fwd_plain(*args, work=work, tile=TILE)
         res["work"] = work
-        res["bound"] = cs.fwd_bound(binned, work, tiles_x, tiles_y, TILE)
+        res["bound"] = fwd_bound(binned, work, tiles_x, tiles_y, TILE)
     for variant in VARIANTS:
         rgb, t_fin = res["out"][variant]
         line = (f"fwd[{variant:8s}] rgb mean {float(rgb.mean()):.6f} "
                 f"T mean {float(t_fin.mean()):.6f}")
         if dev.type == "cuda":
-            ms = cs.cuda_time_ms(
+            ms = cuda_time_ms(
                 lambda: raster_fwd16_ablate(*args, variant=variant), iters)
             res["ms"][variant] = ms
             line += (f"  {ms:8.4f} ms ({ms / num_tiles * 1e3:.3f} us/tile; "
