@@ -31,7 +31,9 @@ Run from the repository root.  Phases, each of which fails loudly:
      must move and stay finite, and each kernel must launch mv times per
      step,
   8. the backward kernel timed against its plain version at a training
-     view's shapes (with that view's loss cotangent), with its bound,
+     view's shapes (with that view's loss cotangent), with its bound, the
+     view's records per tile (max / p99 / mean) and the share of (record,
+     warp) pairs the kernel's per-warp cull skips,
   9. determinism: two full-width steps from the same state must give
      bit-identical params, optimizer state and statistics,
  10. one step of a small model on the card and on the CPU: the losses
@@ -46,9 +48,8 @@ Run from the repository root.  Phases, each of which fails loudly:
      version, with its bound,
  13. v3 training at full width: phase 7 with `make_train_step(...,
      tile16=True)` and kmax 32: each 16 px kernel launches mv times per
-     step and the 32 px kernels never; the 16 px backward timed at a
-     training view against its plain version, with its bound; two steps
-     from one state bit-identical.
+     step and the 32 px kernels never; the 16 px backward at a training
+     view as in phase 8; two steps from one state bit-identical.
  14. the probes and the ablation: tools/micro_mosaic_torch.py and
      tools/profile_torch_kernel_v3.py driven through their `run`, with
      the launch counts of every probe mode and ablation variant exact;
@@ -93,7 +94,8 @@ from splatco_torch.ops.losses import l1_loss, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
 from splatco_torch.ops.rasterize import bin_frame, tile_grid
 from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
-                                              FWD_KERNELS, KERNEL, raster_bwd,
+                                              FWD_KERNELS, KERNEL,
+                                              bwd_cull_mask, raster_bwd,
                                               raster_bwd_plain, raster_fwd,
                                               raster_fwd_plain)
 from splatco_torch.train.optimizer import (group_schedules, label_params,
@@ -683,11 +685,20 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
 def backward_at_view(trainer):
     """Phases 8 and 13: the configuration's backward kernel at a training
     view's shapes (with that view's loss cotangent) against its plain
-    version and its bound."""
+    version and its bound; the view's records per tile and the share of
+    (record, warp) pairs the kernel's cull skips."""
     tile = tile_of(trainer.tile16)
     name = BWD_KERNELS[tile]
     tiles_x, tiles_y = grid(trainer.tile16)
     binned, grad, rgb, t_fin = view_cotangent(trainer, MV - 1)
+    count = (binned.tile_end - binned.tile_start).to(torch.float64)
+    skipped = bwd_cull_mask(binned.records, binned.tile_start,
+                            binned.tile_end, tiles_x, tiles_y, tile)
+    print(f"training view {MV - 1} ({tile} px tiles): records per tile max "
+          f"{int(count.max())} p99 {float(torch.quantile(count, 0.99)):.1f} "
+          f"mean {float(count.mean()):.2f}; the cull skips "
+          f"{float(skipped.float().mean()):.4f} of (record, warp) pairs")
+    del skipped
     work = {}
     err, row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin,
                            trainer.bg, work, tile=tile)

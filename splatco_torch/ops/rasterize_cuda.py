@@ -21,7 +21,10 @@ The plain versions are vectorised over tiles and pixels and serial over
 each tile's records, so they round exactly as the kernels' per-pixel
 loops do: on the same inputs the forwards agree bit for bit, up to the
 library `exp` (both use CUDA's `expf` on the card); the backwards differ
-only in the order of the sums over a tile's pixels.
+only in the order of the sums over a tile's pixels (and the kernels fuse
+the multiply-adds of those sums).  The backward kernels skip, per warp,
+the records `cull_rect_plain` rejects for the warp's pixel rectangle: an
+exact skip, so it changes no result.
 """
 from __future__ import annotations
 
@@ -43,6 +46,10 @@ BWD_KERNEL = "raster_bwd"
 # kernel (and C entry point) of each pixel tile size
 FWD_KERNELS = {TILE: KERNEL, 16: "raster_fwd16"}
 BWD_KERNELS = {TILE: BWD_KERNEL, 16: "raster_bwd16"}
+# the pixel rectangle (width, height) each warp of the backward kernel
+# owns: BwdLayout in csrc/raster_bwd_tile.cuh at the block size the
+# kernel's source instantiates (256 threads at 32 px, 64 at 16 px)
+BWD_WARP_RECT = {TILE: (16, 8), 16: (16, 8)}
 
 
 def _check_inputs(records, tile_start, tile_end, tiles_x, tiles_y):
@@ -260,6 +267,81 @@ def raster_bwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
         work["evals"] = evals
         work["contribs"] = contribs
     return out
+
+
+def cull_rect_plain(mx, my, ca, cb, cc, op, x0, x1, y0, y1
+                    ) -> torch.Tensor:
+    """The backward kernels' per-warp cull (`cull_rect` in
+    csrc/raster_bwd_tile.cuh) in float32, elementwise over broadcast
+    tensors: True where the record (mx, my, ca, cb, cc, op) gives power > 0
+    or alpha < 1/255 at every pixel centre of [x0, x1] x [y0, y1] under the
+    replay's own float32 arithmetic, so skipping it there is exact.  A
+    lower bound of the conic form, shrunk to cover the replay's rounding,
+    over the rectangle (0 if the mean lies inside, else the least of the
+    four edges' one-dimensional minima) against 2 log(255 op), with
+    margins for this test's own rounding."""
+    lim = torch.log(op * 255.0)
+    lim = lim + 1e-4 + 1e-6 * lim.abs()
+    a = ca * (1.0 - 2e-5)
+    c = cc * (1.0 - 2e-5)
+    b = cb
+    ac, bb = a * c, b * b
+    det = (ac - bb) - 1e-6 * (ac + bb)
+    ex = 1e-6 * (mx.abs() + x0.abs() + x1.abs())
+    ey = 1e-6 * (my.abs() + y0.abs() + y1.abs())
+    dx0, dx1 = (mx - x1) - ex, (mx - x0) + ex
+    dy0, dy1 = (my - y1) - ey, (my - y0) + ey
+    inside = (dx0 <= 0.0) & (dx1 >= 0.0) & (dy0 <= 0.0) & (dy1 >= 0.0)
+
+    def dist_lb(s, lo, hi):
+        d = torch.maximum(lo - s, s - hi)
+        return torch.clamp_min(d - 1e-6 * (s.abs() + lo.abs() + hi.abs()),
+                               0.0)
+
+    def edge_x(e):
+        t = dist_lb(-b * e / c, dy0, dy1)
+        return det * e * e / c + c * t * t
+
+    def edge_y(e):
+        t = dist_lb(-b * e / a, dx0, dx1)
+        return det * e * e / a + a * t * t
+
+    lb = torch.minimum(torch.minimum(edge_x(dx0), edge_x(dx1)),
+                       torch.minimum(edge_y(dy0), edge_y(dy1)))
+    lb = torch.where(inside, 0.0, lb)
+    return (a > 0.0) & (c > 0.0) & (det > 0.0) & (
+        lb * (0.5 * (1.0 - 1e-5)) > lim)
+
+
+def bwd_cull_mask(records: torch.Tensor, tile_start: torch.Tensor,
+                  tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
+                  tile: int = TILE) -> torch.Tensor:
+    """[P, W] bool: True where `cull_rect_plain` lets warp w of the
+    backward kernel skip record p, against the rectangle warp w owns in
+    p's tile (BWD_WARP_RECT, the warps row-major over the tile)."""
+    dev = records.device
+    rw, rh = BWD_WARP_RECT[tile]
+    t_idx = torch.arange(tiles_x * tiles_y, device=dev)
+    w_idx = torch.arange(tile * tile // (rw * rh), device=dev)
+    per_row = tile // rw                                # warps a tile row
+    x0 = (t_idx % tiles_x)[:, None] * tile + (w_idx % per_row)[None] * rw
+    y0 = (t_idx // tiles_x)[:, None] * tile + (w_idx // per_row)[None] * rh
+    rects = torch.stack([x0, x0 + rw - 1, y0, y0 + rh - 1], dim=-1).to(
+        torch.float32)                                  # [T, W, 4]
+    count = (tile_end - tile_start).to(torch.int64)
+    of_rec = torch.repeat_interleave(torch.arange(count.numel(), device=dev),
+                                     count)             # tile of each read
+    first = torch.cumsum(count, 0) - count
+    pos = (tile_start.to(torch.int64)[of_rec]
+           + torch.arange(of_rec.numel(), device=dev) - first[of_rec])
+    rects = rects[of_rec]
+    r = records[:6, pos][:, :, None]
+    mask = torch.zeros((records.shape[1], rects.shape[1]), dtype=torch.bool,
+                       device=dev)
+    mask[pos] = cull_rect_plain(r[0], r[1], r[2], r[3], r[4], r[5],
+                                rects[..., 0], rects[..., 1], rects[..., 2],
+                                rects[..., 3])
+    return mask
 
 
 @functools.lru_cache(maxsize=None)

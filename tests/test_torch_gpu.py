@@ -8,7 +8,9 @@ versions' float32 operations in the same order, so the forwards agree to
 the CPU tests' bound of 1e-5 (in practice bit for bit, up to the library
 exp).  The backward's per-record sums over a tile's 1024 pixels are taken
 in another order than the plain version's, so each of its nine rows is
-held to 1e-5 of that row's largest |value|.  The probes (ops/probes.py)
+held to 1e-5 of that row's largest |value|, on random scenes and on
+crafted tiles (many record batches, termination in the first batch,
+records grazing a warp's rectangle).  The probes (ops/probes.py)
 add in their plain versions' order and are held to them exactly, the
 alpha-sum probe to 1e-6 of the max (its library exp), the TF32 cumsum to
 5e-4 of the max of a float64 cumsum (measured 1.9e-4; inputs rounded to
@@ -16,6 +18,7 @@ bf16 would give ~1.5e-3); the forward's ablation variants
 (ops/raster_ablate.py) as the forward.
 """
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -28,10 +31,11 @@ from splatco_torch.models.splatco import init_model
 from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
-from splatco_torch.ops.rasterize import tile_grid
-from splatco_torch.ops.rasterize_cuda import (BWD_KERNELS, FWD_KERNELS,
-                                              raster_bwd, raster_bwd_plain,
-                                              raster_fwd, raster_fwd_plain)
+from splatco_torch.ops.rasterize import bin_frame, tile_grid
+from splatco_torch.ops.rasterize_cuda import (BWD_KERNELS, BWD_WARP_RECT,
+                                              FWD_KERNELS, raster_bwd,
+                                              raster_bwd_plain, raster_fwd,
+                                              raster_fwd_plain)
 from splatco_torch.train.optimizer import make_optimizer
 from splatco_torch.train.step import init_stats, make_train_step
 
@@ -146,6 +150,105 @@ def test_raster_fwd16_kernel_matches_plain(card, n, h, w):
                                    (500, 80, 112)])
 def test_raster_bwd16_kernel_matches_plain(card, n, h, w):
     check_bwd_kernel(card, n, h, w, tile16=True)
+
+
+def crafted_scene(kind, h, w, tile, dev):
+    """Projected gaussians (proj, colors, opac) that stress the backward
+    kernel's batches and its per-warp cull:
+      deep:   700 faint gaussians around one spot, so a tile holds more
+              than 3 batches of 128 records and pixels away from the spot
+              stay live through all of them;
+      opaque: 300 large opaque gaussians, so every pixel terminates in its
+              tile's first batch and the later records keep zero rows;
+      graze:  400 gaussians whose 1/255 contour touches an edge of a
+              warp's rectangle (BWD_WARP_RECT) to within +-0.05 px."""
+    rng = np.random.default_rng({"deep": 1, "opaque": 2, "graze": 3}[kind])
+    n = {"deep": 700, "opaque": 300, "graze": 400}[kind]
+    sx = rng.uniform(1.0, 4.0, n)
+    sy = rng.uniform(1.0, 4.0, n)
+    th = rng.uniform(0.0, np.pi, n)
+    op = rng.uniform(0.02, 0.9, n)
+    if kind == "deep":
+        mx, my = rng.uniform(20, 28, n), rng.uniform(20, 28, n)
+        op = rng.uniform(0.01, 0.03, n)
+    elif kind == "opaque":
+        sx, sy = rng.uniform(30, 40, n), rng.uniform(30, 40, n)
+        mx, my = rng.uniform(0, w, n), rng.uniform(0, h, n)
+        op = np.full(n, 0.99)
+    c, s = np.cos(th), np.sin(th)
+    sxx = c * c * sx * sx + s * s * sy * sy + 0.3
+    sxy = c * s * (sx * sx - sy * sy)
+    syy = s * s * sx * sx + c * c * sy * sy + 0.3
+    if kind == "graze":
+        # the extreme point of {d: d' cov^-1 d <= 2 t} along +-x or +-y,
+        # t = log(255 op), put on a rectangle's edge, plus delta
+        rw, rh = BWD_WARP_RECT[tile]
+        x0 = rng.integers(0, -(-w // rw), n) * rw
+        y0 = rng.integers(0, -(-h // rh), n) * rh
+        t = np.log(255.0 * op)
+        delta = rng.uniform(-0.05, 0.05, n)
+        side = rng.integers(0, 4, n)
+        ex = np.sqrt(2 * t * sxx)          # x extent, and y at that point
+        ey_at_x = sxy * np.sqrt(2 * t / sxx)
+        ey = np.sqrt(2 * t * syy)
+        ex_at_y = sxy * np.sqrt(2 * t / syy)
+        xc = x0 + rng.uniform(0, rw - 1, n)
+        yc = y0 + rng.uniform(0, rh - 1, n)
+        mx = np.select([side == 0, side == 1, side == 2, side == 3],
+                       [x0 + rw - 1 + ex + delta, x0 - ex - delta,
+                        xc + ex_at_y, xc - ex_at_y])
+        my = np.select([side == 0, side == 1, side == 2, side == 3],
+                       [yc + ey_at_x, yc - ey_at_x,
+                        y0 + rh - 1 + ey + delta, y0 - ey - delta])
+    det = sxx * syy - sxy * sxy
+    f = functools.partial(torch.tensor, dtype=torch.float32, device=dev)
+    radius = np.ceil(3.0 * np.sqrt(np.maximum(sxx, syy)))
+    proj = ProjectedCols(mx=f(mx), my=f(my), depth=f(rng.uniform(1, 5, n)),
+                         ca=f(syy / det), cb=f(-sxy / det), cc=f(sxx / det),
+                         radius=f(radius))
+    return proj, f(rng.uniform(0, 1, (n, 3))), f(op)
+
+
+@pytest.mark.parametrize("kind,h,w", [("deep", 64, 64),
+                                      ("opaque", 70, 100),
+                                      ("graze", 88, 120)])
+@pytest.mark.parametrize("tile16", [False, True])
+def test_raster_bwd_kernels_on_crafted_tiles(card, kind, h, w, tile16):
+    """Both backward kernels against their plain versions (row-relative
+    1e-5) and launch against launch (bit for bit) on tiles with more than
+    3 record batches, tiles that terminate in their first batch, and
+    records grazing a warp's rectangle; ragged H x W."""
+    tile = raster_v3.TILE if tile16 else TILE
+    proj, colors, opac = crafted_scene(kind, h, w, tile, card)
+    binned, tiles_x, tiles_y = bin_frame(proj, colors, opac, tile, h, w, 64)
+    args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+            tiles_y, h, w)
+    rgb, t_fin = raster_fwd(*args, tile=tile)
+    grad = torch.zeros_like(rgb)
+    grad[:, :h, :w] = torch.randn((3, h, w), generator=torch.Generator()
+                                  .manual_seed(7)).to(card)
+    bargs = args + (grad, rgb, t_fin,
+                    torch.tensor([0.2, 0.3, 0.4], device=card))
+    got = raster_bwd(*bargs, tile=tile)
+    again = raster_bwd(*bargs, tile=tile)
+    want = raster_bwd_plain(*bargs, tile=tile)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    scale = want.abs().amax(dim=1, keepdim=True)
+    assert bool(scale.min() > 0)
+    assert bool(((got - want).abs() <= BWD_TOL * scale).all())
+    count = binned.tile_end - binned.tile_start
+    if kind == "deep":
+        assert int(count.max()) > 3 * 128
+    if kind == "opaque":
+        # every pixel terminated in the first batch: the records after it
+        # were never staged and keep zero rows
+        assert bool((t_fin[:h, :w] < 0.01).all()) and int(count.min()) > 128
+        start = binned.tile_start.long()
+        later = torch.cat([torch.arange(int(a) + 128, int(a) + int(c),
+                                        device=card)
+                           for a, c in zip(start, count)])
+        assert not bool(got[:, later].any())
 
 
 def toy_step(dev, tile16=None):
