@@ -20,7 +20,9 @@ Run from the repository root.  Phases, each of which fails loudly:
      `render_set`; the forward kernel's launch count must equal the
      frames,
   5. one frame's stages timed, and the forward kernel timed against its
-     plain version at that frame's shapes, with its bound,
+     plain version at that frame's shapes, with its bound, the frame's
+     records per tile and the share of (record, warp) pairs the kernel's
+     per-warp cull skips,
   6. a small model rendered on the card and on the CPU must agree,
   7. training path at full width: the same model, mv = 4 orbit views at
      1600x1088 with smooth seeded target images, the port's
@@ -30,10 +32,12 @@ Run from the repository root.  Phases, each of which fails loudly:
      steps at level 2.  Every loss must be finite, every trained leaf
      must move and stay finite, and each kernel must launch mv times per
      step,
-  8. the backward kernel timed against its plain version at a training
-     view's shapes (with that view's loss cotangent), with its bound, the
-     view's records per tile (max / p99 / mean) and the share of (record,
-     warp) pairs the kernel's per-warp cull skips,
+  8. the forward kernel at a training view's shapes, against its plain
+     version and timed beside its bound, and the backward kernel timed
+     against its plain version at those shapes (with that view's loss
+     cotangent), with its bound; the view's records per tile (max / p99 /
+     mean) and the share of (record, warp) pairs each kernel's per-warp
+     cull skips,
   9. determinism: two full-width steps from the same state must give
      bit-identical params, optimizer state and statistics,
  10. one step of a small model on the card and on the CPU: the losses
@@ -45,10 +49,10 @@ Run from the repository root.  Phases, each of which fails loudly:
      `render_set(..., tile16=True)` with kmax 32; the 16 px forward
      kernel's launches must equal the frames and no other kernel may
      launch; one frame's stages, the kernel timed against its plain
-     version, with its bound,
+     version, with its bound and the frame's records and cull share,
  13. v3 training at full width: phase 7 with `make_train_step(...,
      tile16=True)` and kmax 32: each 16 px kernel launches mv times per
-     step and the 32 px kernels never; the 16 px backward at a training
+     step and the 32 px kernels never; the 16 px kernels at a training
      view as in phase 8; two steps from one state bit-identical.
  14. the probes and the ablation: tools/micro_mosaic_torch.py and
      tools/profile_torch_kernel_v3.py driven through their `run`, with
@@ -95,9 +99,9 @@ from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
 from splatco_torch.ops.rasterize import bin_frame, tile_grid
 from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
                                               FWD_KERNELS, KERNEL,
-                                              bwd_cull_mask, raster_bwd,
-                                              raster_bwd_plain, raster_fwd,
-                                              raster_fwd_plain)
+                                              bwd_cull_mask, fwd_cull_mask,
+                                              raster_bwd, raster_bwd_plain,
+                                              raster_fwd, raster_fwd_plain)
 from splatco_torch.train.optimizer import (group_schedules, label_params,
                                            make_optimizer)
 from splatco_torch.train.step import init_stats, make_train_step
@@ -105,9 +109,10 @@ from splatco_torch.utils.measure import (PEAK_FP32_PER_S, PEAK_TF32_PER_S,
                                          bound, bwd_bound, cuda_time_ms,
                                          fwd_bound)
 
-# kernel vs plain version on the same inputs: the same float32 operations
-# in the same order (the kernel is built with --fmad=false), so they agree
-# up to the library exp; held to the bound the CPU tests use against JAX
+# the forward kernels repeat their plain versions' float32 operations in
+# the same order (built with --fmad=false; a record a warp culls changes
+# nothing) and both use CUDA's expf: held to them bit for bit.  The
+# ablation's variants are held to the bound the CPU tests use against JAX
 RASTER_TOL = 1e-5
 # the backward's per-record sums over a tile's 1024 pixels are taken in
 # another order than the plain version's, so each of its nine rows is held
@@ -597,8 +602,8 @@ def kernel_checks(proj, colors, opac, seed: int, dev, tile16: bool,
     print(f"random scene, {tile} px tiles, kmax {kmax}: "
           f"{binned.records.shape[1]} pairs, clipped "
           f"{int(binned.num_clipped)}; kernel vs plain max |d| rgb "
-          f"{err_rgb:.3e} T {err_t:.3e} (tolerance {RASTER_TOL})")
-    if not max(err_rgb, err_t) <= RASTER_TOL:
+          f"{err_rgb:.3e} T {err_t:.3e} (must be 0)")
+    if not max(err_rgb, err_t) == 0.0:
         raise AssertionError(f"the {tile} px blend kernel disagrees with its "
                              "plain version")
     rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
@@ -662,13 +667,15 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
                                       tile16)
         print(f"frame 0 stages ms ({tile} px tiles, CUDA events): "
               f"{json.dumps(stages)}")
+        print(f"frame 0 ({tile} px tiles): "
+              f"{records_and_cull(binned, tiles_x, tiles_y, tile)}")
         work = {}
         err_rgb, err_t = compare_kernel(binned, tiles_x, tiles_y, work,
                                         tile=tile)
         err = max(err_rgb, err_t)
         print(f"main path ({tile} px tiles): kernel vs plain max |d| rgb "
-              f"{err_rgb:.3e} T {err_t:.3e}")
-        if not err <= RASTER_TOL:
+              f"{err_rgb:.3e} T {err_t:.3e} (must be 0)")
+        if not err == 0.0:
             raise AssertionError(f"{name} disagrees with its plain version "
                                  "at the main path's shapes")
         rargs = (binned.records, binned.tile_start, binned.tile_end,
@@ -682,33 +689,60 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
             "plain_ms": plain_ms, "bound": bnd}
 
 
+def records_and_cull(binned, tiles_x, tiles_y, tile,
+                     kernels=("forward",)) -> str:
+    """The records per tile (max / p99 / mean) and the share of (record,
+    warp) pairs the per-warp cull of each of `kernels` ("forward",
+    "backward") skips."""
+    count = (binned.tile_end - binned.tile_start).to(torch.float64)
+    masks = {"forward": fwd_cull_mask, "backward": bwd_cull_mask}
+    shares = []
+    for kernel in kernels:
+        skipped = masks[kernel](binned.records, binned.tile_start,
+                                binned.tile_end, tiles_x, tiles_y, tile)
+        shares.append(f"{kernel} {float(skipped.float().mean()):.4f}")
+    return (f"records per tile max {int(count.max())} p99 "
+            f"{float(torch.quantile(count, 0.99)):.1f} mean "
+            f"{float(count.mean()):.2f}; share of (record, warp) pairs the "
+            f"cull skips: {', '.join(shares)}")
+
+
 def backward_at_view(trainer):
-    """Phases 8 and 13: the configuration's backward kernel at a training
-    view's shapes (with that view's loss cotangent) against its plain
-    version and its bound; the view's records per tile and the share of
-    (record, warp) pairs the kernel's cull skips."""
+    """Phases 8 and 13: at a training view's shapes, the configuration's
+    forward kernel against its plain version (bit for bit) and timed
+    beside its bound, and its backward kernel (with that view's loss
+    cotangent) against its plain version and its bound; the view's records
+    per tile and the share of (record, warp) pairs each kernel's cull
+    skips.  Returns the backward's numbers."""
     tile = tile_of(trainer.tile16)
     name = BWD_KERNELS[tile]
     tiles_x, tiles_y = grid(trainer.tile16)
     binned, grad, rgb, t_fin = view_cotangent(trainer, MV - 1)
-    count = (binned.tile_end - binned.tile_start).to(torch.float64)
-    skipped = bwd_cull_mask(binned.records, binned.tile_start,
-                            binned.tile_end, tiles_x, tiles_y, tile)
-    print(f"training view {MV - 1} ({tile} px tiles): records per tile max "
-          f"{int(count.max())} p99 {float(torch.quantile(count, 0.99)):.1f} "
-          f"mean {float(count.mean()):.2f}; the cull skips "
-          f"{float(skipped.float().mean()):.4f} of (record, warp) pairs")
-    del skipped
+    view = f"training view {MV - 1} ({tile} px tiles)"
+    print(f"{view}: " + records_and_cull(binned, tiles_x, tiles_y, tile,
+                                          ("forward", "backward")))
+    work = {}
+    err_rgb, err_t = compare_kernel(binned, tiles_x, tiles_y, work, tile=tile)
+    print(f"{view}: forward kernel vs plain max |d| rgb {err_rgb:.3e} T "
+          f"{err_t:.3e} (must be 0)")
+    if not max(err_rgb, err_t) == 0.0:
+        raise AssertionError(f"{FWD_KERNELS[tile]} disagrees with its plain "
+                             "version at the training path's shapes")
+    fargs = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
+             tiles_y, HEIGHT, WIDTH)
+    fwd_ms = cuda_time_ms(lambda: raster_fwd(*fargs, tile=tile), 20)
+    fbnd = fwd_bound(binned, work, tiles_x, tiles_y, tile)
+    print(f"{view}: {FWD_KERNELS[tile]} {fwd_ms:.4f} ms, bound "
+          f"{fbnd[0]:.4f} ms ({fbnd[1]}), {fbnd[0] / fwd_ms:.1%} of it")
     work = {}
     err, row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin,
                            trainer.bg, work, tile=tile)
-    print(f"training view {MV - 1} ({tile} px tiles): backward kernel vs "
-          f"plain max |d| {err:.3e}, largest row-relative {row:.3e}")
+    print(f"{view}: backward kernel vs plain max |d| {err:.3e}, largest "
+          f"row-relative {row:.3e}")
     if not row <= RASTER_BWD_TOL:
         raise AssertionError(f"{name} disagrees with its plain version at "
                              "the training path's shapes")
-    bargs = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
-             tiles_y, HEIGHT, WIDTH, grad, rgb, t_fin, trainer.bg)
+    bargs = fargs + (grad, rgb, t_fin, trainer.bg)
     ms = cuda_time_ms(lambda: raster_bwd(*bargs, tile=tile), 20)
     plain_ms = cuda_time_ms(lambda: raster_bwd_plain(*bargs, tile=tile), 2)
     bnd = bwd_bound(binned, work, tiles_x, tiles_y, tile)

@@ -24,12 +24,13 @@
 // warp, 2-4x the arithmetic it reduced at 16 px.  The design:
 //  - Each warp owns a compact pixel rectangle (kRectW x kRectH; a lane owns
 //    one column of it, kRows pixels), so a record that cannot reach the
-//    rectangle can be recognised once per warp: `cull_rect` below, a
-//    conservative float32 test against the 1/255 contour.  When a batch of
-//    records is staged, each warp tests 128 of them (4 per lane) and keeps
-//    a bitmask; it then walks only the set bits (__ffs).  A warp with no
-//    live pixel keeps an empty mask.  Skipping is exact: a skipped record
-//    changes neither T nor any sum.
+//    rectangle can be recognised once per warp: `cull_rect` (in
+//    raster_tile.cuh, shared with the forward), a conservative float32
+//    test against the 1/255 contour.  When a batch of records is staged,
+//    each warp tests 128 of them (4 per lane) and keeps a bitmask; it then
+//    walks only the set bits (__ffs).  A warp with no live pixel keeps an
+//    empty mask.  Skipping is exact: a skipped record changes neither T
+//    nor any sum.
 //  - The walk takes the set bits kGroup at a time.  Each lane keeps its
 //    nine partial sums for each record of the group in registers; the warp
 //    then reduces the group by a reduce-scatter butterfly (each level a
@@ -61,72 +62,6 @@ constexpr int kSums = 9;  // S, Sx, Sy, Sxx, Sxy, Syy, Sr, Sg, Sb
 // beat R = 1 by 12-21 %; R = 4 tied or lost (spills under the register
 // cap), 8 and 16 lost to their 9 R registers of partial sums
 constexpr int kGroup = 2;
-
-// Conservative cull of one record against the pixel centres of [x0, x1] x
-// [y0, y1]: true only if at every such pixel the replay's own float32
-// arithmetic gives power > 0 or alpha < 1/255, so the record changes
-// nothing there.  With q(d) = ca dx^2 + 2 cb dx dy + cc dy^2 (power =
-// -q / 2) and S(d) = ca dx^2 + cc dy^2, the replay's power is within
-// 6 u S(d) of the exact one (u = 2^-24), so it is below -Q'(d) / 2 for the
-// shrunk form Q' = q - 2e-5 S.  The test bounds Q' from below over the
-// rectangle (0 if the centre is inside it, else the least of its four
-// edges, each a one-dimensional quadratic) and compares with log(255 op),
-// every rounding covered by a margin.  A NaN opacity or conic keeps the
-// record (a NaN mean reaches no pixel).  The plain version is
-// `cull_rect_plain` in ops/rasterize_cuda.py.
-__device__ __forceinline__ float cull_dist_lb(float s, float lo, float hi) {
-  const float d = fmaxf(lo - s, s - hi);
-  return fmaxf(d - 1e-6f * (fabsf(s) + fabsf(lo) + fabsf(hi)), 0.f);
-}
-
-__device__ __forceinline__ bool cull_rect(float mx, float my, float ca,
-                                          float cb, float cc, float op,
-                                          float x0, float x1, float y0,
-                                          float y1) {
-  float lim = logf(op * 255.f);
-  lim = lim + 1e-4f + 1e-6f * fabsf(lim);
-  const float a = ca * (1.f - 2e-5f);
-  const float c = cc * (1.f - 2e-5f);
-  const float b = cb;
-  if (!(a > 0.f && c > 0.f)) return false;
-  const float ac = a * c, bb = b * b;
-  const float det = (ac - bb) - 1e-6f * (ac + bb);
-  if (!(det > 0.f)) return false;
-  const float ex = 1e-6f * (fabsf(mx) + fabsf(x0) + fabsf(x1));
-  const float ey = 1e-6f * (fabsf(my) + fabsf(y0) + fabsf(y1));
-  const float dx0 = (mx - x1) - ex, dx1 = (mx - x0) + ex;
-  const float dy0 = (my - y1) - ey, dy1 = (my - y0) + ey;
-  float lb = 0.f;
-  if (!(dx0 <= 0.f && dx1 >= 0.f && dy0 <= 0.f && dy1 >= 0.f)) {
-    // edge dx = e: Q' = c (dy + b e / c)^2 + det e^2 / c; dy = e alike
-    auto edge_x = [&](float e) {
-      const float t = cull_dist_lb(-b * e / c, dy0, dy1);
-      return det * e * e / c + c * t * t;
-    };
-    auto edge_y = [&](float e) {
-      const float t = cull_dist_lb(-b * e / a, dx0, dx1);
-      return det * e * e / a + a * t * t;
-    };
-    lb = fminf(fminf(edge_x(dx0), edge_x(dx1)),
-               fminf(edge_y(dy0), edge_y(dy1)));
-  }
-  return lb * (0.5f * (1.f - 1e-5f)) > lim;
-}
-
-// The layout of a block of kBlock threads over a kTile x kTile tile: each
-// of its warps owns a kRectW x kRectH rectangle, each lane one column of
-// it (kRows pixels, 32 / kRectW rows apart).
-template <int kTile, int kBlock>
-struct BwdLayout {
-  static constexpr int kWarps = kBlock / 32;
-  static constexpr int kRows = kTile * kTile / kBlock;  // pixels per lane
-  static constexpr int kRectW = kRows * 32 >= 128 ? 16 : 8;
-  static constexpr int kRectH = kRows * 32 / kRectW;
-  static constexpr int kRowStep = 32 / kRectW;
-  static constexpr int kWarpsX = kTile / kRectW;
-  static_assert(kWarps * kRectW * kRectH == kTile * kTile, "layout");
-  static_assert(kRectW <= kTile && kTile % kRectW == 0, "layout");
-};
 
 // Reduce the lanes' partial sums s[r][c] of kN records (a power of 2 up
 // to 32): afterwards s[0][c] of a lane holds the warp's sum for record
@@ -177,7 +112,7 @@ bwd_kernel(const float* __restrict__ rec, long long num_rec,
            int width, const float* __restrict__ grad,
            const float* __restrict__ rgb, const float* __restrict__ t_final,
            const float* __restrict__ bg, float* __restrict__ out) {
-  using L = BwdLayout<kTile, kBlock>;
+  using L = WarpLayout<kTile, kBlock>;
   constexpr int kRows = L::kRows;
   constexpr int kWarpsB = L::kWarps;
   constexpr int kBatch = 128;  // records staged at once

@@ -19,11 +19,11 @@ it runs its plain version.  There is no fallback from one to the other.
 
 The plain versions are vectorised over tiles and pixels and serial over
 each tile's records, so they round exactly as the kernels' per-pixel
-loops do: on the same inputs the forwards agree bit for bit, up to the
-library `exp` (both use CUDA's `expf` on the card); the backwards differ
-only in the order of the sums over a tile's pixels (and the kernels fuse
-the multiply-adds of those sums).  The backward kernels skip, per warp,
-the records `cull_rect_plain` rejects for the warp's pixel rectangle: an
+loops do: on the same inputs the forwards agree bit for bit (both use
+CUDA's `expf` on the card); the backwards differ only in the order of the
+sums over a tile's pixels (and the kernels fuse the multiply-adds of
+those sums).  Every kernel skips, per warp, the records `cull_rect_plain`
+rejects for the warp's pixel rectangle (FWD_WARP_RECT, BWD_WARP_RECT): an
 exact skip, so it changes no result.
 """
 from __future__ import annotations
@@ -46,9 +46,11 @@ BWD_KERNEL = "raster_bwd"
 # kernel (and C entry point) of each pixel tile size
 FWD_KERNELS = {TILE: KERNEL, 16: "raster_fwd16"}
 BWD_KERNELS = {TILE: BWD_KERNEL, 16: "raster_bwd16"}
-# the pixel rectangle (width, height) each warp of the backward kernel
-# owns: BwdLayout in csrc/raster_bwd_tile.cuh at the block size the
-# kernel's source instantiates (256 threads at 32 px, 64 at 16 px)
+# the pixel rectangle (width, height) each warp of a blend kernel owns:
+# WarpLayout in csrc/raster_tile.cuh at the block size the kernel's source
+# instantiates (forward: 512 threads at 32 px, 128 at 16 px; backward: 256
+# and 64)
+FWD_WARP_RECT = {TILE: (8, 8), 16: (8, 8)}
 BWD_WARP_RECT = {TILE: (16, 8), 16: (16, 8)}
 
 
@@ -271,14 +273,15 @@ def raster_bwd_plain(records: torch.Tensor, tile_start: torch.Tensor,
 
 def cull_rect_plain(mx, my, ca, cb, cc, op, x0, x1, y0, y1
                     ) -> torch.Tensor:
-    """The backward kernels' per-warp cull (`cull_rect` in
-    csrc/raster_bwd_tile.cuh) in float32, elementwise over broadcast
-    tensors: True where the record (mx, my, ca, cb, cc, op) gives power > 0
-    or alpha < 1/255 at every pixel centre of [x0, x1] x [y0, y1] under the
-    replay's own float32 arithmetic, so skipping it there is exact.  A
-    lower bound of the conic form, shrunk to cover the replay's rounding,
-    over the rectangle (0 if the mean lies inside, else the least of the
-    four edges' one-dimensional minima) against 2 log(255 op), with
+    """The blend kernels' per-warp cull (`cull_rect` in
+    csrc/raster_tile.cuh) in float32, elementwise over broadcast tensors:
+    True where the record (mx, my, ca, cb, cc, op) gives power > 0 or
+    alpha < 1/255 at every pixel centre of [x0, x1] x [y0, y1] under the
+    blend's own float32 arithmetic (the forward's, which the backward
+    replays), so skipping it there is exact.  A lower bound of the conic
+    form, shrunk to cover that arithmetic's rounding, over the rectangle
+    (0 if the mean lies inside, else the least of the four edges'
+    one-dimensional minima) against 2 log(255 op), with
     margins for this test's own rounding."""
     lim = torch.log(op * 255.0)
     lim = lim + 1e-4 + 1e-6 * lim.abs()
@@ -313,14 +316,14 @@ def cull_rect_plain(mx, my, ca, cb, cc, op, x0, x1, y0, y1
         lb * (0.5 * (1.0 - 1e-5)) > lim)
 
 
-def bwd_cull_mask(records: torch.Tensor, tile_start: torch.Tensor,
-                  tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
-                  tile: int = TILE) -> torch.Tensor:
-    """[P, W] bool: True where `cull_rect_plain` lets warp w of the
-    backward kernel skip record p, against the rectangle warp w owns in
-    p's tile (BWD_WARP_RECT, the warps row-major over the tile)."""
+def warp_cull_mask(records: torch.Tensor, tile_start: torch.Tensor,
+                   tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
+                   tile: int, rect: Tuple[int, int]) -> torch.Tensor:
+    """[P, W] bool: True where `cull_rect_plain` lets warp w skip record p,
+    against the (width, height) `rect` warp w owns in p's tile (the warps
+    row-major over the tile)."""
     dev = records.device
-    rw, rh = BWD_WARP_RECT[tile]
+    rw, rh = rect
     t_idx = torch.arange(tiles_x * tiles_y, device=dev)
     w_idx = torch.arange(tile * tile // (rw * rh), device=dev)
     per_row = tile // rw                                # warps a tile row
@@ -342,6 +345,24 @@ def bwd_cull_mask(records: torch.Tensor, tile_start: torch.Tensor,
                                 rects[..., 0], rects[..., 1], rects[..., 2],
                                 rects[..., 3])
     return mask
+
+
+def fwd_cull_mask(records: torch.Tensor, tile_start: torch.Tensor,
+                  tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
+                  tile: int = TILE) -> torch.Tensor:
+    """[P, W] bool: the (record, warp) pairs the forward kernel skips
+    (`warp_cull_mask` on FWD_WARP_RECT)."""
+    return warp_cull_mask(records, tile_start, tile_end, tiles_x, tiles_y,
+                          tile, FWD_WARP_RECT[tile])
+
+
+def bwd_cull_mask(records: torch.Tensor, tile_start: torch.Tensor,
+                  tile_end: torch.Tensor, tiles_x: int, tiles_y: int,
+                  tile: int = TILE) -> torch.Tensor:
+    """[P, W] bool: the (record, warp) pairs the backward kernel skips
+    (`warp_cull_mask` on BWD_WARP_RECT)."""
+    return warp_cull_mask(records, tile_start, tile_end, tiles_x, tiles_y,
+                          tile, BWD_WARP_RECT[tile])
 
 
 @functools.lru_cache(maxsize=None)

@@ -4,13 +4,13 @@ there is no card), in both rasterizer configurations (32 px tiles, v2;
 it:  python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 The blend kernels are built with --fmad=false and repeat their plain
-versions' float32 operations in the same order, so the forwards agree to
-the CPU tests' bound of 1e-5 (in practice bit for bit, up to the library
-exp).  The backward's per-record sums over a tile's 1024 pixels are taken
-in another order than the plain version's, so each of its nine rows is
-held to 1e-5 of that row's largest |value|, on random scenes and on
-crafted tiles (many record batches, termination in the first batch,
-records grazing a warp's rectangle).  The probes (ops/probes.py)
+versions' float32 operations in the same order (a record a warp culls
+changes nothing, and both sides use CUDA's expf), so the forwards equal
+their plain versions bit for bit.  The backward's per-record sums over a
+tile's 1024 pixels are taken in another order than the plain version's,
+so each of its nine rows is held to 1e-5 of that row's largest |value|.
+Both on random scenes and on crafted tiles (many record batches,
+termination in the first batch, records grazing a warp's rectangle).  The probes (ops/probes.py)
 add in their plain versions' order and are held to them exactly, the
 alpha-sum probe to 1e-6 of the max (its library exp), the TF32 cumsum to
 5e-4 of the max of a float64 cumsum (measured 1.9e-4; inputs rounded to
@@ -33,7 +33,8 @@ from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import bin_frame, tile_grid
 from splatco_torch.ops.rasterize_cuda import (BWD_KERNELS, BWD_WARP_RECT,
-                                              FWD_KERNELS, raster_bwd,
+                                              FWD_KERNELS, FWD_WARP_RECT,
+                                              raster_bwd,
                                               raster_bwd_plain, raster_fwd,
                                               raster_fwd_plain)
 from splatco_torch.train.optimizer import make_optimizer
@@ -95,10 +96,10 @@ def check_fwd_kernel(dev, n, h, w, tile16):
     assert rgb.shape == (3, tiles_y * tile, tiles_x * tile)
     p_rgb, p_t = raster_fwd_plain(*args, tile=tile)
     torch.cuda.synchronize()
-    assert float((rgb - p_rgb).abs().max()) <= 1e-5
-    assert float((t_fin - p_t).abs().max()) <= 1e-5
-    again, _ = raster_fwd(*args, tile=tile)
-    assert torch.equal(rgb, again)  # no atomics: run to run identical
+    assert torch.equal(rgb, p_rgb) and torch.equal(t_fin, p_t)
+    again, t_again = raster_fwd(*args, tile=tile)
+    # no atomics: run to run identical
+    assert torch.equal(rgb, again) and torch.equal(t_fin, t_again)
 
 
 def check_bwd_kernel(dev, n, h, w, tile16):
@@ -161,7 +162,8 @@ def crafted_scene(kind, h, w, tile, dev):
       opaque: 300 large opaque gaussians, so every pixel terminates in its
               tile's first batch and the later records keep zero rows;
       graze:  400 gaussians whose 1/255 contour touches an edge of a
-              warp's rectangle (BWD_WARP_RECT) to within +-0.05 px."""
+              warp's rectangle (half BWD_WARP_RECT's, half FWD_WARP_RECT's)
+              to within +-0.05 px."""
     rng = np.random.default_rng({"deep": 1, "opaque": 2, "graze": 3}[kind])
     n = {"deep": 700, "opaque": 300, "graze": 400}[kind]
     sx = rng.uniform(1.0, 4.0, n)
@@ -182,7 +184,9 @@ def crafted_scene(kind, h, w, tile, dev):
     if kind == "graze":
         # the extreme point of {d: d' cov^-1 d <= 2 t} along +-x or +-y,
         # t = log(255 op), put on a rectangle's edge, plus delta
-        rw, rh = BWD_WARP_RECT[tile]
+        fwd = np.arange(n) % 2 == 1
+        rw = np.where(fwd, FWD_WARP_RECT[tile][0], BWD_WARP_RECT[tile][0])
+        rh = np.where(fwd, FWD_WARP_RECT[tile][1], BWD_WARP_RECT[tile][1])
         x0 = rng.integers(0, -(-w // rw), n) * rw
         y0 = rng.integers(0, -(-h // rh), n) * rh
         t = np.log(255.0 * op)
@@ -214,16 +218,21 @@ def crafted_scene(kind, h, w, tile, dev):
                                       ("graze", 88, 120)])
 @pytest.mark.parametrize("tile16", [False, True])
 def test_raster_bwd_kernels_on_crafted_tiles(card, kind, h, w, tile16):
-    """Both backward kernels against their plain versions (row-relative
-    1e-5) and launch against launch (bit for bit) on tiles with more than
-    3 record batches, tiles that terminate in their first batch, and
-    records grazing a warp's rectangle; ragged H x W."""
+    """Both forward kernels (bit for bit) and both backward kernels
+    (row-relative 1e-5) against their plain versions, and launch against
+    launch (bit for bit), on tiles with more than 3 record batches, tiles
+    that terminate in their first batch, and records grazing a warp's
+    rectangle; ragged H x W."""
     tile = raster_v3.TILE if tile16 else TILE
     proj, colors, opac = crafted_scene(kind, h, w, tile, card)
     binned, tiles_x, tiles_y = bin_frame(proj, colors, opac, tile, h, w, 64)
     args = (binned.records, binned.tile_start, binned.tile_end, tiles_x,
             tiles_y, h, w)
     rgb, t_fin = raster_fwd(*args, tile=tile)
+    rgb_again, t_again = raster_fwd(*args, tile=tile)
+    p_rgb, p_t = raster_fwd_plain(*args, tile=tile)
+    assert torch.equal(rgb, p_rgb) and torch.equal(t_fin, p_t)
+    assert torch.equal(rgb, rgb_again) and torch.equal(t_fin, t_again)
     grad = torch.zeros_like(rgb)
     grad[:, :h, :w] = torch.randn((3, h, w), generator=torch.Generator()
                                   .manual_seed(7)).to(card)

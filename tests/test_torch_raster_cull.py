@@ -1,7 +1,7 @@
 """The blend backward kernels' per-warp cull, on the CPU.
 
 `cull_rect_plain` (ops/rasterize_cuda.py) is the plain version of the
-kernels' `cull_rect` (csrc/raster_bwd_tile.cuh): a warp may skip a record
+kernels' `cull_rect` (csrc/raster_tile.cuh): a warp may skip a record
 only if, at every pixel centre of its rectangle, the replay's own float32
 arithmetic (as `raster_bwd_plain` computes it) gives power > 0 or alpha <
 1/255.  These tests hold that on random and adversarial records, check
@@ -149,7 +149,7 @@ def test_cull_rejects_far_and_faint_records_and_keeps_odd_ones():
 
 
 def test_warp_rects_match_the_kernels_layout():
-    """BWD_WARP_RECT is BwdLayout's rectangle at the block size each
+    """BWD_WARP_RECT is WarpLayout's rectangle at the block size each
     backward source instantiates."""
     for tile, name in BWD_KERNELS.items():
         src = (CSRC / f"{name}.cu").read_text()
