@@ -64,6 +64,17 @@ Run from the repository root.  Phases, each of which fails loudly:
      tool's inputs with row 2 made positive, since a negative row 2
      overflows exp), the plain versions and the one-call library
      versions (torch.cumsum, Tensor.add_) timed, and each kernel's bound.
+ 15. a scene on disk at full width: the port's `write_colmap_dataset`
+     writes a COLMAP binary scene (16 views at 1600x1088, 65,536 points),
+     `Scene` reads it onto the card (the ground-truth images must equal
+     the written PNG pixels), the quick-start model is initialised from
+     its points, saved with `save_model_checkpoint` / `save_run_config`,
+     and `render_sets` renders it from disk: 14 train and 2 test PNGs,
+     num_gaussians.json's anchors, the forward kernel launched once per
+     frame, the loaded model's first test view equal to the in-memory
+     model's render bit for bit; then `render_torch.py --skip_train` in a
+     subprocess must write the same PNGs.  Prints the scene's load
+     seconds, the native parser's points/s and render_sets' ms/frame.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all nine kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -76,19 +87,25 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from splatco_torch.config import (ModelConfig, OptimizationConfig,
-                                  PipelineConfig)
+                                  PipelineConfig, save_run_config)
+from splatco_torch.data import native_io
 from splatco_torch.data.cameras import look_at_camera
-from splatco_torch.eval.render_driver import render_set
+from splatco_torch.data.scene import Scene
+from splatco_torch.eval.render_driver import (load_trained, render_set,
+                                              render_sets)
 from splatco_torch.models.renderer import (generate_neural_gaussians,
                                            prefilter_voxel, render)
 from splatco_torch.models.splatco import decode_kwargs, init_model
@@ -96,18 +113,21 @@ from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
 from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.losses import l1_loss, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
-from splatco_torch.ops.rasterize import bin_frame, tile_grid
+from splatco_torch.ops.rasterize import TILE16_DEFAULT, bin_frame, tile_grid
 from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
                                               FWD_KERNELS, KERNEL,
                                               bwd_cull_mask, fwd_cull_mask,
                                               raster_bwd, raster_bwd_plain,
                                               raster_fwd, raster_fwd_plain)
+from splatco_torch.train.checkpoint import save_model_checkpoint
 from splatco_torch.train.optimizer import (group_schedules, label_params,
                                            make_optimizer)
 from splatco_torch.train.step import init_stats, make_train_step
+from splatco_torch.utils.math import round_up
 from splatco_torch.utils.measure import (PEAK_FP32_PER_S, PEAK_TF32_PER_S,
                                          bound, bwd_bound, cuda_time_ms,
                                          fwd_bound)
+from splatco_torch.utils.synthetic import write_colmap_dataset
 
 # the forward kernels repeat their plain versions' float32 operations in
 # the same order (built with --fmad=false; a record a warp culls changes
@@ -151,6 +171,8 @@ CUMSUM_TF32_TOL = 5e-4
 # the alpha-sum probe repeats its plain version's float32 operations in
 # order, up to the library exp: held to 1e-6 of the max |value|
 BLEND_PROBE_TOL = 1e-6
+# phase 15: the scene on disk (llffhold 8: views 0 and 8 are the test set)
+DISK_VIEWS, DISK_POINTS, DISK_ITERATION = 16, 65536, 30000
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -958,6 +980,169 @@ def probe_phase(dev):
     return per_kernel, numbers
 
 
+def png_pixels(path: str) -> np.ndarray:
+    """[H, W, 3] uint8 of an RGB PNG whose rows are all unfiltered (what
+    save_png writes), decoded here without the port's decoder."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    pos, idat, (w, h) = 8, b"", (0, 0)
+    while pos < len(data):
+        n = int.from_bytes(data[pos:pos + 4], "big")
+        tag, body = data[pos + 4:pos + 8], data[pos + 8:pos + 8 + n]
+        if tag == b"IHDR":
+            w, h = int.from_bytes(body[:4], "big"), int.from_bytes(
+                body[4:8], "big")
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
+        h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError(f"{path}: a row is filtered")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def eight_bit(img: torch.Tensor) -> np.ndarray:
+    """[H, W, 3] uint8 of a [3, H, W] image as save_png quantizes it."""
+    return (img.clamp(0.0, 1.0).permute(1, 2, 0).cpu().numpy() * 255
+            ).astype(np.uint8)
+
+
+def disk_phase(args, dev, card: str):
+    """Phase 15: a COLMAP scene written, read and rendered from disk at
+    full width, through the entry points a user calls.  Returns the
+    forward kernel's launches in render_sets."""
+    t_phase = time.perf_counter()
+    name = FWD_KERNELS[raster_v3.TILE if TILE16_DEFAULT else TILE]
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir = os.path.join(tmp, "scene")
+        model_dir = os.path.join(tmp, "model")
+        t0 = time.perf_counter()
+        write_colmap_dataset(scene_dir, n_views=DISK_VIEWS,
+                             n_pts=DISK_POINTS, width=WIDTH, height=HEIGHT,
+                             seed=args.seed, device=dev)
+        write_s = time.perf_counter() - t0
+        points_bin = os.path.join(scene_dir, "sparse", "0", "points3D.bin")
+        t0 = time.perf_counter()
+        native_io.read_points3d(points_bin)  # builds the parser
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        xyz, _, _ = native_io.read_points3d(points_bin)
+        parse_s = time.perf_counter() - t0
+
+        cfg = dataclasses.replace(quickstart_config(), source_path=scene_dir,
+                                  model_path=model_dir, eval=True)
+        t0 = time.perf_counter()
+        scene = Scene(cfg, shuffle=False, device=dev)
+        train, test = scene.train_cameras(), scene.test_cameras()
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        if (len(train), len(test)) != (DISK_VIEWS - 2, 2):
+            raise AssertionError(f"split {len(train)} / {len(test)}")
+        for cam in train + test:
+            want = png_pixels(os.path.join(scene_dir, "images",
+                                           cam.image_name + ".png"))
+            got = cam.image.permute(1, 2, 0).cpu().numpy() * 255
+            if not (cam.image.shape == (3, HEIGHT, WIDTH)
+                    and np.array_equal(np.round(got), want)
+                    and np.abs(got - want).max() < 1e-3):
+                raise AssertionError(f"{cam.image_name}: the ground truth is "
+                                     "not the written PNG's pixels")
+
+        params, state = init_model(cfg, scene.points, device=dev,
+                                   generator=torch.Generator().manual_seed(
+                                       args.seed))
+        n_anchor = int(state.active.sum())
+        # the capacity the checkpoint loads at (anchors padded to 256), so
+        # both models run the same shapes
+        cap = round_up(n_anchor, 256)
+        params["anchors"] = {k: v[:cap] for k, v in
+                             params["anchors"].items()}
+        active = state.active[:cap]
+        save_model_checkpoint(model_dir, DISK_ITERATION, params, active)
+        save_run_config(model_dir, cfg, PipelineConfig(),
+                        OptimizationConfig())
+        cli_dir = os.path.join(tmp, "model_cli")
+        shutil.copytree(model_dir, cli_dir)
+
+        cuda_lib.LAUNCHES.clear()
+        fps, n = render_sets(cfg, device=dev)
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        frames = DISK_VIEWS
+        out = {split: os.path.join(model_dir, split,
+                                   f"ours_{DISK_ITERATION}", "renders")
+               for split in ("train", "test")}
+        counts = {split: len(os.listdir(d)) for split, d in out.items()}
+        with open(os.path.join(model_dir, "num_gaussians.json")) as fh:
+            n_json = json.load(fh)["model"]
+        print(f"render_sets from disk: {counts} PNGs, {n} anchors "
+              f"(num_gaussians.json {n_json}, active {n_anchor}); launches "
+              f"{launches}")
+        if counts != {"train": DISK_VIEWS - 2, "test": 2}:
+            raise AssertionError("render_sets wrote the wrong PNGs")
+        if not n == n_json == n_anchor:
+            raise AssertionError("num_gaussians.json's anchors are not the "
+                                 "model's")
+        if launches != {name: frames}:
+            raise AssertionError(f"render_sets launched {launches} for "
+                                 f"{frames} frames")
+
+        loaded, l_active, contractor, level, _ = load_trained(cfg,
+                                                              device=dev)
+        bg = torch.zeros(3, device=dev)
+        images = []
+        with torch.inference_mode():
+            for p, a, c in ((loaded, l_active, contractor),
+                            (params, active, state.contractor)):
+                vis = prefilter_voxel(p["anchors"], a, test[0])
+                images.append(render(p, a, c, test[0], bg, visible_mask=vis,
+                                     activate_level=level, kmax=cfg.kmax,
+                                     **decode_kwargs(cfg)).image)
+        png = png_pixels(os.path.join(out["test"], "00000.png"))
+        print(f"first test view: loaded vs in-memory model max |d| "
+              f"{float((images[0] - images[1]).abs().max()):.3e} (must be "
+              f"0); its PNG equals the in-memory render quantized: "
+              f"{np.array_equal(png, eight_bit(images[1]))}")
+        if not torch.equal(images[0], images[1]):
+            raise AssertionError("the loaded checkpoint renders otherwise "
+                                 "than the in-memory model")
+        if not np.array_equal(png, eight_bit(images[1])):
+            raise AssertionError("render_sets' PNG is not the in-memory "
+                                 "model's render")
+
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve().parent
+                                 / "render_torch.py"),
+             "-m", cli_dir, "--skip_train"], capture_output=True, text=True,
+            timeout=600)
+        cli_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"render_torch.py failed:\n{res.stdout}"
+                                 f"{res.stderr}")
+        cli_out = os.path.join(cli_dir, "test", f"ours_{DISK_ITERATION}",
+                               "renders")
+        same = sorted(os.listdir(cli_out)) == sorted(os.listdir(out["test"]))
+        for f in os.listdir(out["test"]):
+            with open(os.path.join(out["test"], f), "rb") as a, \
+                    open(os.path.join(cli_out, f), "rb") as b:
+                same = same and a.read() == b.read()
+        print(f"render_torch.py --skip_train: {cli_s:.1f} s, its PNGs equal "
+              f"render_sets': {same}")
+        if not same:
+            raise AssertionError("render_torch.py wrote other PNGs")
+    print(f"scene on disk ({card}): {DISK_VIEWS} views at {WIDTH}x{HEIGHT}, "
+          f"written in {write_s:.1f} s; native parser built and first read "
+          f"in {first_s:.3f} s, then {len(xyz)} points in "
+          f"{parse_s * 1e3:.2f} ms = {len(xyz) / parse_s:.4g} points/s; "
+          f"Scene load (parse, decode, to the card) {load_s:.3f} s; "
+          f"render_sets ({name}) train {1e3 / fps['train']:.3f} ms/frame, "
+          f"test {1e3 / fps['test']:.3f} ms/frame (CUDA events, after a "
+          f"warm-up frame); phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -1049,12 +1234,18 @@ def main() -> int:
     # 14. the probes and the ablation through their tools
     probe_launches, probe_numbers = probe_phase(dev)
 
+    # 15. a scene on disk: written, read, saved, rendered by render_sets
+    # and by render_torch.py
+    disk_launches = disk_phase(args, dev, smi)
+
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
-              + train_launches.get(KERNEL, 0), fwd),
+              + train_launches.get(KERNEL, 0)
+              + disk_launches.get(KERNEL, 0), fwd),
         entry(BWD_KERNEL, train_launches.get(BWD_KERNEL, 0), bwd),
         entry(KERNEL16, fwd3["launches"].get(KERNEL16, 0)
-              + train3_launches.get(KERNEL16, 0), fwd3),
+              + train3_launches.get(KERNEL16, 0)
+              + disk_launches.get(KERNEL16, 0), fwd3),
         entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0), bwd3),
         *(entry(name, probe_launches[name], nums)
           for name, nums in probe_numbers.items()),

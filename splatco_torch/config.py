@@ -1,11 +1,21 @@
 """Configuration — this package's own copies of `splatco_tpu.config`'s
 `ModelConfig`, `PipelineConfig` and `OptimizationConfig` (same fields,
-same defaults), so a config saved by the JAX trainer (`cfg_args.json`)
-builds one here unchanged."""
+same defaults), its dataclass-reflection CLI and its JSON run
+persistence, so a `cfg_args.json` written by either package loads in the
+other."""
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
 from typing import List
+
+SHORTHANDS = {
+    "source_path": "-s", "model_path": "-m", "images": "-i",
+    "resolution": "-r", "white_background": "-w",
+}
 
 
 @dataclass
@@ -119,3 +129,70 @@ class OptimizationConfig:
     plane_lr_inactive: float = 0.001
     plane_mlp_lr_active: float = 1e-4
     plane_mlp_lr_inactive: float = 1e-5
+
+
+def add_dataclass_args(parser: argparse.ArgumentParser, cfg, prefix: str = ""
+                       ) -> None:
+    for f in dataclasses.fields(cfg):
+        name = "--" + f.name
+        default = getattr(cfg, f.name)
+        flags = [name]
+        if f.name in SHORTHANDS:
+            flags.append(SHORTHANDS[f.name])
+        if isinstance(default, bool):
+            parser.add_argument(*flags, action="store_true", default=default)
+        elif isinstance(default, list):
+            parser.add_argument(*flags, nargs="+",
+                                type=type(default[0]) if default else float,
+                                default=default)
+        else:
+            parser.add_argument(*flags, type=type(default), default=default)
+
+
+def extract_dataclass(args: argparse.Namespace, cls):
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if hasattr(args, f.name):
+            kwargs[f.name] = getattr(args, f.name)
+    return cls(**kwargs)
+
+
+def save_run_config(model_path: str, model: ModelConfig,
+                    pipeline: PipelineConfig, opt: OptimizationConfig
+                    ) -> None:
+    os.makedirs(model_path, exist_ok=True)
+    payload = {
+        "model": dataclasses.asdict(model),
+        "pipeline": dataclasses.asdict(pipeline),
+        "optimization": dataclasses.asdict(opt),
+    }
+    with open(os.path.join(model_path, "cfg_args.json"), "w") as fh:
+        json.dump(payload, fh, indent=2)
+
+
+def load_run_config(model_path: str):
+    path = os.path.join(model_path, "cfg_args.json")
+    with open(path) as fh:
+        payload = json.load(fh)
+    return (ModelConfig(**payload["model"]),
+            PipelineConfig(**payload["pipeline"]),
+            OptimizationConfig(**payload["optimization"]))
+
+
+def combined_config(args: argparse.Namespace):
+    """Render-time config: the saved run config overridden by the CLI
+    arguments that differ from the defaults."""
+    model_path = getattr(args, "model_path", "")
+    try:
+        model, pipeline, opt = load_run_config(model_path)
+    except (FileNotFoundError, TypeError):
+        model, pipeline, opt = (ModelConfig(), PipelineConfig(),
+                                OptimizationConfig())
+    defaults = (ModelConfig(), PipelineConfig(), OptimizationConfig())
+    for cfg, dflt in zip((model, pipeline, opt), defaults):
+        for f in dataclasses.fields(cfg):
+            if hasattr(args, f.name):
+                v = getattr(args, f.name)
+                if v != getattr(dflt, f.name) and v is not None:
+                    setattr(cfg, f.name, v)
+    return model, pipeline, opt

@@ -49,6 +49,14 @@ def projection_matrix(znear: float, zfar: float, fovx: float, fovy: float
     return np.float32(P)
 
 
+def fov2focal(fov: float, pixels: int) -> float:
+    return pixels / (2 * math.tan(fov / 2))
+
+
+def focal2fov(focal: float, pixels: int) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 @dataclasses.dataclass(frozen=True)
 class Camera:
     """One view; the tensors live on the camera's device."""

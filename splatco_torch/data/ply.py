@@ -1,10 +1,11 @@
-"""Minimal PLY reader (binary little/big-endian and ascii), no third-party
-deps — this package's own copy of splatco_tpu/data/ply.py's `read_ply`.
-Flat float/uchar vertex properties, one 'vertex' element: the anchor PLY
-schema the JAX trainer writes."""
+"""Minimal PLY I/O (binary little/big-endian and ascii), no third-party
+deps — this package's own copy of splatco_tpu/data/ply.py.  Flat
+float/uchar vertex properties, one 'vertex' element: the point clouds of
+the scene readers and the anchor PLY schema of the checkpoints."""
 from __future__ import annotations
 
 import io
+import os
 from typing import Dict, List, Tuple
 
 import numpy as np
@@ -55,3 +56,60 @@ def read_ply(path: str) -> Dict[str, np.ndarray]:
     dtype = np.dtype([(name, endian + dt) for name, dt in props])
     rec = np.frombuffer(body, dtype=dtype, count=count)
     return {name: np.ascontiguousarray(rec[name]) for name, _ in props}
+
+
+def write_ply(path: str, columns: Dict[str, np.ndarray]) -> None:
+    """Write flat named columns as a binary_little_endian 'vertex' element
+    (order preserved)."""
+    names = list(columns.keys())
+    n = len(columns[names[0]])
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    inv_types = {v: k for k, v in list(_PLY_TYPES.items())[:8]}
+    dtype = np.dtype([
+        (name, "<" + columns[name].dtype.str[1:]) for name in names])
+    rec = np.empty(n, dtype=dtype)
+    header = ["ply", "format binary_little_endian 1.0",
+              f"element vertex {n}"]
+    for name in names:
+        col = np.asarray(columns[name])
+        if col.ndim != 1 or len(col) != n:
+            raise ValueError(f"column {name} is not [{n}]")
+        rec[name] = col
+        header.append(f"property {inv_types[col.dtype.str[1:]]} {name}")
+    header.append("end_header")
+    with open(path, "wb") as fh:
+        fh.write(("\n".join(header) + "\n").encode("ascii"))
+        fh.write(rec.tobytes())
+
+
+def fetch_point_cloud(path: str):
+    """(points [N,3], colors [N,3] in [0,1], normals [N,3]) float32 of a
+    point-cloud PLY; colors and normals are zeros where it has none."""
+    v = read_ply(path)
+    points = np.stack([v["x"], v["y"], v["z"]], axis=1).astype(np.float32)
+    if "red" in v:
+        colors = np.stack([v["red"], v["green"], v["blue"]],
+                          axis=1).astype(np.float32) / 255.0
+    else:
+        colors = np.zeros_like(points)
+    if "nx" in v:
+        normals = np.stack([v["nx"], v["ny"], v["nz"]], axis=1
+                           ).astype(np.float32)
+    else:
+        normals = np.zeros_like(points)
+    return points, colors, normals
+
+
+def store_point_cloud(path: str, xyz: np.ndarray, rgb: np.ndarray) -> None:
+    """A point cloud as PLY: xyz float32, zero normals, rgb uint8."""
+    xyz = np.asarray(xyz, np.float32)
+    cols = {
+        "x": xyz[:, 0], "y": xyz[:, 1], "z": xyz[:, 2],
+        "nx": np.zeros(len(xyz), np.float32),
+        "ny": np.zeros(len(xyz), np.float32),
+        "nz": np.zeros(len(xyz), np.float32),
+        "red": np.asarray(rgb[:, 0], np.uint8),
+        "green": np.asarray(rgb[:, 1], np.uint8),
+        "blue": np.asarray(rgb[:, 2], np.uint8),
+    }
+    write_ply(path, cols)

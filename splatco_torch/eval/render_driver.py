@@ -1,6 +1,7 @@
 """Offline render driver (counterpart of splatco_tpu/eval/render_driver.py):
-load a trained model, render a camera list, write per-view PNGs and
-measure frames per second.
+load a trained model (the JAX trainer's checkpoints or a reference-trained
+model), render a scene's train and test views, write per-view PNGs and
+num_gaussians.json, and measure frames per second.
 
 The card is timed with CUDA events: the first frame is a warm-up, the
 rest are timed back to back.  The class-budget passes of the JAX driver
@@ -8,56 +9,53 @@ have no counterpart: the port's binning has no static budget.
 """
 from __future__ import annotations
 
+import json
 import os
-import struct
 import time
-import zlib
 from typing import List, Optional
 
-import numpy as np
 import torch
 
 from splatco_torch.config import ModelConfig
 from splatco_torch.data.cameras import Camera
+from splatco_torch.data.images import save_png
+from splatco_torch.data.scene import Scene
 from splatco_torch.models.contraction import Contractor, make_contractor
 from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import decode_kwargs
 from splatco_torch.train import checkpoint as ckpt
+from splatco_torch.train.import_reference import load_reference_model
 from splatco_torch.utils.device import resolve_device
 
 
-def save_png(path: str, img_chw: np.ndarray) -> None:
-    """8-bit RGB PNG of a [3,H,W] image in [0,1] (truncating quantization,
-    as the JAX driver's), written with the standard library only."""
-    arr = (np.clip(img_chw, 0, 1).transpose(1, 2, 0) * 255).astype(np.uint8)
-    h, w, _ = arr.shape
-    raw = b"".join(b"\x00" + arr[row].tobytes() for row in range(h))
-
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    with open(path, "wb") as fh:
-        fh.write(b"\x89PNG\r\n\x1a\n"
-                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0,
-                                              0))
-                 + chunk(b"IDAT", zlib.compress(raw, 6))
-                 + chunk(b"IEND", b""))
-
-
-def load_trained(cfg: ModelConfig, iteration: int = -1, device=None):
-    """-> (params, active, contractor, activate_level, iteration).  The
-    contractor comes from the checkpoint's meta.json, else from the
-    config's scene box; eval activates every plane level unless the meta
-    says otherwise."""
+def load_trained(cfg: ModelConfig, iteration: int = -1, device=None,
+                 scene: Optional[Scene] = None):
+    """-> (params, active, contractor, activate_level, iteration) on
+    `device` (None: the card).  A model trained by the reference pipeline
+    (point_cloud/iteration_N/checkpoints.pth) is imported
+    (train/import_reference.py), any other is read as the JAX trainer's
+    checkpoint.  The contractor's bounds come from the checkpoint (meta.json
+    or the reference's chkpnt file), else from the config's scene box;
+    eval activates every plane level unless the meta says otherwise.
+    `scene` is the JAX signature's: the port takes the model's layout from
+    the config, so it reads nothing from the scene."""
     dev = resolve_device(device)
     if iteration == -1:
         iteration = ckpt.latest_iteration(cfg.model_path)
         if iteration is None:
             raise FileNotFoundError(f"no checkpoints in {cfg.model_path}")
-    params, active, meta = ckpt.load_model_checkpoint(
-        cfg.model_path, iteration, device=dev)
+    ref_pth = os.path.join(cfg.model_path, "point_cloud",
+                           f"iteration_{iteration}", "checkpoints.pth")
+    if os.path.exists(ref_pth):
+        params, active, bounds = load_reference_model(
+            cfg.model_path, iteration, cfg, device=dev)
+        meta = {}
+        if bounds is not None:
+            meta = {"contractor_min": bounds[0].tolist(),
+                    "contractor_max": bounds[1].tolist()}
+    else:
+        params, active, meta = ckpt.load_model_checkpoint(
+            cfg.model_path, iteration, device=dev)
     meta = meta or {}
     box = make_contractor(cfg.scene_center, cfg.scene_length,
                           cfg.bbox_scale, enabled=cfg.contractor, device=dev)
@@ -133,3 +131,30 @@ def render_set(model_path: str, name: str, iteration: int,
     clock = "CUDA events" if on_card else "host clock, CPU"
     print(f"{name} FPS: {fps:.2f} ({clock})")
     return fps
+
+
+def render_sets(cfg: ModelConfig, iteration: int = -1,
+                skip_train: bool = False, skip_test: bool = False,
+                device=None):
+    """Render the scene at `cfg.source_path` (train and test views, not
+    shuffled) from the model at `cfg.model_path` on `device` (None: the
+    card) in the rasterizer configuration SPLATCO_RASTER selects, and
+    write num_gaussians.json.  Returns ({set: fps}, anchors)."""
+    scene = Scene(cfg, shuffle=False, write_artifacts=False, device=device)
+    params, active, contractor, lvl, it = load_trained(
+        cfg, iteration, device=scene.device, scene=scene)
+    n_anchors = int(active.sum())
+    fps = {}
+    if not skip_train:
+        fps["train"] = render_set(cfg.model_path, "train", it,
+                                  scene.train_cameras(), params, active,
+                                  contractor, lvl, cfg)
+    if not skip_test:
+        fps["test"] = render_set(cfg.model_path, "test", it,
+                                 scene.test_cameras(), params, active,
+                                 contractor, lvl, cfg)
+    with open(os.path.join(cfg.model_path, "num_gaussians.json"),
+              "w") as fh:
+        json.dump({os.path.basename(os.path.normpath(cfg.model_path)):
+                   n_anchors, "fps": fps}, fh)
+    return fps, n_anchors

@@ -1,23 +1,55 @@
-"""Loading the JAX trainer's model checkpoints (the loading half of
-splatco_tpu/train/checkpoint.py).
+"""Model and training checkpoints (counterpart of
+splatco_tpu/train/checkpoint.py), written and read in the JAX package's
+formats, so either package reads what the other wrote.
 
 A saved model is `point_cloud/iteration_N/` holding the anchor PLY (the
 reference schema), `checkpoints.npz` (decoder and plane arrays keyed by
-`jax.tree_util.keystr` paths) and optionally `meta.json`.  Shapes come
-from the archive itself, so no template model is needed.
+`jax.tree_util.keystr` paths) and optionally `meta.json`.  A training
+state is `chkpnt<N>.npz` (any nested dict/list of tensors, keyed the same
+way) beside `chkpnt<N>.json` (the trainer's scalars).  Shapes come from
+the archives themselves, so no template model is needed to load one.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from splatco_torch.data.ply import read_ply
+from splatco_torch.data.ply import read_ply, write_ply
 from splatco_torch.models.splatco import params_from_numpy
 from splatco_torch.utils.device import resolve_device
+
+
+def save_anchor_ply(path: str, anchors: Dict[str, torch.Tensor],
+                    active: torch.Tensor) -> None:
+    """The active anchors in the reference's PLY schema: xyz, zero
+    normals, f_offset_* ([N,K,3] -> [N,3,K] flattened), f_anchor_feat_*,
+    opacity, scale_*, rot_*."""
+    sel = torch.nonzero(active.cpu()).flatten()
+
+    def rows(name):
+        return anchors[name].detach().cpu()[sel].numpy().astype(np.float32)
+
+    anchor, feat, opacity = rows("anchor"), rows("feat"), rows("opacity")
+    scaling, rotation = rows("scaling"), rows("rotation")
+    n = len(sel)
+    offsets = rows("offsets").transpose(0, 2, 1).reshape(n, -1)
+    cols = {name: anchor[:, i] for i, name in enumerate("xyz")}
+    cols.update({name: np.zeros(n, np.float32) for name in ("nx", "ny",
+                                                           "nz")})
+    cols.update({f"f_offset_{i}": offsets[:, i]
+                 for i in range(offsets.shape[1])})
+    cols.update({f"f_anchor_feat_{i}": feat[:, i]
+                 for i in range(feat.shape[1])})
+    cols["opacity"] = opacity[:, 0]
+    cols.update({f"scale_{i}": scaling[:, i]
+                 for i in range(scaling.shape[1])})
+    cols.update({f"rot_{i}": rotation[:, i]
+                 for i in range(rotation.shape[1])})
+    write_ply(path, cols)
 
 
 def load_anchor_ply(path: str, capacity: int = 0, pad_multiple: int = 256
@@ -57,6 +89,88 @@ def load_anchor_ply(path: str, capacity: int = 0, pad_multiple: int = 256
     return anchors, active
 
 
+def params_to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{keystr path: array} of a nested dict/list of tensors: the inverse
+    of `params_from_numpy`, and the key format of the JAX archives."""
+    if isinstance(tree, dict):
+        items = ((f"['{k}']", v) for k, v in tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = ((f"[{i}]", v) for i, v in enumerate(tree))
+    else:
+        return {prefix: tree.detach().cpu().numpy()}
+    out = {}
+    for key, val in items:
+        out.update(params_to_numpy(val, prefix + key))
+    return out
+
+
+def save_pytree(path: str, tree) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    np.savez_compressed(path, **params_to_numpy(tree))
+
+
+def _read_archive(path: str) -> Dict[str, np.ndarray]:
+    with np.load(path, allow_pickle=False) as archive:
+        return {key: archive[key] for key in archive.files}
+
+
+def load_pytree(path: str, device=None):
+    """The nested tree of an archive `save_pytree` (or the JAX package's)
+    wrote, on `device`."""
+    return params_from_numpy(_read_archive(path), device=device)
+
+
+def save_model_checkpoint(model_path: str, iteration: int,
+                          params: Dict[str, Any], active: torch.Tensor,
+                          meta: Optional[dict] = None) -> None:
+    """point_cloud/iteration_N/{point_cloud.ply, checkpoints.npz,
+    meta.json}."""
+    pc_dir = os.path.join(model_path, "point_cloud",
+                          f"iteration_{iteration}")
+    os.makedirs(pc_dir, exist_ok=True)
+    save_anchor_ply(os.path.join(pc_dir, "point_cloud.ply"),
+                    params["anchors"], active)
+    save_pytree(os.path.join(pc_dir, "checkpoints.npz"),
+                {"decoders": params["decoders"], "planes": params["planes"]})
+    if meta is not None:
+        with open(os.path.join(pc_dir, "meta.json"), "w") as fh:
+            json.dump(meta, fh)
+
+
+def save_train_state(model_path: str, iteration: int, tree,
+                     meta: dict) -> None:
+    """The whole training state: `tree` (params, optimizer state, densify
+    statistics, active mask...) to chkpnt<N>.npz, `meta` (the trainer's
+    scalars) to chkpnt<N>.json."""
+    base = os.path.join(model_path, f"chkpnt{iteration}")
+    save_pytree(base + ".npz", tree)
+    with open(base + ".json", "w") as fh:
+        json.dump(meta, fh)
+
+
+def load_train_state(model_path: str, iteration: int, device=None):
+    """-> (tree on `device`, meta) of `save_train_state`."""
+    dev = resolve_device(device)
+    base = os.path.join(model_path, f"chkpnt{iteration}")
+    tree = load_pytree(base + ".npz", device=dev)
+    with open(base + ".json") as fh:
+        meta = json.load(fh)
+    return tree, meta
+
+
+def latest_train_checkpoint(model_path: str) -> Optional[int]:
+    its = []
+    if not os.path.isdir(model_path):
+        return None
+    for name in os.listdir(model_path):
+        if name.startswith("chkpnt") and name.endswith(".json"):
+            try:
+                its.append(int(name[len("chkpnt"):-len(".json")]))
+            except ValueError:
+                pass
+    return max(its) if its else None
+
+
 def latest_iteration(model_path: str) -> Optional[int]:
     pc = os.path.join(model_path, "point_cloud")
     if not os.path.isdir(pc):
@@ -75,9 +189,7 @@ def load_model_checkpoint(model_path: str, iteration: int,
     anchors, active = load_anchor_ply(
         os.path.join(pc_dir, "point_cloud.ply"), capacity=capacity)
     flat = {f"['anchors']['{name}']": arr for name, arr in anchors.items()}
-    with np.load(os.path.join(pc_dir, "checkpoints.npz"),
-                 allow_pickle=False) as archive:
-        flat.update({key: archive[key] for key in archive.files})
+    flat.update(_read_archive(os.path.join(pc_dir, "checkpoints.npz")))
     params = params_from_numpy(flat, device=dev)
     meta = None
     meta_path = os.path.join(pc_dir, "meta.json")

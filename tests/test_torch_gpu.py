@@ -15,7 +15,9 @@ add in their plain versions' order and are held to them exactly, the
 alpha-sum probe to 1e-6 of the max (its library exp), the TF32 cumsum to
 5e-4 of the max of a float64 cumsum (measured 1.9e-4; inputs rounded to
 bf16 would give ~1.5e-3); the forward's ablation variants
-(ops/raster_ablate.py) as the forward.
+(ops/raster_ablate.py) as the forward.  A small scene written to disk
+and rendered by render_sets from a saved checkpoint equals the in-memory
+model's render bit for bit.
 """
 import dataclasses
 import functools
@@ -27,7 +29,11 @@ import torch
 
 from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.data.cameras import look_at_camera
-from splatco_torch.models.splatco import init_model
+from splatco_torch.data.images import read_image
+from splatco_torch.data.scene import Scene
+from splatco_torch.eval.render_driver import render_sets
+from splatco_torch.models.renderer import prefilter_voxel, render
+from splatco_torch.models.splatco import decode_kwargs, init_model
 from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
@@ -37,8 +43,11 @@ from splatco_torch.ops.rasterize_cuda import (BWD_KERNELS, BWD_WARP_RECT,
                                               raster_bwd,
                                               raster_bwd_plain, raster_fwd,
                                               raster_fwd_plain)
+from splatco_torch.train.checkpoint import save_model_checkpoint
 from splatco_torch.train.optimizer import make_optimizer
 from splatco_torch.train.step import init_stats, make_train_step
+from splatco_torch.utils.math import round_up
+from splatco_torch.utils.synthetic import write_colmap_dataset
 
 pytestmark = pytest.mark.gpu
 BWD_TOL = 1e-5  # of each row's max |value|: pixel sums in another order
@@ -394,3 +403,40 @@ def test_raster_fwd16_ablate_matches_plain(card, variant):
     if variant in ("full", "nostage"):  # the production kernel's image
         want = raster_fwd(*args, tile=raster_v3.TILE)
         assert torch.equal(rgb, want[0]) and torch.equal(t_fin, want[1])
+
+
+def test_render_sets_from_disk_matches_in_memory(card, tmp_path):
+    """A small COLMAP scene on disk, a model initialised from its points
+    and saved: render_sets launches the forward kernel once per frame, and
+    its first test view (from the loaded checkpoint) is the in-memory
+    model's render bit for bit, quantized as render_sets writes it."""
+    scene = str(tmp_path / "scene")
+    write_colmap_dataset(scene, n_views=9, n_pts=2000, width=160, height=96,
+                         device=card)
+    cfg = ModelConfig(feat_dim=16, n_offsets=4, voxel_size=0.02,
+                      plane_size=64, num_channels=9, appearance_dim=0,
+                      contractor=True, scene_center=[0.0, 0.0, 0.0],
+                      scene_length=[2.0, 2.0, 2.0], white_background=False,
+                      source_path=scene, model_path=str(tmp_path / "model"))
+    sc = Scene(cfg, shuffle=False, device=card)
+    params, state = init_model(cfg, sc.points, device=card,
+                               generator=torch.Generator().manual_seed(0))
+    cap = round_up(int(state.active.sum()), 256)  # the capacity it loads at
+    params["anchors"] = {k: v[:cap] for k, v in params["anchors"].items()}
+    active = state.active[:cap]
+    save_model_checkpoint(cfg.model_path, 5, params, active)
+    cuda_lib.LAUNCHES.clear()
+    _, n = render_sets(cfg, device=card)
+    assert n == int(active.sum())
+    assert dict(cuda_lib.LAUNCHES) == {FWD_KERNELS[TILE]: 9}
+    cam = sc.test_cameras()[0]
+    with torch.inference_mode():
+        vis = prefilter_voxel(params["anchors"], active, cam)
+        img = render(params, active, state.contractor, cam,
+                     torch.zeros(3, device=card), visible_mask=vis,
+                     activate_level=2, **decode_kwargs(cfg)).image
+    want = (img.clamp(0, 1).permute(1, 2, 0).cpu().numpy() * 255).astype(
+        np.uint8)
+    got = read_image(str(tmp_path / "model" / "test" / "ours_5" / "renders"
+                         / "00000.png"))
+    np.testing.assert_array_equal(got, want)

@@ -22,14 +22,21 @@ from test_model_render import small_cfg
 
 from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.data.cameras import look_at_camera
-from splatco_torch.eval.render_driver import load_trained, render_set
+from splatco_torch.data.readers import CameraInfo, load_camera
+from splatco_torch.data.scene import Scene
+from splatco_torch.eval.render_driver import (load_trained, render_set,
+                                              render_sets)
 from splatco_torch.models.contraction import Contractor
 from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import (decode_kwargs, init_model,
                                           params_from_numpy)
-from splatco_torch.train.checkpoint import load_model_checkpoint
+from splatco_torch.train.checkpoint import (load_model_checkpoint,
+                                            load_train_state)
+from splatco_torch.train.import_reference import load_reference_model
 from splatco_torch.train.optimizer import make_optimizer, opt_state_from_numpy
 from splatco_torch.train.step import init_stats, make_train_step
+from splatco_torch.utils.synthetic import (write_blender_dataset,
+                                           write_colmap_dataset)
 from splatco_tpu.data.cameras import look_at_camera as j_look_at
 from splatco_tpu.eval import render_driver as j_driver
 from splatco_tpu.models.contraction import Contractor as j_Contractor
@@ -224,11 +231,12 @@ def test_jax_checkpoint_renders_through_port(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of splatco_torch, and chip_smoke.py, pulls
-    in neither jax nor splatco_tpu (fresh interpreter)."""
+    """Importing every module of splatco_torch, chip_smoke.py and
+    render_torch.py pulls in neither jax nor splatco_tpu (fresh
+    interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import splatco_torch, chip_smoke\n"
+        "import splatco_torch, chip_smoke, render_torch\n"
         "for m in pkgutil.walk_packages(splatco_torch.__path__,"
         " 'splatco_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -257,6 +265,16 @@ ENTRY_POINTS = {
         port_cfg(small_cfg()), OptimizationConfig(), 2, 0, tx=None),
     "init_stats": lambda: init_stats(8, 4),
     "opt_state_from_numpy": lambda: opt_state_from_numpy({}),
+    "Scene": lambda: Scene(port_cfg(small_cfg())),
+    "load_camera": lambda: load_camera(
+        CameraInfo(0, np.eye(3), np.zeros(3), 1.0, 1.0, "unused.png",
+                   "unused", 8, 8), 0),
+    "render_sets": lambda: render_sets(port_cfg(small_cfg())),
+    "load_reference_model": lambda: load_reference_model(
+        "unused", 1, port_cfg(small_cfg())),
+    "load_train_state": lambda: load_train_state("unused", 1),
+    "write_colmap_dataset": lambda: write_colmap_dataset("unused"),
+    "write_blender_dataset": lambda: write_blender_dataset("unused"),
 }
 
 
