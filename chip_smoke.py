@@ -75,6 +75,22 @@ Run from the repository root.  Phases, each of which fails loudly:
      model's render bit for bit; then `render_torch.py --skip_train` in a
      subprocess must write the same PNGs.  Prints the scene's load
      seconds, the native parser's points/s and render_sets' ms/frame.
+ 16. training from disk: `train_torch.main` (in this process, so its
+     launches count) trains the quick-start model on phase 15's scene
+     for 90 iterations (capacity 65,536, densify every 15 iterations in
+     (10, 80), a graph downsample at 30, eval at 1 and 90, a training
+     checkpoint at 45, the model saved at 90).  Every step's loss must be
+     finite; there must be a densify call, a capacity regrowth 65,536 ->
+     131,072 and one graph downsample; test PSNR must rise; the backward
+     kernel must launch mv times a step and the forward mv times a step
+     plus once an eval frame.  Prints ms/iteration over the run, the mean
+     step (CUDA events), each densify, downsample, eval and save, and any
+     kmax escalation.  A copy of the iteration-45 checkpoint is resumed
+     by `train_torch.py --start_checkpoint` in a subprocess: its
+     point_cloud/iteration_90 and its final training state (the active
+     mask included) must equal the straight run's bit for bit.  Last,
+     with the context grids (use_spatial_ctx) on, phase 7's trainer at
+     level 2: two steps from one state must be bit-identical.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all nine kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -119,7 +135,9 @@ from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
                                               bwd_cull_mask, fwd_cull_mask,
                                               raster_bwd, raster_bwd_plain,
                                               raster_fwd, raster_fwd_plain)
-from splatco_torch.train.checkpoint import save_model_checkpoint
+from splatco_torch.train import loop as train_loop
+from splatco_torch.train.checkpoint import (params_to_numpy,
+                                            save_model_checkpoint)
 from splatco_torch.train.optimizer import (group_schedules, label_params,
                                            make_optimizer)
 from splatco_torch.train.step import init_stats, make_train_step
@@ -173,6 +191,21 @@ CUMSUM_TF32_TOL = 5e-4
 BLEND_PROBE_TOL = 1e-6
 # phase 15: the scene on disk (llffhold 8: views 0 and 8 are the test set)
 DISK_VIEWS, DISK_POINTS, DISK_ITERATION = 16, 65536, 30000
+# phase 16: train_torch.py on that scene, the README's quick-start flags
+# with the capacity the scene fills (64,979 anchors of 65,536), a densify
+# window, one graph downsample, eval at iterations 1 and 90, a training
+# checkpoint at 45 (resumed in a subprocess) and the model saved at 90
+TRAIN_ITERS, TRAIN_CKPT = 90, 45
+TRAIN_STAGED = 70  # the step timed stage by stage (capacity 131,072)
+TRAIN_ARGS = ["--mv", str(MV), "--num_channels", "15", "--plane_size", "2800",
+              "--contractor", "--bbox_scale", "0.3", "--voxel_size", "0.01",
+              "--update_init_factor", "16", "--appearance_dim", "0",
+              "--capacity", str(DISK_POINTS), "--eval",
+              "--iterations", str(TRAIN_ITERS), "--start_stat", "2",
+              "--update_from", "10", "--update_interval", "15",
+              "--update_until", "80", "--graph_downsampling_iters", "30",
+              "--test_iterations", "1", str(TRAIN_ITERS),
+              "--save_iterations", str(TRAIN_ITERS)]
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -1008,20 +1041,28 @@ def eight_bit(img: torch.Tensor) -> np.ndarray:
             ).astype(np.uint8)
 
 
-def disk_phase(args, dev, card: str):
-    """Phase 15: a COLMAP scene written, read and rendered from disk at
-    full width, through the entry points a user calls.  Returns the
-    forward kernel's launches in render_sets."""
+def write_scene(tmp: str, args, dev) -> str:
+    """Phases 15-16's COLMAP scene, written under `tmp`."""
+    scene_dir = os.path.join(tmp, "scene")
+    t0 = time.perf_counter()
+    write_colmap_dataset(scene_dir, n_views=DISK_VIEWS, n_pts=DISK_POINTS,
+                         width=WIDTH, height=HEIGHT, seed=args.seed,
+                         device=dev)
+    torch.cuda.synchronize()
+    print(f"scene on disk: {DISK_VIEWS} views at {WIDTH}x{HEIGHT}, "
+          f"{DISK_POINTS} points, written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return scene_dir
+
+
+def disk_phase(args, dev, card: str, scene_dir: str):
+    """Phase 15: the COLMAP scene at `scene_dir` read and rendered from
+    disk at full width, through the entry points a user calls.  Returns
+    the forward kernel's launches in render_sets."""
     t_phase = time.perf_counter()
     name = FWD_KERNELS[raster_v3.TILE if TILE16_DEFAULT else TILE]
     with tempfile.TemporaryDirectory() as tmp:
-        scene_dir = os.path.join(tmp, "scene")
         model_dir = os.path.join(tmp, "model")
-        t0 = time.perf_counter()
-        write_colmap_dataset(scene_dir, n_views=DISK_VIEWS,
-                             n_pts=DISK_POINTS, width=WIDTH, height=HEIGHT,
-                             seed=args.seed, device=dev)
-        write_s = time.perf_counter() - t0
         points_bin = os.path.join(scene_dir, "sparse", "0", "points3D.bin")
         t0 = time.perf_counter()
         native_io.read_points3d(points_bin)  # builds the parser
@@ -1132,8 +1173,8 @@ def disk_phase(args, dev, card: str):
               f"render_sets': {same}")
         if not same:
             raise AssertionError("render_torch.py wrote other PNGs")
-    print(f"scene on disk ({card}): {DISK_VIEWS} views at {WIDTH}x{HEIGHT}, "
-          f"written in {write_s:.1f} s; native parser built and first read "
+    print(f"scene on disk ({card}): {DISK_VIEWS} views at {WIDTH}x{HEIGHT}; "
+          f"native parser built and first read "
           f"in {first_s:.3f} s, then {len(xyz)} points in "
           f"{parse_s * 1e3:.2f} ms = {len(xyz) / parse_s:.4g} points/s; "
           f"Scene load (parse, decode, to the card) {load_s:.3f} s; "
@@ -1141,6 +1182,250 @@ def disk_phase(args, dev, card: str):
           f"test {1e3 / fps['test']:.3f} ms/frame (CUDA events, after a "
           f"warm-up frame); phase wall {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+class TrainProbe:
+    """Phase 16's instruments, installed on splatco_torch's Trainer for
+    the length of a `with`: CUDA events around every SVC step (whose loss
+    it keeps, on the card) and around each stage of step `staged_step`,
+    the host clock after a synchronize around each densify call, graph
+    downsample, eval and save (and TensorBoard's `add_image` inside eval,
+    where TensorBoard is installed), and a record of every kmax
+    escalation and capacity regrowth."""
+
+    TIMED = ("_cvpm_and_densify", "_graph_downsample", "evaluate",
+             "save_model", "save_training_state")
+
+    def __init__(self, staged_step: int):
+        self.staged_step, self.stages = staged_step, StageTimer()
+        self.events, self.losses = [], []
+        self.seconds = {name: [] for name in self.TIMED}
+        self.kmax, self.grows = [], []
+
+    def step_ms(self):
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in self.events]
+
+    @contextlib.contextmanager
+    def installed(self):
+        cls = train_loop.Trainer
+        saved = {name: getattr(cls, name) for name in
+                 self.TIMED + ("_get_step", "_grow", "_escalate_kmax")}
+
+        def timed(name):
+            def wrapper(tr, *a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = saved[name](tr, *a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[name].append(time.perf_counter() - t0)
+                return out
+            return wrapper
+
+        def get_step(tr):
+            step = saved["_get_step"](tr)
+
+            def timed_step(*a, **kw):
+                if len(self.events) + 1 == self.staged_step:
+                    kw["stage"] = self.stages
+                start = torch.cuda.Event(enable_timing=True)
+                stop = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*a, **kw)
+                stop.record()
+                self.events.append((start, stop))
+                self.losses.append(out[3]["loss"])
+                return out
+            return timed_step
+
+        def grow(tr, new_capacity):
+            old = tr.params["anchors"]["anchor"].shape[0]
+            saved["_grow"](tr, new_capacity)
+            self.grows.append((old, tr.params["anchors"]["anchor"].shape[0]))
+
+        def escalate(tr, num_clipped):
+            old = tr.cfg.kmax
+            saved["_escalate_kmax"](tr, num_clipped)
+            if tr.cfg.kmax != old:
+                self.kmax.append((old, tr.cfg.kmax, num_clipped))
+
+        try:
+            from torch.utils.tensorboard import SummaryWriter
+        except ImportError:
+            SummaryWriter = None
+        if SummaryWriter is not None:
+            add_image = SummaryWriter.add_image
+            self.seconds["add_image"] = []
+
+            def timed_add_image(writer, *a, **kw):
+                t0 = time.perf_counter()
+                add_image(writer, *a, **kw)
+                self.seconds["add_image"].append(time.perf_counter() - t0)
+            SummaryWriter.add_image = timed_add_image
+        for name in self.TIMED:
+            setattr(cls, name, timed(name))
+        cls._get_step, cls._grow, cls._escalate_kmax = get_step, grow, \
+            escalate
+        try:
+            yield self
+        finally:
+            for name, fn in saved.items():
+                setattr(cls, name, fn)
+            if SummaryWriter is not None:
+                SummaryWriter.add_image = add_image
+
+
+def read_npz(path: str) -> dict:
+    with np.load(path) as archive:
+        return {k: archive[k] for k in archive.files}
+
+
+def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def train_disk_phase(args, dev, card: str, scene_dir: str):
+    """Phase 16: train_torch.main trains the quick-start model on phase
+    15's scene, in this process so its launches count; a copy of its
+    iteration-45 checkpoint is resumed by train_torch.py in a subprocess,
+    which must end where the straight run ended, bit for bit.  Returns
+    the launches of the straight run."""
+    import train_torch
+
+    t_phase = time.perf_counter()
+    kernels = (FWD_KERNELS[raster_v3.TILE if TILE16_DEFAULT else TILE],
+               BWD_KERNELS[raster_v3.TILE if TILE16_DEFAULT else TILE])
+    with tempfile.TemporaryDirectory() as tmp:
+        model1 = os.path.join(tmp, "model")
+        argv = ["-s", scene_dir, *TRAIN_ARGS, "--seed", str(args.seed)]
+        probe = TrainProbe(staged_step=TRAIN_STAGED)
+        cuda_lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        with probe.installed():
+            trainer = train_torch.main(
+                argv + ["-m", model1, "--checkpoint_iterations",
+                        str(TRAIN_CKPT)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = dict(cuda_lib.LAUNCHES)
+
+        steps = len(probe.events)
+        step_ms = probe.step_ms()
+        losses = torch.stack(probe.losses).cpu().tolist()
+        log = trainer.metrics_log
+        events = [m for m in log if "densify_grown" in m]
+        psnr = {m["iteration"]: m["test_psnr"] for m in log
+                if "test_psnr" in m}
+        eval_frames = (len(probe.seconds["evaluate"])
+                       * (len(trainer.scene.test_cameras())
+                          + len(trainer.train_cams[5:30:5])))
+        sec = {k: [round(v * 1e3, 1) for v in vals]
+               for k, vals in probe.seconds.items()}
+        print(f"training from disk ({card}): train_torch.main, "
+              f"{steps} steps of mv {MV} at {WIDTH}x{HEIGHT}, "
+              f"{run_s * 1e3 / TRAIN_ITERS:.1f} ms/iteration over the run "
+              f"(host clock, everything included), mean step "
+              f"{np.mean(step_ms):.3f} ms (CUDA events, densify and eval "
+              f"excluded; median {np.median(step_ms):.3f}, first "
+              f"{step_ms[0]:.3f}); launches {launches}")
+        print(f"  densify ms {sec['_cvpm_and_densify']}, graph downsample "
+              f"ms {sec['_graph_downsample']}, eval ms {sec['evaluate']} "
+              f"({eval_frames} frames), model save ms {sec['save_model']}, "
+              f"training-state save ms {sec['save_training_state']}, "
+              f"TensorBoard add_image (inside eval) ms "
+              f"{sec.get('add_image', 'not installed')}")
+        for m in events:
+            print(f"  densify @{m['iteration']}: +{m['densify_grown']} "
+                  f"-{m['densify_pruned']} (CVPM marked {m['cvpm_marked']}, "
+                  f"dropped {m['densify_dropped']}) -> {m['anchors_after']} "
+                  f"anchors")
+        print(f"  capacity regrowth {probe.grows}; kmax escalations (old, "
+              f"new, clipped) {probe.kmax}; test PSNR {psnr}; final "
+              f"anchors {int(trainer.mstate.active.sum())}")
+        print(f"  step {TRAIN_STAGED}'s stages ms (CUDA events): "
+              f"{json.dumps(probe.stages.ms())}")
+        print(f"  loss every 10th step "
+              f"{json.dumps([round(v, 5) for v in losses[::10]])}")
+        if steps != TRAIN_ITERS:
+            raise AssertionError(f"{steps} steps for {TRAIN_ITERS} "
+                                 "iterations")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError("a training loss is not finite")
+        if not events:
+            raise AssertionError("no densify call")
+        if not probe.grows or probe.grows[0] != (DISK_POINTS,
+                                                 2 * DISK_POINTS):
+            raise AssertionError(f"capacity regrowth {probe.grows}, not "
+                                 f"{DISK_POINTS} -> {2 * DISK_POINTS}")
+        if len(probe.seconds["_graph_downsample"]) != 1:
+            raise AssertionError("not one graph downsample")
+        if not psnr[TRAIN_ITERS] > psnr[1]:
+            raise AssertionError(f"test PSNR did not rise: {psnr}")
+        want = {kernels[0]: MV * steps + eval_frames, kernels[1]: MV * steps}
+        if launches != want:
+            raise AssertionError(f"training launched {launches}, not {want}")
+
+        # resume a copy of the iteration-45 checkpoint in a subprocess
+        model2 = os.path.join(tmp, "model_resumed")
+        os.makedirs(model2)
+        for name in (f"chkpnt{TRAIN_CKPT}.npz", f"chkpnt{TRAIN_CKPT}.json",
+                     "cfg_args.json"):
+            shutil.copy(os.path.join(model1, name), model2)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, str(Path(__file__).resolve().parent
+                                 / "train_torch.py"), *argv, "-m", model2,
+             "--checkpoint_iterations", str(TRAIN_ITERS),
+             "--start_checkpoint",
+             os.path.join(model2, f"chkpnt{TRAIN_CKPT}")],
+            capture_output=True, text=True, timeout=600)
+        resume_s = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise AssertionError(f"train_torch.py --start_checkpoint "
+                                 f"failed:\n{res.stdout}{res.stderr}")
+        pc = os.path.join("point_cloud", f"iteration_{TRAIN_ITERS}")
+        with open(os.path.join(model1, pc, "point_cloud.ply"), "rb") as a, \
+                open(os.path.join(model2, pc, "point_cloud.ply"), "rb") as b:
+            same_ply = a.read() == b.read()
+        npz = [read_npz(os.path.join(m, pc, "checkpoints.npz"))
+               for m in (model1, model2)]
+        same_npz = (sorted(npz[0]) == sorted(npz[1]) and all(
+            same_bits(npz[0][k], npz[1][k]) for k in npz[0]))
+        want_state = params_to_numpy(trainer._state_tree())
+        got_state = read_npz(os.path.join(model2,
+                                          f"chkpnt{TRAIN_ITERS}.npz"))
+        differ = [k for k in want_state if k not in got_state
+                  or not same_bits(want_state[k], got_state[k])]
+        same_active = "['active']" not in differ
+        print(f"  resumed from chkpnt{TRAIN_CKPT} in a subprocess "
+              f"({resume_s:.1f} s): point_cloud/iteration_{TRAIN_ITERS} PLY "
+              f"equal {same_ply}, checkpoints.npz equal {same_npz}; final "
+              f"training state: {len(want_state)} arrays, {len(differ)} "
+              f"differ {differ[:6]}, active mask equal {same_active}")
+        if not (same_ply and same_npz and not differ
+                and len(got_state) == len(want_state)):
+            raise AssertionError("the resumed run differs from the "
+                                 "straight one")
+    print(f"  phase wall {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def spatial_ctx_repeats(seed: int, dev):
+    """Phase 16's last check: the quick-start model with the context
+    grids (use_spatial_ctx), phase 7's trainer at level 2 (all three
+    grid levels): two steps from one state are bit-identical."""
+    cfg = dataclasses.replace(quickstart_config(), use_spatial_ctx=True)
+    pts = np.random.default_rng(seed).normal(size=(65536, 3)).astype(
+        np.float32) * 1.2
+    params, state = init_model(cfg, pts, device=dev,
+                               generator=torch.Generator().manual_seed(seed))
+    trainer = Trainer(params, state, cfg, seed, dev)
+    trainer.rebuild(params, 2)
+    trainer.step()
+    print(f"use_spatial_ctx (context grids at levels 0-2, ctx_dim "
+          f"{4 * cfg.feat_dim}): loss {float(trainer.step()['loss']):.6f}")
+    steps_repeat(trainer, seed + 2)
 
 
 def entry(name, launches, numbers):
@@ -1234,19 +1519,28 @@ def main() -> int:
     # 14. the probes and the ablation through their tools
     probe_launches, probe_numbers = probe_phase(dev)
 
-    # 15. a scene on disk: written, read, saved, rendered by render_sets
-    # and by render_torch.py
-    disk_launches = disk_phase(args, dev, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene_dir = write_scene(tmp, args, dev)
+        # 15. a scene on disk: read, saved, rendered by render_sets and by
+        # render_torch.py
+        disk_launches = disk_phase(args, dev, smi, scene_dir)
+        # 16. trained on it by train_torch.py, resumed in a subprocess
+        train_disk_launches = train_disk_phase(args, dev, smi, scene_dir)
+    spatial_ctx_repeats(args.seed, dev)
 
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
               + train_launches.get(KERNEL, 0)
-              + disk_launches.get(KERNEL, 0), fwd),
-        entry(BWD_KERNEL, train_launches.get(BWD_KERNEL, 0), bwd),
+              + disk_launches.get(KERNEL, 0)
+              + train_disk_launches.get(KERNEL, 0), fwd),
+        entry(BWD_KERNEL, train_launches.get(BWD_KERNEL, 0)
+              + train_disk_launches.get(BWD_KERNEL, 0), bwd),
         entry(KERNEL16, fwd3["launches"].get(KERNEL16, 0)
               + train3_launches.get(KERNEL16, 0)
-              + disk_launches.get(KERNEL16, 0), fwd3),
-        entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0), bwd3),
+              + disk_launches.get(KERNEL16, 0)
+              + train_disk_launches.get(KERNEL16, 0), fwd3),
+        entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0)
+              + train_disk_launches.get(BWD_KERNEL16, 0), bwd3),
         *(entry(name, probe_launches[name], nums)
           for name, nums in probe_numbers.items()),
     ]}))

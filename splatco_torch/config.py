@@ -60,7 +60,7 @@ class ModelConfig:
     quirk_duplicate_level0: bool = True   # reference pyramid quirk
     compat_raw_domain: bool = False       # query planes in raw coords
     kmax: int = 12               # rasterizer tiles-per-gaussian budget
-    use_spatial_ctx: bool = False  # context-grid local branch (not ported)
+    use_spatial_ctx: bool = False  # context-grid local branch
     cvpm_compat_T: bool = False
 
 

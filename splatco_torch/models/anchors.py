@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from splatco_torch.ops.knn import mean_knn_sq_dist, voxelize
+from splatco_torch.utils.device import resolve_device
 from splatco_torch.utils.math import inverse_sigmoid, round_up
 
 
@@ -24,10 +25,11 @@ def init_anchor_state(
     capacity: int = 0,
     ratio: int = 1,
     pad_multiple: int = 256,
-    device: torch.device = torch.device("cpu"),
+    device=None,
 ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor, float]:
-    """create_from_pcd equivalent.  Returns (anchors, active, voxel_size);
-    the 3-NN statistics run on `device`."""
+    """create_from_pcd equivalent.  Returns (anchors, active, voxel_size)
+    on `device` (None: the card), where the 3-NN statistics run too."""
+    device = resolve_device(device)
     pts = np.asarray(points, np.float32)[::ratio]
     if voxel_size <= 0:
         d2 = mean_knn_sq_dist(torch.as_tensor(pts, device=device))
@@ -63,3 +65,20 @@ def init_anchor_state(
         "opacity": pad(torch.full((n, 1), float(opac), device=device)),
     }
     return anchors, active, voxel_size
+
+
+def pad_rows(a: torch.Tensor, rows: int) -> torch.Tensor:
+    """`a` with zero (False) rows appended up to `rows`."""
+    if rows < a.shape[0]:
+        raise ValueError(f"{rows} rows < {a.shape[0]}")
+    return torch.cat([a, a.new_zeros((rows - a.shape[0],)
+                                     + tuple(a.shape[1:]))])
+
+
+def grow_capacity(anchors: Dict[str, torch.Tensor], active: torch.Tensor,
+                  new_capacity: int
+                  ) -> Tuple[Dict[str, torch.Tensor], torch.Tensor]:
+    """Re-pad every anchor field with zero rows (and `active` with False)
+    to `new_capacity` (densification overflow)."""
+    return ({name: pad_rows(a, new_capacity) for name, a in anchors.items()},
+            pad_rows(active, new_capacity))

@@ -7,6 +7,8 @@ import dataclasses
 
 import torch
 
+from splatco_torch.utils.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class Contractor:
@@ -16,11 +18,12 @@ class Contractor:
 
 
 def make_contractor(center, length, bbox_scale: float, enabled: bool = True,
-                    device: torch.device = torch.device("cpu")
-                    ) -> Contractor:
-    """bbox = center +- length * bbox_scale / 2."""
-    center = torch.as_tensor(center, dtype=torch.float32, device=device)
-    length = torch.as_tensor(length, dtype=torch.float32, device=device)
+                    device=None) -> Contractor:
+    """bbox = center +- length * bbox_scale / 2, on `device` (None: the
+    card)."""
+    dev = resolve_device(device)
+    center = torch.as_tensor(center, dtype=torch.float32, device=dev)
+    length = torch.as_tensor(length, dtype=torch.float32, device=dev)
     half = length * bbox_scale / 2.0
     return Contractor(xyz_min=center - half, xyz_max=center + half,
                       enabled=enabled)

@@ -18,6 +18,7 @@ import torch
 
 from splatco_torch.data.cameras import Camera
 from splatco_torch.models import decoders as dec
+from splatco_torch.models.context_grid import spatial_ctx
 from splatco_torch.models.contraction import Contractor, contract
 from splatco_torch.models.triplane import (feature_planes_forward,
                                            sample_level_feats)
@@ -91,10 +92,6 @@ def generate_neural_gaussians(
     xyz [C*K,3], color, opacity (masked), scaling, rot, neural_opacity,
     mask.  q_noise > 0 with a generator adds the tri-plane quantization
     noise (training)."""
-    if use_spatial_ctx:
-        raise NotImplementedError(
-            "use_spatial_ctx (models/context_grid.py) is not ported yet; "
-            "see ROADMAP.md, 'Modules to port'")
     anchors = params["anchors"]
     anchor = anchors["anchor"]
     feat = anchors["feat"]
@@ -103,8 +100,15 @@ def generate_neural_gaussians(
     grid_scaling = torch.exp(anchors["scaling"])
 
     xyz_norm = anchor_plane_coords(params, contractor, compat_raw_domain)
-    g_fea = torch.cat([feat, anchor, offsets.reshape(c, -1), grid_scaling],
-                      dim=1)
+    if use_spatial_ctx:
+        # per level, the context grids of the anchor features over the
+        # contracted domain
+        g_fea = tuple(spatial_ctx(xyz_norm, feat, -2.0, 2.0, level=i,
+                                  mask=visible_mask)
+                      for i in range(activate_level + 1))
+    else:
+        g_fea = torch.cat([feat, anchor, offsets.reshape(c, -1),
+                           grid_scaling], dim=1)
     geo_fea = feature_planes_forward(
         params["planes"], xyz_norm, g_fea, visible_mask,
         activate_level=activate_level, plane_feats=plane_feats, q=q_noise,

@@ -47,14 +47,14 @@ def init_model(cfg: ModelConfig, points: np.ndarray, *,
     """Random-init the model from a point cloud.  Draws come from
     `generator` on the CPU, so a seed gives the same model on any device."""
     dev = resolve_device(device)
-    if cfg.use_spatial_ctx:
-        raise NotImplementedError(
-            "use_spatial_ctx (models/context_grid.py) is not ported yet; "
-            "see ROADMAP.md, 'Modules to port'")
     anchors, active, voxel_size = init_anchor_state(
         points, cfg.feat_dim, cfg.n_offsets, cfg.voxel_size,
         capacity=cfg.capacity, ratio=cfg.ratio, device=dev)
-    ctx_dim = cfg.feat_dim + 3 + 3 * cfg.n_offsets + 6
+    if cfg.use_spatial_ctx:
+        # the context grids' output per level: concat(3D, xy, xz, yz)
+        ctx_dim = 4 * cfg.feat_dim
+    else:
+        ctx_dim = cfg.feat_dim + 3 + 3 * cfg.n_offsets + 6
     decoders = init_decoders(
         cfg.feat_dim, cfg.n_offsets, generator,
         appearance_dim=cfg.appearance_dim,
@@ -120,8 +120,9 @@ def params_from_numpy(flat: Mapping[str, np.ndarray], device=None):
         arr = np.asarray(arr)
         if np.issubdtype(arr.dtype, np.floating):
             arr = arr.astype(np.float32)
-        node[toks[-1]] = torch.as_tensor(np.ascontiguousarray(arr),
-                                         device=dev)
+        # (ascontiguousarray makes a 0-d array 1-d: reshape it back)
+        node[toks[-1]] = torch.as_tensor(
+            np.ascontiguousarray(arr).reshape(arr.shape), device=dev)
     return _lists_from_int_keys(root)
 
 

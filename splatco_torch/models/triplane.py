@@ -190,19 +190,23 @@ def quantization_noise(feats: List[torch.Tensor], q: float,
 
 
 def feature_planes_forward(params, xyz_norm: torch.Tensor,
-                           g_fea: torch.Tensor, mask: torch.Tensor,
+                           g_fea, mask: torch.Tensor,
                            activate_level: int = 0, plane_feats=None,
                            q: float = 0.0,
                            generator: Optional[torch.Generator] = None
                            ) -> torch.Tensor:
     """geo_fea [N, 2*out_dim] = hierarchical compensation sum.
 
-    xyz_norm: [N,3] contracted coords in (-2,2); g_fea: [N,D] anchor
-    context shared by all levels; mask: [N] valid rows (BN statistics);
+    xyz_norm: [N,3] contracted coords in (-2,2); g_fea: the local-context
+    input, one [N,D] array shared by all levels (the anchor context) or a
+    tuple of per-level arrays (the context grids); mask: [N] valid rows
+    (BN statistics);
     plane_feats: optional precomputed `sample_level_feats` output.  With
     q > 0 and a `generator`, quantization noise is added to the sampled
     features of every level and to level 0's TPA features (fresh draws on
     every call, so each view of a training step gets its own)."""
+    if not isinstance(g_fea, (tuple, list)):
+        g_fea = (g_fea,) * len(params["ctx_heads"])
     if plane_feats is None:
         plane_feats = sample_level_feats(params, xyz_norm, activate_level)
     noisy = q > 0.0 and generator is not None
@@ -221,7 +225,8 @@ def feature_planes_forward(params, xyz_norm: torch.Tensor,
         head = params["heads"][i]
         rr = linear(head["lin"], masked_batchnorm(head["bn"], feat, mask))
         ctx = params["ctx_heads"][i]
-        rrr = linear(ctx["lin"], masked_batchnorm(ctx["bn"], g_fea, mask))
+        rrr = linear(ctx["lin"],
+                     masked_batchnorm(ctx["bn"], g_fea[i], mask))
         res = torch.cat([rr, rrr], dim=-1)
         total = res if total is None else total + res
     return total

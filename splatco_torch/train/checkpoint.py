@@ -105,8 +105,12 @@ def params_to_numpy(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def save_pytree(path: str, tree) -> None:
+    """An .npz archive of the tree's arrays, stored without compression:
+    trained float32 weights deflate by ~7% at ~16 MB/s, which would make
+    a full-width training state take ~40 s to write.  np.load reads
+    stored and deflated archives alike, so both packages read it."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    np.savez_compressed(path, **params_to_numpy(tree))
+    np.savez(path, **params_to_numpy(tree))
 
 
 def _read_archive(path: str) -> Dict[str, np.ndarray]:

@@ -17,7 +17,12 @@ alpha-sum probe to 1e-6 of the max (its library exp), the TF32 cumsum to
 bf16 would give ~1.5e-3); the forward's ablation variants
 (ops/raster_ablate.py) as the forward.  A small scene written to disk
 and rendered by render_sets from a saved checkpoint equals the in-memory
-model's render bit for bit.
+model's render bit for bit.  The trainer (train/loop.py) trains a small
+scene for 20 iterations with densify on the card, launching each kernel
+once a view per step and the forward once an eval frame, and a run
+resumed from its iteration-10 checkpoint ends bit for bit where the
+straight run ended; a step with the context grids (use_spatial_ctx)
+repeats bit for bit.
 """
 import dataclasses
 import functools
@@ -27,7 +32,8 @@ import numpy as np
 import pytest
 import torch
 
-from splatco_torch.config import ModelConfig, OptimizationConfig
+from splatco_torch.config import (ModelConfig, OptimizationConfig,
+                                  PipelineConfig)
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.data.images import read_image
 from splatco_torch.data.scene import Scene
@@ -43,11 +49,14 @@ from splatco_torch.ops.rasterize_cuda import (BWD_KERNELS, BWD_WARP_RECT,
                                               raster_bwd,
                                               raster_bwd_plain, raster_fwd,
                                               raster_fwd_plain)
-from splatco_torch.train.checkpoint import save_model_checkpoint
+from splatco_torch.train.checkpoint import (params_to_numpy,
+                                            save_model_checkpoint)
+from splatco_torch.train.loop import Trainer
 from splatco_torch.train.optimizer import make_optimizer
 from splatco_torch.train.step import init_stats, make_train_step
 from splatco_torch.utils.math import round_up
-from splatco_torch.utils.synthetic import write_colmap_dataset
+from splatco_torch.utils.synthetic import (write_blender_dataset,
+                                           write_colmap_dataset)
 
 pytestmark = pytest.mark.gpu
 BWD_TOL = 1e-5  # of each row's max |value|: pixel sums in another order
@@ -269,12 +278,13 @@ def test_raster_bwd_kernels_on_crafted_tiles(card, kind, h, w, tile16):
         assert not bool(got[:, later].any())
 
 
-def toy_step(dev, tile16=None):
+def toy_step(dev, tile16=None, use_spatial_ctx=False):
     """One SVC step (q = 0) of a small seeded model on `dev`."""
     cfg = ModelConfig(feat_dim=16, n_offsets=4, voxel_size=0.05,
                       plane_size=64, num_channels=9, appearance_dim=0,
                       contractor=True, scene_center=[0.0, 0.0, 0.0],
-                      scene_length=[2.0, 2.0, 2.0])
+                      scene_length=[2.0, 2.0, 2.0],
+                      use_spatial_ctx=use_spatial_ctx)
     pts = np.random.default_rng(0).normal(size=(300, 3)).astype(
         np.float32) * 0.4
     params, state = init_model(cfg, pts, device=dev,
@@ -440,3 +450,58 @@ def test_render_sets_from_disk_matches_in_memory(card, tmp_path):
     got = read_image(str(tmp_path / "model" / "test" / "ours_5" / "renders"
                          / "00000.png"))
     np.testing.assert_array_equal(got, want)
+
+
+def test_spatial_ctx_step_repeats_bit_for_bit(card):
+    first = toy_step(card, use_spatial_ctx=True)
+    second = toy_step(card, use_spatial_ctx=True)
+    for a, b in zip(leaves(first[:3]), leaves(second[:3])):
+        assert torch.equal(a, b)
+    assert torch.isfinite(first[3]["loss"])
+
+
+def card_trainer(dev, scene, model_path, **kw):
+    cfg = ModelConfig(source_path=scene, model_path=model_path, feat_dim=16,
+                      n_offsets=4, voxel_size=0.05, plane_size=64,
+                      num_channels=9, appearance_dim=0, contractor=True,
+                      eval=True, kmax=2)
+    opt = OptimizationConfig(update_from=2, update_interval=4,
+                             update_until=18, start_stat=1,
+                             graph_downsampling_iters=[9])
+    tr = Trainer(cfg, opt, PipelineConfig(mv=2), device=dev,
+                 save_iterations=(), activation_iterations=(6,), **kw)
+    tr.setup(Scene(cfg, shuffle=False, write_artifacts=False, device=dev),
+             seed=3)
+    return tr
+
+
+def test_trainer_on_the_card_resumes_bit_for_bit(card, tmp_path):
+    """20 iterations with densify, a graph downsample, a level activation
+    and kmax escalation: the launches are exact, test PSNR rises, and a
+    run resumed from the iteration-10 checkpoint equals the straight run
+    bit for bit."""
+    scene = str(tmp_path / "scene")
+    write_blender_dataset(scene, n_views=8, n_pts=400, width=128,
+                          height=96, device=card)
+    model = str(tmp_path / "model")
+    straight = card_trainer(card, scene, model, test_iterations=(1, 20),
+                            checkpoint_iterations=(10,))
+    cuda_lib.LAUNCHES.clear()
+    log = straight.train(iterations=20, progress_every=1000)
+    frames = 2 * (len(straight.scene.test_cameras())
+                  + len(straight.train_cams[5:30:5]))
+    assert dict(cuda_lib.LAUNCHES) == {FWD_KERNELS[TILE]: 2 * 20 + frames,
+                                       BWD_KERNELS[TILE]: 2 * 20}
+    assert any("densify_grown" in m for m in log)
+    psnr = [m["test_psnr"] for m in log if "test_psnr" in m]
+    assert psnr[1] > psnr[0]
+    resumed = card_trainer(card, scene, model, test_iterations=(),
+                           checkpoint_iterations=())
+    assert resumed.restore() == 10
+    resumed.train(iterations=20, progress_every=1000)
+    want = params_to_numpy(straight._state_tree())
+    got = params_to_numpy(resumed._state_tree())
+    assert want.keys() == got.keys()
+    for key in want:
+        assert want[key].tobytes() == got[key].tobytes(), key
+    assert resumed.cfg.kmax == straight.cfg.kmax

@@ -79,7 +79,7 @@ def test_contract(enabled):
     jc = j_con.make_contractor([0.1, -0.2, 0.3], [2.0, 1.0, 3.0], 0.8,
                                enabled=enabled)
     tc = t_con.make_contractor([0.1, -0.2, 0.3], [2.0, 1.0, 3.0], 0.8,
-                               enabled=enabled)
+                               enabled=enabled, device="cpu")
     close(j_con.contract(jc, jnp.asarray(xyz)), t_con.contract(tc, t(xyz)),
           rtol=1e-6, atol=1e-6)
 
@@ -235,7 +235,7 @@ def test_init_anchor_state(voxel_size, capacity):
     js, jvox = j_anchors.init_anchor_state(pts, 16, 4, voxel_size,
                                            capacity=capacity)
     anchors, active, tvox = t_anchors.init_anchor_state(
-        pts, 16, 4, voxel_size, capacity=capacity)
+        pts, 16, 4, voxel_size, capacity=capacity, device="cpu")
     assert tvox == pytest.approx(jvox, rel=1e-6)
     np.testing.assert_array_equal(np.asarray(js.active), active.numpy())
     for name in ("anchor", "feat", "offsets", "scaling", "rotation",

@@ -1,0 +1,102 @@
+#!/usr/bin/env python
+"""Training CLI of the PyTorch/CUDA port (train.py's arguments, without
+--backend, --gui and --profile).
+
+    python3 train_torch.py -s <scene> -m out/run --mv 4 --num_channels 15 \
+        --plane_size 2800 --no_downsample --contractor --bbox_scale 0.3 \
+        --voxel_size 0 --update_init_factor 16 --appearance_dim 0
+
+Trains on the card unless --device cpu is given; the rasterizer
+configuration follows SPLATCO_RASTER (v3: 16 px tiles).  The scene's
+camera lists are shuffled with a Random seeded by --seed, so a run and
+its resumption (--start_checkpoint <model>/chkpnt<N>, a bare N, or
+"latest") see the cameras in the same order.  A saved model renders with
+render_torch.py, and loads in the JAX package too."""
+import argparse
+import random
+
+import torch
+
+from splatco_torch.config import (ModelConfig, OptimizationConfig,
+                                  PipelineConfig, add_dataclass_args,
+                                  extract_dataclass)
+from splatco_torch.data.scene import Scene
+from splatco_torch.train.loop import Trainer, get_logger
+
+
+def checkpoint_iteration(start_checkpoint: str) -> int:
+    """The iteration of a --start_checkpoint argument (-1: the latest)."""
+    if start_checkpoint == "latest":
+        return -1
+    tail = start_checkpoint.rsplit("chkpnt", 1)[-1].split(".")[0]
+    return int(tail) if tail.isdigit() else -1
+
+
+def main(argv=None) -> Trainer:
+    parser = argparse.ArgumentParser(
+        description="SplatCo training (PyTorch/CUDA)")
+    add_dataclass_args(parser, ModelConfig())
+    add_dataclass_args(parser, OptimizationConfig())
+    add_dataclass_args(parser, PipelineConfig())
+    parser.add_argument("--debug_from", type=int, default=-1)
+    parser.add_argument("--detect_anomaly", action="store_true")
+    parser.add_argument("--test_iterations", nargs="+", type=int,
+                        default=[3000, 7000, 12000, 17000, 22000, 30000])
+    parser.add_argument("--save_iterations", nargs="+", type=int,
+                        default=[7000, 30000])
+    parser.add_argument("--checkpoint_iterations", nargs="+", type=int,
+                        default=[7000, 30000])
+    parser.add_argument("--start_checkpoint", type=str, default=None)
+    parser.add_argument("--quiet", action="store_true")
+    parser.add_argument("--no_downsample", action="store_true")
+    parser.add_argument("--no_multilevel", action="store_true")
+    parser.add_argument("--no_regularization", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", type=str, default="cuda",
+                        choices=["cuda", "cpu"])
+    parser.add_argument("--determinism_check", action="store_true",
+                        help="run the step twice periodically and require "
+                        "bit-identical results")
+    parser.add_argument("--determinism_every", type=int, default=100)
+    parser.add_argument("--wandb", action="store_true",
+                        help="mirror TB scalars to wandb (if installed)")
+    args = parser.parse_args(argv)
+
+    if args.detect_anomaly:
+        torch.autograd.set_detect_anomaly(True)
+
+    model = extract_dataclass(args, ModelConfig)
+    opt = extract_dataclass(args, OptimizationConfig)
+    pipe = extract_dataclass(args, PipelineConfig)
+    if args.no_downsample:
+        opt.graph_downsampling_iters = []
+    if args.iterations not in args.save_iterations:
+        args.save_iterations.append(args.iterations)
+
+    logger = get_logger(model.model_path or ".")
+    logger.info(f"args: {vars(args)}")
+    logger.info("Optimizing " + model.model_path)
+
+    random.seed(args.seed)
+    scene = Scene(model, device=args.device)
+    trainer = Trainer(
+        model, opt, pipe, logger=logger,
+        test_iterations=tuple(args.test_iterations),
+        save_iterations=tuple(args.save_iterations),
+        checkpoint_iterations=tuple(args.checkpoint_iterations),
+        no_multilevel=args.no_multilevel,
+        no_regularization=args.no_regularization,
+        determinism_check=args.determinism_check,
+        determinism_every=args.determinism_every,
+        use_wandb=args.wandb, device=args.device)
+    trainer.setup(scene, seed=args.seed)
+    if args.start_checkpoint:
+        trainer.restore(iteration=checkpoint_iteration(
+            args.start_checkpoint))
+    trainer.train()
+    print("\nTraining complete.")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()
