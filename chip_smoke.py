@@ -83,9 +83,13 @@ Run from the repository root.  Phases, each of which fails loudly:
      finite; there must be a densify call, a capacity regrowth 65,536 ->
      131,072 and one graph downsample; test PSNR must rise; the backward
      kernel must launch mv times a step and the forward mv times a step
-     plus once an eval frame.  Prints ms/iteration over the run, the mean
-     step (CUDA events), each densify, downsample, eval and save, and any
-     kmax escalation.  A copy of the iteration-45 checkpoint is resumed
+     plus once an eval frame.  Step 70's first view (kmax 32, capacity
+     131,072 on this scene) keeps its blend kernels' inputs: on them the
+     forward kernel must equal its plain version bit for bit and the
+     backward its plain version to 1e-5 of each row's max.  Prints
+     ms/iteration over the run, the mean step (CUDA events, the first and
+     the staged step apart), each densify, downsample, eval and save, and
+     any kmax escalation.  A copy of the iteration-45 checkpoint is resumed
      by `train_torch.py --start_checkpoint` in a subprocess: its
      point_cloud/iteration_90 and its final training state (the active
      mask included) must equal the straight run's bit for bit.  Last,
@@ -109,6 +113,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import zlib
 from pathlib import Path
 
@@ -126,6 +131,7 @@ from splatco_torch.models.renderer import (generate_neural_gaussians,
                                            prefilter_voxel, render)
 from splatco_torch.models.splatco import decode_kwargs, init_model
 from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
+from splatco_torch.ops import rasterize as rasterize_ops
 from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.losses import l1_loss, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
@@ -1191,16 +1197,29 @@ class TrainProbe:
     the host clock after a synchronize around each densify call, graph
     downsample, eval and save (and TensorBoard's `add_image` inside eval,
     where TensorBoard is installed), and a record of every kmax
-    escalation and capacity regrowth."""
+    escalation and capacity regrowth.  Step `staged_step`'s first view
+    also leaves copies of its blend kernels' inputs in `raster`: "fwd"
+    the forward's arguments, "bwd" the backward's cotangent, rgb, T and
+    bg for the same records, with the step's kmax and capacity.  Steps `profiled` (consecutive) run under
+    torch.profiler, left in `profiler`."""
 
     TIMED = ("_cvpm_and_densify", "_graph_downsample", "evaluate",
              "save_model", "save_training_state")
 
-    def __init__(self, staged_step: int):
+    def __init__(self, staged_step: int, profiled=()):
         self.staged_step, self.stages = staged_step, StageTimer()
         self.events, self.losses = [], []
         self.seconds = {name: [] for name in self.TIMED}
         self.kmax, self.grows = [], []
+        self.raster, self.capturing = {}, False
+        self.profiled, self.profiler = tuple(profiled), None
+
+    def steady_ms(self):
+        """The CUDA-event times of the steps other than the first (its
+        allocations), the staged one and the profiled ones."""
+        skip = {1, self.staged_step, *self.profiled}
+        return [ms for n, ms in enumerate(self.step_ms(), 1)
+                if n not in skip]
 
     def step_ms(self):
         torch.cuda.synchronize()
@@ -1226,17 +1245,51 @@ class TrainProbe:
             step = saved["_get_step"](tr)
 
             def timed_step(*a, **kw):
-                if len(self.events) + 1 == self.staged_step:
+                n = len(self.events) + 1
+                if n == self.staged_step:
                     kw["stage"] = self.stages
+                    self.capturing = True
+                    self.raster.update(
+                        kmax=tr.cfg.kmax,
+                        capacity=tr.params["anchors"]["anchor"].shape[0])
+                if self.profiled and n == self.profiled[0]:
+                    from torch.profiler import ProfilerActivity, profile
+                    torch.cuda.synchronize()
+                    self.profiler = profile(activities=[
+                        ProfilerActivity.CPU, ProfilerActivity.CUDA])
+                    self.profiler.start()
                 start = torch.cuda.Event(enable_timing=True)
                 stop = torch.cuda.Event(enable_timing=True)
                 start.record()
                 out = step(*a, **kw)
                 stop.record()
+                self.capturing = False
+                if self.profiled and n == self.profiled[-1]:
+                    torch.cuda.synchronize()
+                    self.profiler.stop()
                 self.events.append((start, stop))
                 self.losses.append(out[3]["loss"])
                 return out
             return timed_step
+
+        raster_fwd0 = rasterize_ops.raster_fwd
+        raster_bwd0 = rasterize_ops.raster_bwd
+
+        def copies(args):
+            return tuple(a.clone() if torch.is_tensor(a) else a
+                         for a in args)
+
+        def capture_fwd(*a, **kw):
+            if self.capturing and "fwd" not in self.raster:
+                self.raster["fwd"] = copies(a)
+                self.raster["records_ptr"] = a[0].data_ptr()
+            return raster_fwd0(*a, **kw)
+
+        def capture_bwd(*a, **kw):
+            if (self.capturing and "bwd" not in self.raster
+                    and a[0].data_ptr() == self.raster.get("records_ptr")):
+                self.raster["bwd"] = copies(a[7:11])
+            return raster_bwd0(*a, **kw)
 
         def grow(tr, new_capacity):
             old = tr.params["anchors"]["anchor"].shape[0]
@@ -1266,11 +1319,15 @@ class TrainProbe:
             setattr(cls, name, timed(name))
         cls._get_step, cls._grow, cls._escalate_kmax = get_step, grow, \
             escalate
+        rasterize_ops.raster_fwd = capture_fwd
+        rasterize_ops.raster_bwd = capture_bwd
         try:
             yield self
         finally:
             for name, fn in saved.items():
                 setattr(cls, name, fn)
+            rasterize_ops.raster_fwd = raster_fwd0
+            rasterize_ops.raster_bwd = raster_bwd0
             if SummaryWriter is not None:
                 SummaryWriter.add_image = add_image
 
@@ -1285,17 +1342,48 @@ def same_bits(a: np.ndarray, b: np.ndarray) -> bool:
             and a.tobytes() == b.tobytes())
 
 
+def staged_view_checks(probe, tile: int):
+    """Phase 16's blend kernels against their plain versions on the
+    inputs the training path gave them: step TRAIN_STAGED's first view,
+    as `probe` copied them (the forward bit for bit, the backward to
+    RASTER_BWD_TOL of each row's max, two backward launches equal)."""
+    records, start, end, tiles_x, tiles_y, h, w = probe.raster["fwd"]
+    grad, rgb, t_fin, bg = probe.raster["bwd"]
+    if (h, w) != (HEIGHT, WIDTH):
+        raise AssertionError(f"step {TRAIN_STAGED} rendered {w}x{h}")
+    binned = types.SimpleNamespace(records=records, tile_start=start,
+                                   tile_end=end)
+    view = (f"step {TRAIN_STAGED}, view 0 (kmax {probe.raster['kmax']}, "
+            f"capacity {probe.raster['capacity']}, {tile} px tiles, "
+            f"{records.shape[1]} records)")
+    print(f"  {view}: " + records_and_cull(binned, tiles_x, tiles_y, tile,
+                                            ("forward", "backward")))
+    err_rgb, err_t = compare_kernel(binned, tiles_x, tiles_y, tile=tile)
+    err, row = compare_bwd(binned, tiles_x, tiles_y, grad, rgb, t_fin, bg,
+                           tile=tile)
+    print(f"  {view}: {FWD_KERNELS[tile]} vs plain max |d| rgb "
+          f"{err_rgb:.3e} T {err_t:.3e} (must be 0); {BWD_KERNELS[tile]} vs "
+          f"plain max |d| {err:.3e}, largest row-relative {row:.3e}")
+    if not max(err_rgb, err_t) == 0.0:
+        raise AssertionError(f"{FWD_KERNELS[tile]} disagrees with its plain "
+                             f"version at step {TRAIN_STAGED}")
+    if not row <= RASTER_BWD_TOL:
+        raise AssertionError(f"{BWD_KERNELS[tile]} disagrees with its plain "
+                             f"version at step {TRAIN_STAGED}")
+
+
 def train_disk_phase(args, dev, card: str, scene_dir: str):
     """Phase 16: train_torch.main trains the quick-start model on phase
     15's scene, in this process so its launches count; a copy of its
     iteration-45 checkpoint is resumed by train_torch.py in a subprocess,
-    which must end where the straight run ended, bit for bit.  Returns
-    the launches of the straight run."""
+    which must end where the straight run ended, bit for bit.  The blend
+    kernels are held to their plain versions on step TRAIN_STAGED's
+    inputs.  Returns the launches of the straight run."""
     import train_torch
 
     t_phase = time.perf_counter()
-    kernels = (FWD_KERNELS[raster_v3.TILE if TILE16_DEFAULT else TILE],
-               BWD_KERNELS[raster_v3.TILE if TILE16_DEFAULT else TILE])
+    tile = raster_v3.TILE if TILE16_DEFAULT else TILE
+    kernels = (FWD_KERNELS[tile], BWD_KERNELS[tile])
     with tempfile.TemporaryDirectory() as tmp:
         model1 = os.path.join(tmp, "model")
         argv = ["-s", scene_dir, *TRAIN_ARGS, "--seed", str(args.seed)]
@@ -1312,6 +1400,7 @@ def train_disk_phase(args, dev, card: str, scene_dir: str):
 
         steps = len(probe.events)
         step_ms = probe.step_ms()
+        steady = probe.steady_ms()
         losses = torch.stack(probe.losses).cpu().tolist()
         log = trainer.metrics_log
         events = [m for m in log if "densify_grown" in m]
@@ -1325,10 +1414,13 @@ def train_disk_phase(args, dev, card: str, scene_dir: str):
         print(f"training from disk ({card}): train_torch.main, "
               f"{steps} steps of mv {MV} at {WIDTH}x{HEIGHT}, "
               f"{run_s * 1e3 / TRAIN_ITERS:.1f} ms/iteration over the run "
-              f"(host clock, everything included), mean step "
-              f"{np.mean(step_ms):.3f} ms (CUDA events, densify and eval "
-              f"excluded; median {np.median(step_ms):.3f}, first "
-              f"{step_ms[0]:.3f}); launches {launches}")
+              f"(host clock, everything included); by CUDA events "
+              f"(densify and eval excluded) the mean step {np.mean(steady):.3f}"
+              f" ms over the {len(steady)} steps other than the first and "
+              f"the staged one, median {np.median(steady):.3f}; over all "
+              f"{steps} steps mean {np.mean(step_ms):.3f}, first "
+              f"{step_ms[0]:.3f}, staged {step_ms[TRAIN_STAGED - 1]:.3f}; "
+              f"launches {launches}")
         print(f"  densify ms {sec['_cvpm_and_densify']}, graph downsample "
               f"ms {sec['_graph_downsample']}, eval ms {sec['evaluate']} "
               f"({eval_frames} frames), model save ms {sec['save_model']}, "
@@ -1365,6 +1457,8 @@ def train_disk_phase(args, dev, card: str, scene_dir: str):
         want = {kernels[0]: MV * steps + eval_frames, kernels[1]: MV * steps}
         if launches != want:
             raise AssertionError(f"training launched {launches}, not {want}")
+        staged_view_checks(probe, tile)
+        probe.raster.clear()
 
         # resume a copy of the iteration-45 checkpoint in a subprocess
         model2 = os.path.join(tmp, "model_resumed")

@@ -113,7 +113,6 @@ class Trainer:
     # mirror the TensorBoard scalars to wandb, where installed
     use_wandb: bool = False
     device: Any = None          # None: the card
-    tile16: Optional[bool] = None  # None: the SPLATCO_RASTER switch
 
     def setup(self, scene: Scene, seed: int = 0):
         self.dev = resolve_device(self.device)
@@ -183,7 +182,7 @@ class Trainer:
         if self.activate_level not in self._step_cache:
             self._step_cache[self.activate_level] = make_train_step(
                 self.cfg, self.opt, self.pipe.mv, self.activate_level,
-                self.tx, device=self.dev, tile16=self.tile16)
+                self.tx, device=self.dev)
         return self._step_cache[self.activate_level]
 
     def _pair_gates(self, cams, gts) -> torch.Tensor:
@@ -630,7 +629,7 @@ class Trainer:
                     self.params, self.mstate.active,
                     self.mstate.contractor, cam, bg, visible_mask=vis,
                     activate_level=self.activate_level, is_training=False,
-                    kmax=self.cfg.kmax, tile16=self.tile16, **dkw)
+                    kmax=self.cfg.kmax, **dkw)
                 img = torch.clamp(out.image, 0.0, 1.0)
                 gt = torch.clamp(cam.image, 0.0, 1.0)
                 dev_metrics.append(_eval_view_metrics(img, gt))

@@ -2,7 +2,8 @@
 
 Its host logic is held against a JAX `Trainer` built without `setup()`:
 the view sequence one seed draws, the cached consistency gates (SSIM,
-1e-5) and the kmax escalation controller.  The rest runs the port alone
+1e-5), the CVPM prune mask `_cvpm_and_densify` builds from them and the
+kmax escalation controller.  The rest runs the port alone
 on a toy Blender scene (6 views at 64x48): a resumed run equals the
 straight one bit for bit across kmax escalations, densify calls, a graph
 downsample, a capacity regrowth and a level activation; capacity
@@ -13,7 +14,9 @@ import json
 import logging
 import os
 import random
+import types
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,13 +27,16 @@ from splatco_torch.config import (ModelConfig, OptimizationConfig,
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.data.scene import Scene
 from splatco_torch.ops.knn import voxelize
+from splatco_torch.train import loop as t_loop
 from splatco_torch.train.checkpoint import params_to_numpy
+from splatco_torch.train.cvpm import cvpm_pair_mask
 from splatco_torch.train.loop import Trainer
 from splatco_torch.utils.synthetic import write_blender_dataset
 from splatco_tpu.config import ModelConfig as JModelConfig
 from splatco_tpu.config import OptimizationConfig as JOptimizationConfig
 from splatco_tpu.config import PipelineConfig as JPipelineConfig
 from splatco_tpu.data.cameras import look_at_camera as j_look_at
+from splatco_tpu.train import loop as j_loop
 from splatco_tpu.train.loop import Trainer as JTrainer
 
 # mixed resolutions, so the batch sort by size matters
@@ -89,6 +95,119 @@ def test_pair_gates_match_jax():
         assert got.shape == (6,)
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     assert set(tt._gate_cache) == set(jt._gate_cache)
+
+
+class Marked(Exception):
+    """Raised by a stand-in for `adjust_anchor` with the CVPM mask the
+    trainer passed it."""
+
+    def __init__(self, mask):
+        super().__init__()
+        self.mask = np.asarray(mask)
+
+
+def stop_at_adjust(*args, **kwargs):
+    raise Marked(args[8])
+
+
+def cvpm_margins(anchor, active, pairs, thr):
+    """float64 distance of each anchor's CVPM comparisons from their
+    thresholds, the smallest over the view pairs `pairs` [(o1, o2)].  A
+    batch may hold one view twice: that pair has no baseline and marks
+    nothing (NaN distances), in both packages."""
+    a = anchor.astype(np.float64)
+    m = a[active]
+    mean, std = m.mean(0), m.std(0, ddof=1)
+    out = [np.abs(np.abs(a - mean) - 3.0 * std).min(axis=1)]
+    for c1, c2 in pairs:
+        if np.array_equal(c1, c2):
+            continue
+        for o, other in ((c1, c2), (c2, c1)):
+            ray = (other - o) / np.linalg.norm(other - o)
+            d = a - o
+            proj = o + ray * (d @ ray)[:, None]
+            out.append(np.abs(np.linalg.norm(a - proj, axis=1) - thr))
+            out.append(np.abs(np.linalg.norm(d, axis=1) - 0.5))
+    return np.min(out, axis=0)
+
+
+@pytest.mark.parametrize("compat_t", [False, True])
+def test_cvpm_mask_matches_jax(compat_t, monkeypatch):
+    """`_cvpm_and_densify`'s CVPM part, up to the `adjust_anchor` call:
+    the SSIM > 0.6 gate, the origins (camera centres, or the T vectors
+    under cvpm_compat_T) and the threshold (the voxel size), held
+    against the JAX Trainer's on the same anchors and camera batches.
+    Even uids show one image (their pairs pass the gate), odd uids
+    noise; anchors lie along the baselines of every pair, centres and
+    T vectors both, so every wiring choice changes the mask."""
+    monkeypatch.setattr(j_loop, "adjust_anchor", stop_at_adjust)
+    monkeypatch.setattr(t_loop, "adjust_anchor", stop_at_adjust)
+    jt, tt = host_trainers()
+    rng = np.random.default_rng(5)
+    base = rng.uniform(size=(3, 64, 80))
+    imgs = [np.clip((base[:, :h, :w] + 0.02 * rng.normal(size=(3, h, w)))
+                    if uid % 2 == 0 else rng.uniform(size=(3, h, w)), 0, 1
+                    ).astype(np.float32)
+            for uid, (w, h) in enumerate(SIZES)]
+    thr, k = 0.04, jt.cfg.n_offsets
+    jt.key = jax.random.key(0)
+    tt.generator = torch.Generator().manual_seed(0)
+    hits = gate_mattered = 0
+    for batch in range(4):
+        jc, tc = jt._sample_cameras(), tt._sample_cameras()
+        assert [c.uid for c in tc] == [c.uid for c in jc]
+        ends = {"centre": [np.asarray(c.camera_center, np.float64)
+                           for c in jc],
+                "T": [np.asarray(c.T, np.float64) for c in jc]}
+        lines = []
+        for o in ends.values():
+            for i in range(4):
+                for j in range(i + 1, 4):
+                    u = rng.uniform(-0.2, 1.2, size=(60, 1))
+                    lines.append(o[i] + u * (o[j] - o[i])
+                                 + rng.normal(size=(60, 3)) * 0.03)
+        cloud = rng.standard_t(3, size=(400, 3)) * 2.0
+        anchor = np.concatenate(lines + [cloud]).astype(np.float32)
+        active = rng.uniform(size=len(anchor)) < 0.9
+        c = len(anchor)
+        jt.cfg.cvpm_compat_T = tt.cfg.cvpm_compat_T = compat_t
+        jt.params = {"anchors": {"anchor": jnp.asarray(anchor)}}
+        jt.mstate = types.SimpleNamespace(active=jnp.asarray(active),
+                                          voxel_size=thr)
+        tt.params = {"anchors": {"anchor": torch.as_tensor(anchor)}}
+        tt.mstate = types.SimpleNamespace(active=torch.as_tensor(active),
+                                          voxel_size=thr)
+        for tr in (jt, tt):
+            tr.opt_state = tr.stats = None
+        with pytest.raises(Marked) as want:
+            jt._cvpm_and_densify(15, jc, [jnp.asarray(imgs[cam.uid])
+                                          for cam in jc])
+        with pytest.raises(Marked) as got:
+            tt._cvpm_and_densify(15, tc, [torch.as_tensor(imgs[cam.uid])
+                                          for cam in tc])
+        want, got = want.value.mask, got.value.mask
+        assert got.shape == want.shape == (c,)
+
+        gates = np.asarray(jt._pair_gates(jc, [jnp.asarray(imgs[cam.uid])
+                                               for cam in jc]))
+        assert np.abs(gates - 0.6).min() > 1e-3
+        pairs = [(i, j) for i in range(4) for j in range(i + 1, 4)]
+        o = ends["T" if compat_t else "centre"]
+        gated = [(o[i], o[j]) for (i, j), g in zip(pairs, gates) if g > 0.6]
+        away = cvpm_margins(anchor, active, gated, thr) > 1e-5
+        assert away.mean() > 0.99, batch
+        np.testing.assert_array_equal(got[away], want[away])
+        hits += int(want.sum())
+        # every pair, gate or not: the gate removes marks
+        ungated = np.zeros(c, bool)
+        for i, j in pairs:
+            ungated |= cvpm_pair_mask(
+                torch.as_tensor(anchor), torch.as_tensor(active),
+                torch.as_tensor(o[i], dtype=torch.float32),
+                torch.as_tensor(o[j], dtype=torch.float32),
+                distance_threshold=thr).numpy()
+        gate_mattered += int((ungated & ~want).sum())
+    assert hits > 50 and gate_mattered > 50
 
 
 @pytest.mark.parametrize("kmax,escalate,clips", [

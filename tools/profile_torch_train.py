@@ -3,7 +3,7 @@ training size: per-phase CUDA-event times, the device's busy share, and
 torch.profiler's kernel table.
 
     PYTHONPATH=. python tools/profile_torch_train.py [--steps 3]
-        [--level 0] [--v3] [--out PATH]
+        [--level 0] [--v3] [--disk] [--out PATH]
 
 Prints the summary and the kernel table; with --out it also writes them
 and the host-time table to PATH.  --v3 trains in the v3 configuration
@@ -16,6 +16,15 @@ ending in a synchronize) and CUDA events per phase, then `--steps` more
 run under torch.profiler.  The busy share is the profiled device time of
 all kernels, memcpys and memsets over the unprofiled wall time (one
 stream, so kernels do not overlap).
+
+--disk profiles chip_smoke.py's phase 16 instead: `train_torch.main`
+trains the quick-start model on phase 15's scene with phase 16's flags,
+and `--steps` steps from step 72 on (kmax 32, capacity 131,072, after
+the graph downsample) run under torch.profiler.  Its busy share is their
+device time over the mean CUDA-event time of the other steps from 31 on
+(neither the staged nor a profiled one).  It also prints the table of
+operators by their device time, children included: each autograd
+node's `evaluate_function` row holds its backward's kernels.
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ import dataclasses
 import json
 import os
 import subprocess
+import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -41,6 +52,8 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--v3", action="store_true",
                     help="16 px tiles (tile16=True) with kmax 32")
+    ap.add_argument("--disk", action="store_true",
+                    help="profile chip_smoke.py's phase 16 (train_torch)")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     dev = torch.device("cuda")
@@ -48,6 +61,11 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.disk:
+        summary, events = profile_disk(args, dev)
+        summary["card"] = card
+        report(summary, events, args.out, by_op=True)
+        return
     cfg = cs.quickstart_config()
     if args.v3:
         cfg = dataclasses.replace(cfg, kmax=cs.KMAX_V3)
@@ -76,12 +94,7 @@ def main() -> None:
             trainer.step(stage=cs.StageTimer())
         torch.cuda.synchronize()
     events = prof.key_averages()
-    # device time of kernels, memcpys and memsets (device-side events;
-    # the aten ops that launched them and the phase ranges spanning them
-    # would count the same time again)
-    device_us = sum(e.self_device_time_total for e in events
-                    if e.device_type == torch.autograd.DeviceType.CUDA
-                    and e.key not in stage_ms[0])
+    device_us = device_time_us(events, skip=stage_ms[0])
     summary = {
         "steps": args.steps,
         "activate_level": args.level,
@@ -95,15 +108,72 @@ def main() -> None:
                           for k in stage_ms[0]},
         "card": card,
     }
+    report(summary, events, args.out)
+
+
+FIRST_PROFILED = 72
+
+
+def profile_disk(args, dev):
+    """chip_smoke.py's phase 16 with steps FIRST_PROFILED.. profiled:
+    (summary, the profiler's key_averages)."""
+    import train_torch
+
+    profiled = range(FIRST_PROFILED, FIRST_PROFILED + args.steps)
+    probe = cs.TrainProbe(staged_step=cs.TRAIN_STAGED, profiled=profiled)
+    with tempfile.TemporaryDirectory() as tmp:
+        scene = cs.write_scene(tmp, types.SimpleNamespace(seed=args.seed),
+                               dev)
+        with probe.installed():
+            trainer = train_torch.main(
+                ["-s", scene, *cs.TRAIN_ARGS, "--seed", str(args.seed),
+                 "-m", os.path.join(tmp, "model")])
+    step_ms = probe.step_ms()
+    later = [ms for n, ms in enumerate(step_ms, 1)
+             if n > 30 and n != cs.TRAIN_STAGED and n not in profiled]
+    events = probe.profiler.key_averages()
+    device_us = device_time_us(events)
+    summary = {
+        "profiled_steps": list(profiled),
+        "kmax": trainer.cfg.kmax,
+        "capacity": trainer.params["anchors"]["anchor"].shape[0],
+        "anchors": int(trainer.mstate.active.sum()),
+        "views": cs.MV,
+        "profiled_event_ms": [step_ms[n - 1] for n in profiled],
+        "other_steps_from_31_mean_ms": float(np.mean(later)),
+        "device_busy_ms_per_step": device_us / 1e3 / len(profiled),
+        "device_busy_share": device_us / 1e3 / len(profiled)
+        / float(np.mean(later)),
+        "staged_step": cs.TRAIN_STAGED,
+        "stage_ms": probe.stages.ms(),
+    }
+    return summary, events
+
+
+def device_time_us(events, skip=()) -> float:
+    """Device time of kernels, memcpys and memsets (device-side events;
+    the aten ops that launched them and the ranges spanning them would
+    count the same time again)."""
+    return sum(e.self_device_time_total for e in events
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key not in skip)
+
+
+def report(summary, events, out, by_op=False) -> None:
     by_device = events.table(sort_by="self_device_time_total", row_limit=40)
     by_host = events.table(sort_by="self_cpu_time_total", row_limit=25)
-    if args.out:
-        os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        with open(args.out, "w") as fh:
-            fh.write(json.dumps(summary, indent=1) + "\n\n" + by_device
-                     + "\n\n" + by_host + "\n")
+    tables = [by_device]
+    if by_op:
+        tables.append(events.table(sort_by="device_time_total",
+                                   row_limit=60))
+    if out:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+        with open(out, "w") as fh:
+            fh.write("\n\n".join([json.dumps(summary, indent=1), *tables,
+                                   by_host]) + "\n")
     print(json.dumps(summary))
-    print(by_device)
+    for table in tables:
+        print(table)
 
 
 if __name__ == "__main__":
