@@ -95,6 +95,21 @@ Run from the repository root.  Phases, each of which fails loudly:
      mask included) must equal the straight run's bit for bit.  Last,
      with the context grids (use_spatial_ctx) on, phase 7's trainer at
      level 2: two steps from one state must be bit-identical.
+ 17. evaluation of phase 16's trained model (iteration 90) through the
+     entry points a user calls: `render_torch.main` renders its 14 train
+     and 2 test views (the forward kernel launched once a view);
+     `metrics_torch.main` scores the test views with LPIPS weights at
+     VGG16's widths drawn from a seeded generator (results.json and
+     per_view.json finite; each view's PSNR, SSIM, FLIP and LPIPS
+     recomputed on the CPU from the same PNG pixels must agree: 1e-4 dB,
+     1e-5, 1e-5, 1e-4 relative); each metric's ms per image on the card;
+     16 orbit frames of the loaded model at 1600x1088 written as PNGs;
+     `detect_popping_torch.main --flow raft` over them with seeded RAFT
+     weights saved in the official checkpoint layout, 20 iterations,
+     steps 1 and 7 (15 and 9 frame pairs, every aggregate finite, every
+     valid_frac in [0, 1]), with the ms per RAFT flow and the peak
+     device memory; RAFT on one orbit pair cropped to 400x544, 2
+     iterations, card against CPU within 2e-3 x max(|flow|, 1).
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all nine kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -121,19 +136,24 @@ import numpy as np
 import torch
 
 from splatco_torch.config import (ModelConfig, OptimizationConfig,
-                                  PipelineConfig, save_run_config)
+                                  PipelineConfig, load_run_config,
+                                  save_run_config)
 from splatco_torch.data import native_io
 from splatco_torch.data.cameras import look_at_camera
+from splatco_torch.data.images import save_png
 from splatco_torch.data.scene import Scene
+from splatco_torch.eval import metrics_driver, popping, raft
 from splatco_torch.eval.render_driver import (load_trained, render_set,
                                               render_sets)
 from splatco_torch.models.renderer import (generate_neural_gaussians,
                                            prefilter_voxel, render)
 from splatco_torch.models.splatco import decode_kwargs, init_model
-from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
+from splatco_torch.ops import (cuda_lib, lpips, probes, raster_ablate,
+                               raster_v3)
 from splatco_torch.ops import rasterize as rasterize_ops
 from splatco_torch.ops.binning import TILE
-from splatco_torch.ops.losses import l1_loss, ssim
+from splatco_torch.ops.flip import ldr_flip
+from splatco_torch.ops.losses import l1_loss, psnr, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
 from splatco_torch.ops.rasterize import TILE16_DEFAULT, bin_frame, tile_grid
 from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
@@ -151,7 +171,7 @@ from splatco_torch.utils.math import round_up
 from splatco_torch.utils.measure import (PEAK_FP32_PER_S, PEAK_TF32_PER_S,
                                          bound, bwd_bound, cuda_time_ms,
                                          fwd_bound)
-from splatco_torch.utils.synthetic import write_colmap_dataset
+from splatco_torch.utils.synthetic import orbit_camera, write_colmap_dataset
 
 # the forward kernels repeat their plain versions' float32 operations in
 # the same order (built with --fmad=false; a record a warp culls changes
@@ -212,6 +232,14 @@ TRAIN_ARGS = ["--mv", str(MV), "--num_channels", "15", "--plane_size", "2800",
               "--update_until", "80", "--graph_downsampling_iters", "30",
               "--test_iterations", "1", str(TRAIN_ITERS),
               "--save_iterations", str(TRAIN_ITERS)]
+# phase 17: evaluation of phase 16's model.  Card against CPU on the same
+# PNG pixels: the same float32 operations summed in other orders
+METRIC_TOL = {"PSNR": 1e-4, "SSIM": 1e-5, "FLIP": 1e-5}  # absolute
+LPIPS_RTOL = 1e-4
+ORBIT_FRAMES, POPPING_STEPS, RAFT_ITERS = 16, (1, 7), 20
+# RAFT card against CPU on one orbit pair cropped to this size, few
+# iterations: the recurrence carries the differences on
+RAFT_CROP, RAFT_CHECK_ITERS, RAFT_TOL = (400, 544), 2, 2e-3
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -1372,20 +1400,19 @@ def staged_view_checks(probe, tile: int):
                              f"version at step {TRAIN_STAGED}")
 
 
-def train_disk_phase(args, dev, card: str, scene_dir: str):
+def train_disk_phase(args, dev, card: str, scene_dir: str, model1: str):
     """Phase 16: train_torch.main trains the quick-start model on phase
-    15's scene, in this process so its launches count; a copy of its
-    iteration-45 checkpoint is resumed by train_torch.py in a subprocess,
-    which must end where the straight run ended, bit for bit.  The blend
-    kernels are held to their plain versions on step TRAIN_STAGED's
-    inputs.  Returns the launches of the straight run."""
+    15's scene into `model1`, in this process so its launches count; a
+    copy of its iteration-45 checkpoint is resumed by train_torch.py in a
+    subprocess, which must end where the straight run ended, bit for bit.
+    The blend kernels are held to their plain versions on step
+    TRAIN_STAGED's inputs.  Returns the launches of the straight run."""
     import train_torch
 
     t_phase = time.perf_counter()
     tile = raster_v3.TILE if TILE16_DEFAULT else TILE
     kernels = (FWD_KERNELS[tile], BWD_KERNELS[tile])
     with tempfile.TemporaryDirectory() as tmp:
-        model1 = os.path.join(tmp, "model")
         argv = ["-s", scene_dir, *TRAIN_ARGS, "--seed", str(args.seed)]
         probe = TrainProbe(staged_step=TRAIN_STAGED)
         cuda_lib.LAUNCHES.clear()
@@ -1522,6 +1549,197 @@ def spatial_ctx_repeats(seed: int, dev):
     steps_repeat(trainer, seed + 2)
 
 
+@contextlib.contextmanager
+def timed_raft_flows(events: list):
+    """eval/raft.py's raft_flow, which make_flow_fn's flows call, wrapped
+    for the length of a `with`: CUDA events around each call are appended
+    to `events`."""
+    inner = raft.raft_flow
+
+    def wrapper(*a, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(*a, **kw)
+        stop.record()
+        events.append((start, stop))
+        return out
+
+    raft.raft_flow = wrapper
+    try:
+        yield
+    finally:
+        raft.raft_flow = inner
+
+
+def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
+    """Phase 17: phase 16's trained model rendered by render_torch.py,
+    scored by metrics_torch.py (held to the CPU view by view) and its
+    orbit stream checked by detect_popping_torch.py with RAFT; RAFT held
+    to the CPU on a crop.  Returns the forward kernel's launches."""
+    import detect_popping_torch
+    import metrics_torch
+    import render_torch
+
+    t_phase = time.perf_counter()
+    name = FWD_KERNELS[raster_v3.TILE if TILE16_DEFAULT else TILE]
+    it_dir = f"ours_{TRAIN_ITERS}"
+
+    # 1. the trained model's views through the render CLI
+    cuda_lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    render_torch.main(["-m", model_dir, "-s", scene_dir])
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    counts = {(split, kind): len(os.listdir(os.path.join(
+        model_dir, split, it_dir, kind)))
+        for split in ("train", "test") for kind in ("renders", "gt")}
+    want_counts = {("train", "renders"): DISK_VIEWS - 2,
+                   ("train", "gt"): DISK_VIEWS - 2,
+                   ("test", "renders"): 2, ("test", "gt"): 2}
+    if counts != want_counts:
+        raise AssertionError(f"render_torch.py wrote {counts}")
+    if launches != {name: DISK_VIEWS}:
+        raise AssertionError(f"render_torch.py launched {launches} for "
+                             f"{DISK_VIEWS} views")
+
+    # 2. the metrics CLI with seeded LPIPS weights at VGG16's widths, each
+    # test view recomputed on the CPU from the same PNG pixels
+    npz = os.path.join(model_dir, "lpips_random.npz")
+    np.savez(npz, **lpips.random_weights(args.seed))
+    t0 = time.perf_counter()
+    metrics_torch.main(["-m", model_dir, "--lpips_weights", npz])
+    torch.cuda.synchronize()
+    metrics_s = time.perf_counter() - t0
+    with open(os.path.join(model_dir, "results.json")) as fh:
+        full = json.load(fh)[it_dir]
+    with open(os.path.join(model_dir, "per_view.json")) as fh:
+        per_view = json.load(fh)[it_dir]
+    scores = [v for key in ("PSNR", "SSIM", "FLIP", "LPIPS")
+              for v in [full[key], *per_view[key].values()]]
+    if not all(v is not None and math.isfinite(v) for v in scores):
+        raise AssertionError(f"a metric is not finite: {full}")
+    renders, gts, names = metrics_driver.read_images(
+        os.path.join(model_dir, "test", it_dir, "renders"),
+        os.path.join(model_dir, "test", it_dir, "gt"))
+    w_cpu = lpips.load_weights(npz, device="cpu")
+    worst = dict.fromkeys(("PSNR", "SSIM", "FLIP", "LPIPS"), 0.0)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for r, g, view in zip(renders, gts, names):
+            cpu = metrics_driver.view_metrics(torch.from_numpy(r),
+                                              torch.from_numpy(g), w_cpu)
+            for key in METRIC_TOL:
+                worst[key] = max(worst[key],
+                                 abs(cpu[key] - per_view[key][view]))
+            worst["LPIPS"] = max(worst["LPIPS"], abs(
+                per_view["LPIPS"][view] / cpu["LPIPS"] - 1))
+    cpu_s = time.perf_counter() - t0
+    w_card = lpips.load_weights(npz, device=dev)
+    r0, g0 = (torch.from_numpy(x).to(dev) for x in (renders[0], gts[0]))
+    with torch.inference_mode():
+        metric_ms = {
+            "PSNR": cuda_time_ms(lambda: psnr(r0, g0), 3),
+            "SSIM": cuda_time_ms(lambda: ssim(r0, g0), 3),
+            "FLIP": cuda_time_ms(lambda: ldr_flip(r0, g0), 3),
+            "LPIPS": cuda_time_ms(lambda: lpips.lpips(w_card, r0, g0), 3)}
+    print(f"eval of the trained model ({card}): render_torch.py "
+          f"{render_s:.1f} s ({DISK_VIEWS} views, launches {launches}); "
+          f"metrics_torch.py {metrics_s:.1f} s: {json.dumps(full)}; the "
+          f"{len(names)} test views recomputed on the CPU ({cpu_s:.1f} s): "
+          f"max |d| PSNR {worst['PSNR']:.3e} dB, SSIM {worst['SSIM']:.3e}, "
+          f"FLIP {worst['FLIP']:.3e}, LPIPS relative {worst['LPIPS']:.3e}; "
+          f"ms per {WIDTH}x{HEIGHT} image on the card (CUDA events, mean "
+          f"of 3 after a warm-up) {json.dumps(metric_ms)}")
+    for key, tol in METRIC_TOL.items():
+        if not worst[key] <= tol:
+            raise AssertionError(f"{key}: card and CPU differ by "
+                                 f"{worst[key]:.3e} > {tol}")
+    if not worst["LPIPS"] <= LPIPS_RTOL:
+        raise AssertionError(f"LPIPS: card and CPU differ by "
+                             f"{worst['LPIPS']:.3e} relative")
+
+    # 3. an orbit stream of the loaded model, as tools/quality_run.py
+    # renders one
+    cfg, _, _ = load_run_config(model_dir)
+    params, active, contractor, level, _ = load_trained(cfg, device=dev)
+    orbit_dir = os.path.join(model_dir, "orbit", "renders")
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.white_background else
+                      [0.0, 0.0, 0.0], device=dev)
+    cuda_lib.LAUNCHES.clear()
+    with torch.inference_mode():
+        for i in range(ORBIT_FRAMES):
+            cam = orbit_camera(i, ORBIT_FRAMES, radius=3.2, height=0.6,
+                               width=WIDTH, height_px=HEIGHT, device=dev)
+            vis = prefilter_voxel(params["anchors"], active, cam)
+            img = render(params, active, contractor, cam, bg,
+                         visible_mask=vis, activate_level=level,
+                         kmax=cfg.kmax, **decode_kwargs(cfg)).image
+            save_png(os.path.join(orbit_dir, f"{i:05d}.png"),
+                     img.clamp(0, 1).cpu().numpy())
+    orbit_launches = dict(cuda_lib.LAUNCHES)
+    if orbit_launches != {name: ORBIT_FRAMES}:
+        raise AssertionError(f"the orbit launched {orbit_launches} for "
+                             f"{ORBIT_FRAMES} frames")
+
+    # 4. the popping CLI with RAFT: seeded weights in the official layout
+    pth = os.path.join(model_dir, "raft_random.pth")
+    raft.save_raft_weights(raft.init_raft_params(
+        torch.Generator().manual_seed(args.seed), device=dev), pth)
+    events = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with timed_raft_flows(events):
+        pop = detect_popping_torch.main(
+            ["--render_dir", orbit_dir, "--flow", "raft", "--weights", pth,
+             "--iters", str(RAFT_ITERS),
+             "--steps", *(str(k) for k in POPPING_STEPS),
+             "--out", os.path.join(model_dir, "popping_results.json")])
+    torch.cuda.synchronize()
+    pop_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    flow_ms = [a.elapsed_time(b) for a, b in events]
+    pairs = {f"step_{k}": ORBIT_FRAMES - k for k in POPPING_STEPS}
+    valid = [e["render"]["valid_frac"] for res in pop.values()
+             for e in res["frames"]]
+    print(f"  detect_popping_torch.py --flow raft ({RAFT_ITERS} iterations)"
+          f": {pop_s:.1f} s, {len(flow_ms)} flows at {WIDTH}x{HEIGHT}, "
+          f"ms per flow (CUDA events) mean {np.mean(flow_ms):.3f}, min "
+          f"{min(flow_ms):.3f}, max {max(flow_ms):.3f}; peak device memory "
+          f"{peak_gib:.3f} GiB; valid_frac mean {np.mean(valid):.4f}; "
+          f"aggregates "
+          f"{json.dumps({k: v['aggregate'] for k, v in pop.items()})}")
+    got_pairs = {k: len(v["frames"]) for k, v in pop.items()}
+    if got_pairs != pairs or len(flow_ms) != 2 * sum(pairs.values()):
+        raise AssertionError(f"frame pairs {got_pairs} ({len(flow_ms)} "
+                             f"flows), not {pairs}")
+    for res in pop.values():
+        if not all(math.isfinite(v) for v in res["aggregate"].values()):
+            raise AssertionError(f"a popping aggregate is not finite: "
+                                 f"{res['aggregate']}")
+    if not all(0.0 <= v <= 1.0 for v in valid):
+        raise AssertionError("a valid_frac outside [0, 1]")
+
+    # 5. RAFT card against CPU on the first orbit pair, cropped
+    h, w = RAFT_CROP
+    a, b = (f[:h, :w] for f in popping.load_frames(orbit_dir, "cpu")[:2])
+    params_cpu = raft.load_raft_weights(pth, device="cpu")
+    flows = {d: raft.make_flow_fn(params_cpu, iters=RAFT_CHECK_ITERS,
+                                  device=d)(a, b).cpu()
+             for d in ("cpu", "cuda")}
+    scale = max(float(flows["cpu"].abs().max()), 1.0)
+    err = float((flows["cuda"] - flows["cpu"]).abs().max())
+    print(f"  RAFT on an orbit pair cropped to {w}x{h}, "
+          f"{RAFT_CHECK_ITERS} iterations: card vs CPU max |d| {err:.3e} "
+          f"(max |flow| {scale:.3f}); phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if not err <= RAFT_TOL * scale:
+        raise AssertionError(f"RAFT: card and CPU differ by {err:.3e}")
+    return {name: DISK_VIEWS + ORBIT_FRAMES}
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -1619,20 +1837,27 @@ def main() -> int:
         # render_torch.py
         disk_launches = disk_phase(args, dev, smi, scene_dir)
         # 16. trained on it by train_torch.py, resumed in a subprocess
-        train_disk_launches = train_disk_phase(args, dev, smi, scene_dir)
-    spatial_ctx_repeats(args.seed, dev)
+        model_dir = os.path.join(tmp, "trained")
+        train_disk_launches = train_disk_phase(args, dev, smi, scene_dir,
+                                               model_dir)
+        spatial_ctx_repeats(args.seed, dev)
+        # 17. the trained model rendered, scored and its orbit stream
+        # checked for popping through the CLIs
+        eval_launches = eval_phase(args, dev, smi, scene_dir, model_dir)
 
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
               + train_launches.get(KERNEL, 0)
               + disk_launches.get(KERNEL, 0)
-              + train_disk_launches.get(KERNEL, 0), fwd),
+              + train_disk_launches.get(KERNEL, 0)
+              + eval_launches.get(KERNEL, 0), fwd),
         entry(BWD_KERNEL, train_launches.get(BWD_KERNEL, 0)
               + train_disk_launches.get(BWD_KERNEL, 0), bwd),
         entry(KERNEL16, fwd3["launches"].get(KERNEL16, 0)
               + train3_launches.get(KERNEL16, 0)
               + disk_launches.get(KERNEL16, 0)
-              + train_disk_launches.get(KERNEL16, 0), fwd3),
+              + train_disk_launches.get(KERNEL16, 0)
+              + eval_launches.get(KERNEL16, 0), fwd3),
         entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0)
               + train_disk_launches.get(BWD_KERNEL16, 0), bwd3),
         *(entry(name, probe_launches[name], nums)

@@ -22,7 +22,8 @@ scene for 20 iterations with densify on the card, launching each kernel
 once a view per step and the forward once an eval frame, and a run
 resumed from its iteration-10 checkpoint ends bit for bit where the
 straight run ended; a step with the context grids (use_spatial_ctx)
-repeats bit for bit.
+repeats bit for bit.  The evaluation metrics (FLIP, LPIPS) and RAFT agree
+with the CPU on a small seeded pair.
 """
 import dataclasses
 import functools
@@ -37,10 +38,12 @@ from splatco_torch.config import (ModelConfig, OptimizationConfig,
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.data.images import read_image
 from splatco_torch.data.scene import Scene
+from splatco_torch.eval import raft
 from splatco_torch.eval.render_driver import render_sets
 from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import decode_kwargs, init_model
-from splatco_torch.ops import cuda_lib, probes, raster_ablate, raster_v3
+from splatco_torch.ops import (cuda_lib, flip, lpips, probes, raster_ablate,
+                               raster_v3)
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import bin_frame, tile_grid
@@ -54,6 +57,7 @@ from splatco_torch.train.checkpoint import (params_to_numpy,
 from splatco_torch.train.loop import Trainer
 from splatco_torch.train.optimizer import make_optimizer
 from splatco_torch.train.step import init_stats, make_train_step
+from splatco_torch.utils.device import resolve_device
 from splatco_torch.utils.math import round_up
 from splatco_torch.utils.synthetic import (write_blender_dataset,
                                            write_colmap_dataset)
@@ -505,3 +509,34 @@ def test_trainer_on_the_card_resumes_bit_for_bit(card, tmp_path):
     for key in want:
         assert want[key].tobytes() == got[key].tobytes(), key
     assert resumed.cfg.kmax == straight.cfg.kmax
+
+
+def test_eval_metrics_and_raft_on_the_card_match_the_cpu(card):
+    """FLIP, LPIPS (VGG16 widths, seeded weights) and RAFT (seeded
+    weights, 2 iterations) on a small seeded pair, card against CPU, at
+    chip_smoke.py phase 17's tolerances: FLIP 1e-5, LPIPS 1e-4 relative,
+    the flow 2e-3 x max(|flow|, 1).  Full float32 on both (resolve_device
+    turns cuDNN's TF32 off)."""
+    resolve_device(card)
+    rng = np.random.default_rng(0)
+    a = rng.uniform(size=(3, 128, 192)).astype(np.float32)
+    b = np.clip(np.roll(a, 3, axis=2)
+                + rng.normal(scale=0.05, size=a.shape), 0, 1).astype(
+                    np.float32)
+    pair = {dev: (torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev))
+            for dev in ("cpu", card)}
+    got = {dev: float(flip.ldr_flip(*p)) for dev, p in pair.items()}
+    assert abs(got["cpu"] - got[card]) <= 1e-5, got
+    w = lpips.random_weights(0)
+    got = {dev: float(lpips.lpips(
+        {k: torch.from_numpy(v).to(dev) for k, v in w.items()}, *p))
+        for dev, p in pair.items()}
+    assert abs(got[card] / got["cpu"] - 1) <= 1e-4, got
+    params = raft.init_raft_params(torch.Generator().manual_seed(0),
+                                   device="cpu")
+    flows = {dev: raft.make_flow_fn(params, iters=2, device=dev)(
+        p[0].permute(1, 2, 0), p[1].permute(1, 2, 0)).cpu()
+        for dev, p in pair.items()}
+    assert flows[card].shape == (128, 192, 2)
+    scale = max(float(flows["cpu"].abs().max()), 1.0)
+    assert float((flows[card] - flows["cpu"]).abs().max()) <= 2e-3 * scale

@@ -24,12 +24,17 @@ from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.data.cameras import look_at_camera
 from splatco_torch.data.readers import CameraInfo, load_camera
 from splatco_torch.data.scene import Scene
+from splatco_torch.eval.metrics_driver import evaluate, evaluate_dir
+from splatco_torch.eval.popping import validate_popping
+from splatco_torch.eval.raft import (init_raft_params, load_raft_weights,
+                                     make_flow_fn, raft_params_from_numpy)
 from splatco_torch.eval.render_driver import (load_trained, render_set,
                                               render_sets)
 from splatco_torch.models.contraction import Contractor
 from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import (decode_kwargs, init_model,
                                           params_from_numpy)
+from splatco_torch.ops import lpips
 from splatco_torch.train.checkpoint import (load_model_checkpoint,
                                             load_train_state)
 from splatco_torch.train.import_reference import load_reference_model
@@ -231,12 +236,17 @@ def test_jax_checkpoint_renders_through_port(tmp_path):
 
 
 def test_port_imports_no_jax():
-    """Importing every module of splatco_torch, chip_smoke.py and
-    render_torch.py pulls in neither jax nor splatco_tpu (fresh
-    interpreter)."""
+    """Importing every module of splatco_torch, chip_smoke.py, the CLIs
+    (render_torch.py, train_torch.py, metrics_torch.py,
+    detect_popping_torch.py) and tools/quality_run_torch.py and
+    tools/profile_torch_eval.py pulls in neither jax nor splatco_tpu
+    (fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
-        "import splatco_torch, chip_smoke, render_torch\n"
+        "import splatco_torch, chip_smoke, render_torch, train_torch\n"
+        "import metrics_torch, detect_popping_torch\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import quality_run_torch, profile_torch_eval\n"
         "for m in pkgutil.walk_packages(splatco_torch.__path__,"
         " 'splatco_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -275,6 +285,14 @@ ENTRY_POINTS = {
     "load_train_state": lambda: load_train_state("unused", 1),
     "write_colmap_dataset": lambda: write_colmap_dataset("unused"),
     "write_blender_dataset": lambda: write_blender_dataset("unused"),
+    "evaluate": lambda: evaluate(["unused"]),
+    "evaluate_dir": lambda: evaluate_dir("unused"),
+    "lpips.load_weights": lambda: lpips.load_weights("unused.npz"),
+    "init_raft_params": lambda: init_raft_params(),
+    "raft_params_from_numpy": lambda: raft_params_from_numpy({}),
+    "load_raft_weights": lambda: load_raft_weights("unused.pth"),
+    "make_flow_fn": lambda: make_flow_fn({}),
+    "validate_popping": lambda: validate_popping("unused"),
 }
 
 
