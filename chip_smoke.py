@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the splatco_torch render and training paths on one NVIDIA card, in
 both rasterizer configurations (32 px tiles, v2; 16 px tiles, v3), and
-hold each CUDA kernel against its plain PyTorch version.
+the sharded training step, and hold each CUDA kernel against its plain
+PyTorch version.
 
     python3 chip_smoke.py [--seed N] [--frames N] [--steps N]
 
@@ -110,6 +111,26 @@ Run from the repository root.  Phases, each of which fails loudly:
      valid_frac in [0, 1]), with the ms per RAFT flow and the peak
      device memory; RAFT on one orbit pair cropped to 400x544, 2
      iterations, card against CPU within 2e-3 x max(|flow|, 1).
+ 18. the sharded SVC step (splatco_torch/parallel) on the card.  18a: in
+     this process, a 1x1 mesh over NCCL (world size 1): phase 4's model,
+     one sharded step on orbit view 0 at q = 0 against
+     make_train_step(mv=1) from the same state (loss, first moments and
+     every param element within the limits stated at SHARDED_ONE_*), both
+     timed.  18b: four ranks of this script (--sharded-rank, started by
+     parallel/launch.py) share the card over gloo on CUDA tensors as a
+     2x2 mesh, the same model at full width (orbit views 0-1, strips of
+     544 px): which collectives gloo takes on CUDA tensors; a first step
+     held to the single-device mv = 2 step (num_clipped per strip
+     printed), two timed steps (ms/step per rank: four processes on one
+     card, not a multi-card figure), one step with the collectives traced
+     (ms and bytes per collective), then two steps from one state; the
+     replicated params must be bit-identical on the four ranks after
+     every step and the repeated step bit for bit on every rank, and each
+     rank launches each blend kernel once a step.  18c: the same ranks at
+     64x64 on tests/test_parallel.py's model size: the kernel path's
+     gradients against dense under the sharded step, and the sharded
+     loop (24 steps, two densify calls, a capacity regrowth, a level
+     bump) against the single-device trajectory rank 0 runs beside it.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all nine kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -118,8 +139,10 @@ there is no CUDA card.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -161,6 +184,11 @@ from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
                                               bwd_cull_mask, fwd_cull_mask,
                                               raster_bwd, raster_bwd_plain,
                                               raster_fwd, raster_fwd_plain)
+from splatco_torch.parallel import collectives, distributed
+from splatco_torch.parallel.dryrun import sharded_loop, step_gradients
+from splatco_torch.parallel.launch import free_port, launch
+from splatco_torch.parallel.mesh import STAT_FIELDS, shard_params
+from splatco_torch.parallel.train_step import make_sharded_train_step
 from splatco_torch.train import loop as train_loop
 from splatco_torch.train.checkpoint import (params_to_numpy,
                                             save_model_checkpoint)
@@ -240,6 +268,28 @@ ORBIT_FRAMES, POPPING_STEPS, RAFT_ITERS = 16, (1, 7), 20
 # RAFT card against CPU on one orbit pair cropped to this size, few
 # iterations: the recurrence carries the differences on
 RAFT_CROP, RAFT_CHECK_ITERS, RAFT_TOL = (400, 544), 2, 2e-3
+# phase 18a: the 1x1 sharded step against the single-device step from one
+# state, each timed over this many steps.  Loss to 1e-5 relative (mean vs
+# sum / npix, ssim vs masked_ssim: the same terms rounded in other
+# orders); the first moments (0.1 x the gradient) to 1e-5 of each leaf's
+# max; a param element may differ by at most 2 lr, since Adam's first
+# update is lr * m / sqrt(v), |m / sqrt(v)| <= 1, and a gradient at
+# rounding level may change its sign
+SHARDED_ONE_ITERS = 3
+SHARDED_ONE_LOSS_TOL, SHARDED_ONE_MU_TOL = 1e-5, 1e-5
+# phase 18b: 2 views x 2 strips (544 px) in four ranks on the card: one
+# step, SHARDED_TIMED timed, one traced, two from one state.  The first
+# loss against the single-device mv = 2 step: 1e-5 relative where nothing
+# clips (the same records, summed in other orders); where a strip or view
+# clips, each strip clips its own rects around centres in its own frame,
+# so 5e-3, the loop's limit
+SHARDED_MESH, SHARDED_TIMED, SHARDED_RANK_TIMEOUT = (2, 2), 2, 600
+SHARDED_LOSS_TOL, SHARDED_LOSS_TOL_CLIPPED = 1e-5, 5e-3
+# phase 18c, at this size: the kernel path's gradients against dense under
+# the sharded step, max-normalised per leaf to 5e-4 (the JAX kernel
+# backward's bound against the dense oracle); the sharded loop's losses
+# to 5e-3 of the single-device trajectory (dryrun_multichip's limit)
+SMALL_SHARDED, SHARDED_GRAD_TOL, LOOP_TOL = (64, 64), 5e-4, 5e-3
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -1740,6 +1790,390 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
     return {name: DISK_VIEWS + ORBIT_FRAMES}
 
 
+# ---------------------------------------------------------------------
+# phase 18: the sharded step (splatco_torch/parallel)
+
+
+def digest(tree) -> str:
+    """sha256 of every leaf of a nested dict/list tree, with its path."""
+    h = hashlib.sha256()
+    for key, leaf in sorted(flat(tree).items()):
+        h.update(key.encode())
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def state_tree(carry):
+    """A rank's whole step state (params, moments, statistics) as a tree."""
+    params, opt_state, stats = carry
+    return {"p": params, "mu": opt_state["mu"], "nu": opt_state["nu"],
+            "s": {f: getattr(stats, f) for f in STAT_FIELDS}}
+
+
+def lr_of_leaves(opt, extent: float, params, opt_state, level: int = 0):
+    """{leaf path: its group's learning rate at the state's count}."""
+    labels = flat(label_params(params))
+    scheds = group_schedules(opt, extent, level)
+    return {key: float(scheds[lbl](opt_state["sched_count"][lbl]))
+            for key, lbl in labels.items()}
+
+
+def one_rank_phase(params, state, cfg, args, dev):
+    """Phase 18a: a 1x1 mesh over NCCL (world size 1) in this process, at
+    full width: one sharded step against make_train_step(mv=1, q = 0)
+    from the same state, both through the tile kernels on view 0.  Returns
+    the sharded steps' launches and {name: ms/step}."""
+    if not distributed.init_distributed(f"localhost:{free_port()}", 1, 0,
+                                        backend="nccl"):
+        raise RuntimeError("the 1x1 process group was not made")
+    try:
+        mesh = distributed.make_multihost_mesh(1, 1)
+        cams = orbit_cameras(MV, dev)
+        cam, gt = cams[0], smooth_targets(1, args.seed, dev)[0]
+        opt = OptimizationConfig()
+        extent = camera_extent(cams)
+        tx = make_optimizer(opt, params, extent, 0, device=dev)
+        start = (params, tx.init(params),
+                 init_stats(params["anchors"]["anchor"].shape[0],
+                            cfg.n_offsets, device=dev))
+        sharded = make_sharded_train_step(cfg, opt, mesh, tx,
+                                          backend="cuda", q_noise=0.0)
+        single = make_train_step(cfg, opt, 1, 0, tx, q_noise=0.0,
+                                 device=dev)
+        bg = torch.zeros(3, device=dev)
+
+        def run_sharded():
+            return sharded(*start[:2], state.active, state.contractor,
+                           start[2], cam, gt, 0, *TERMS.values())
+
+        def run_single():
+            return single(*start[:2], state.active, state.contractor,
+                          start[2], [cam], [gt], bg, None, 0,
+                          *TERMS.values())
+
+        cuda_lib.LAUNCHES.clear()
+        got = run_sharded()
+        ms = {"sharded": cuda_time_ms(run_sharded, SHARDED_ONE_ITERS)}
+        torch.cuda.synchronize()
+        launches = dict(cuda_lib.LAUNCHES)
+        want = run_single()
+        ms["single"] = cuda_time_ms(run_single, SHARDED_ONE_ITERS)
+    finally:
+        torch.distributed.destroy_process_group()
+
+    rel = abs(float(got[3]["loss"]) - float(want[3]["loss"])) / abs(
+        float(want[3]["loss"]))
+    lrs = lr_of_leaves(opt, extent, params, start[1])
+    p_got, p_want = flat(got[0]), flat(want[0])
+    mu_got, mu_want = flat(got[1]["mu"]), flat(want[1]["mu"])
+    worst_mu, over_lr, differ, total = 0.0, [], 0, 0
+    for key, w in p_want.items():
+        d = (p_got[key] - w).abs()
+        differ += int((d > 0).sum())
+        total += w.numel()
+        if float(d.max()) > 2.0 * lrs[key] * (1 + 1e-6):
+            over_lr.append(key)
+        scale = float(mu_want[key].abs().max())
+        if scale > 0:
+            worst_mu = max(worst_mu, float((mu_got[key] - mu_want[key]).abs()
+                                           .max()) / scale)
+    print(f"18a. 1x1 mesh over NCCL, {WIDTH}x{HEIGHT}, one view: loss "
+          f"{float(got[3]['loss']):.8f} sharded vs "
+          f"{float(want[3]['loss']):.8f} single, rel {rel:.3e} (limit "
+          f"{SHARDED_ONE_LOSS_TOL}); first moments max-normalised "
+          f"{worst_mu:.3e} (limit {SHARDED_ONE_MU_TOL}); {differ} of "
+          f"{total} param elements differ, {len(over_lr)} leaves beyond "
+          f"2 lr {over_lr[:4]}; "
+          f"{ms['sharded']:.3f} ms/step sharded, {ms['single']:.3f} ms/step "
+          f"single (CUDA events, {SHARDED_ONE_ITERS} steps from one state); "
+          f"launches {launches}")
+    if not (rel <= SHARDED_ONE_LOSS_TOL and worst_mu <= SHARDED_ONE_MU_TOL
+            and not over_lr):
+        raise AssertionError("the 1x1 sharded step disagrees with the "
+                             "single-device step")
+    return launches, ms
+
+
+def small_model(seed: int, dev):
+    """tests/test_parallel.py's model size: 200 points, feat_dim 16,
+    n_offsets 4, plane_size 64."""
+    cfg = ModelConfig(feat_dim=16, n_offsets=4, voxel_size=0.05,
+                      plane_size=64, num_channels=9, appearance_dim=0,
+                      contractor=True, scene_center=[0.0, 0.0, 0.0],
+                      scene_length=[2.0, 2.0, 2.0], white_background=False)
+    pts = np.random.default_rng(seed).normal(size=(200, 3)).astype(
+        np.float32) * 0.4
+    params, state = init_model(cfg, pts, device=dev,
+                               generator=torch.Generator().manual_seed(seed))
+    h, w = SMALL_SHARDED
+    cams = [look_at_camera([math.sin(i), 0.3, -3.0 + 0.1 * i], [0, 0, 0],
+                           [0, -1, 0], 1.0, 1.0 * h / w, w, h, uid=i,
+                           device=dev) for i in range(SHARDED_MESH[0])]
+    gts = torch.as_tensor(np.random.default_rng(seed + 1).uniform(
+        size=(SHARDED_MESH[0], 3, h, w)).astype(np.float32)).to(dev)
+    return cfg, params, state, cams, gts
+
+
+def gloo_cuda_ops(dev) -> dict:
+    """Which collectives gloo takes on CUDA tensors, tried once each on a
+    4-element tensor over the world group: {op: "ok" or the error}."""
+    world = torch.distributed.get_world_size()
+    x = torch.ones(4 * world, device=dev)
+    ops = {
+        "all_reduce": lambda: torch.distributed.all_reduce(x.clone()),
+        "all_gather": lambda: torch.distributed.all_gather(
+            [torch.empty_like(x) for _ in range(world)], x),
+        "broadcast": lambda: torch.distributed.broadcast(x.clone(), 0),
+        "reduce_scatter": lambda: torch.distributed.reduce_scatter(
+            torch.empty_like(x), [x.clone() for _ in range(world)]),
+        "all_to_all": lambda: torch.distributed.all_to_all(
+            [torch.empty_like(x) for _ in range(world)],
+            [x.clone() for _ in range(world)]),
+    }
+    out = {}
+    for name, fn in ops.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "ok"
+        except RuntimeError as err:
+            out[name] = str(err).splitlines()[0][:80]
+    return out
+
+
+def sharded_rank(out_dir: str) -> int:
+    """One rank of phases 18b-c (run by sharded_phase through
+    parallel/launch.py, with the SPLATCO_* variables and gloo)."""
+    if not distributed.init_distributed():
+        raise RuntimeError("a sharded rank needs the SPLATCO_* variables")
+    dev = torch.device("cuda")
+    rank = torch.distributed.get_rank()
+    mesh = distributed.make_multihost_mesh(*SHARDED_MESH)
+    res = {"rank": rank, "gloo_cuda": gloo_cuda_ops(dev)}
+    seed = int(os.environ["CHIP_SMOKE_SEED"])
+
+    # 18b. the quick-start model at full width: view row = orbit view,
+    # gauss column = a 544 px strip
+    cfg = quickstart_config()
+    pts = np.random.default_rng(seed).normal(size=(65536, 3)).astype(
+        np.float32) * 1.2
+    params, state = init_model(cfg, pts, device=dev,
+                               generator=torch.Generator().manual_seed(seed))
+    cams = orbit_cameras(MV, dev)[:SHARDED_MESH[0]]
+    gts = smooth_targets(SHARDED_MESH[0], seed, dev)
+    opt = OptimizationConfig()
+    tx = make_optimizer(opt, params, camera_extent(cams), 0, device=dev)
+    p, o, a, st = shard_params(
+        mesh, params, tx.init(params), state.active,
+        init_stats(params["anchors"]["anchor"].shape[0], cfg.n_offsets,
+                   device=dev))
+    del params
+    step = make_sharded_train_step(cfg, opt, mesh, tx, backend="cuda",
+                                   q_noise=0.0)
+    cam, gt = cams[mesh.view], gts[mesh.view]
+
+    def run(carry):
+        return step(carry[0], carry[1], a, state.contractor, carry[2], cam,
+                    gt, 0, *TERMS.values())
+
+    def digests(carry):
+        """Every rank's digest of its replicated params (all but the
+        anchor groups), in rank order."""
+        out = [None] * torch.distributed.get_world_size()
+        torch.distributed.all_gather_object(out, digest(
+            {k: v for k, v in carry[0].items() if k != "anchors"}))
+        return out
+
+    cuda_lib.LAUNCHES.clear()
+    out = run((p, o, st))
+    res["loss0"] = float(out[3]["loss"])
+    res["clipped_strips"] = out[3]["num_clipped_strips"].tolist()
+    res["digests"] = [digests(out[:3])]
+    carry, ms, wall = out[:3], [], []
+    for _ in range(SHARDED_TIMED):
+        torch.cuda.synchronize()
+        torch.distributed.barrier()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = run(carry)
+        stop.record()
+        stop.synchronize()
+        wall.append(1e3 * (time.perf_counter() - t0))
+        ms.append(start.elapsed_time(stop))
+        carry = out[:3]
+        res["digests"].append(digests(carry))
+    res["ms"], res["wall_ms"] = ms, wall
+    res["losses"] = [res["loss0"], float(out[3]["loss"])]
+    with collectives.trace() as traced:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run(carry)
+        torch.cuda.synchronize()
+        res["traced_wall_ms"] = 1e3 * (time.perf_counter() - t0)
+    res["collectives"] = {f"{op}/{group}": rec
+                          for (op, group), rec in traced.items()}
+    res["repeat"] = [digest(state_tree(run(carry)[:3])) for _ in range(2)]
+    torch.cuda.synchronize()
+    res["launches_b"] = dict(cuda_lib.LAUNCHES)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del p, o, st, carry, out, a, state
+    torch.cuda.empty_cache()
+
+    # 18c. small size: the kernel path against dense under the sharded
+    # step, then the sharded loop against the single-device trajectory
+    cfg, params, state, cams, gts = small_model(seed, dev)
+    res["small_capacity"] = params["anchors"]["anchor"].shape[0]
+    grads = {}
+    for backend in ("cuda", "dense"):
+        g, stats, metrics = step_gradients(
+            mesh, cfg, params, state.active, state.contractor,
+            cams[mesh.view], gts[mesh.view], backend, dev)
+        grads[backend] = (flat(g), stats, float(metrics["loss"]))
+    worst = 0.0
+    for key, want in grads["dense"][0].items():
+        scale = float(want.abs().max())
+        err = float((grads["cuda"][0][key] - want).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+    res["small_grad_err"] = worst
+    res["small_loss"] = [grads["cuda"][2], grads["dense"][2]]
+    res["small_demon"] = [float(grads[b][1].anchor_demon.sum())
+                          for b in ("cuda", "dense")]
+    cuda_lib.LAUNCHES.clear()
+    res["loop"] = sharded_loop(mesh, cfg, params, state.active,
+                               state.contractor, cams, gts, "cuda", dev)
+    torch.cuda.synchronize()
+    res["launches_c"] = dict(cuda_lib.LAUNCHES)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+        json.dump(res, fh)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def sharded_phase(params, state, cfg, args, dev, card: str):
+    """Phase 18: the sharded step on the card.  18a in this process over
+    NCCL; 18b-c in four ranks that share the card over gloo (so their
+    times are of four processes on one card, not of four cards).
+    Returns the launches of phase 18's sharded steps."""
+    t_phase = time.perf_counter()
+    launches_a, _ = one_rank_phase(params, state, cfg, args, dev)
+
+    # the single-device step the 2x2 mesh's first step is held to: mv = 2
+    # (orbit views 0 and 1), q = 0, from the same initial state
+    cams = orbit_cameras(MV, dev)[:SHARDED_MESH[0]]
+    gts = smooth_targets(SHARDED_MESH[0], args.seed, dev)
+    opt = OptimizationConfig()
+    tx = make_optimizer(opt, params, camera_extent(cams), 0, device=dev)
+    single = make_train_step(cfg, opt, SHARDED_MESH[0], 0, tx, q_noise=0.0,
+                             device=dev)
+    want = single(params, tx.init(params), state.active, state.contractor,
+                  init_stats(params["anchors"]["anchor"].shape[0],
+                             cfg.n_offsets, device=dev),
+                  cams, gts, torch.zeros(3, device=dev), None, 0,
+                  *TERMS.values())[3]
+    want_loss, want_clipped = float(want["loss"]), int(want["num_clipped"])
+    del want, single, tx
+    torch.cuda.empty_cache()
+
+    n = SHARDED_MESH[0] * SHARDED_MESH[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        results = launch([os.path.abspath(__file__), "--sharded-rank", tmp],
+                         n, backend="gloo",
+                         env=dict(os.environ,
+                                  CHIP_SMOKE_SEED=str(args.seed)),
+                         timeout=SHARDED_RANK_TIMEOUT)
+        spawn_s = time.perf_counter() - t0
+        for rank, (code, text) in enumerate(results):
+            if code != 0:
+                raise AssertionError(f"sharded rank {rank} exited {code}:\n"
+                                     f"{text[-3000:]}")
+        ranks = []
+        for rank in range(n):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as fh:
+                ranks.append(json.load(fh))
+
+    r0 = ranks[0]
+    print(f"18b. gloo on CUDA tensors ({torch.__version__}): "
+          f"{json.dumps(r0['gloo_cuda'])}")
+    ms = [r["ms"] for r in ranks]
+    wall = [r["wall_ms"] for r in ranks]
+    rel = abs(r0["loss0"] - want_loss) / abs(want_loss)
+    clipped = r0["clipped_strips"]
+    loss_tol = (SHARDED_LOSS_TOL if sum(clipped) + want_clipped == 0
+                else SHARDED_LOSS_TOL_CLIPPED)
+    print(f"18b. 2x2 mesh, 4 ranks sharing one card ({card}) over gloo, "
+          f"{WIDTH}x{HEIGHT} views in {SHARDED_MESH[1]} strips of "
+          f"{HEIGHT // SHARDED_MESH[1]} px: first step loss "
+          f"{r0['loss0']:.8f} vs {want_loss:.8f} single-device mv=2, rel "
+          f"{rel:.3e} (limit {loss_tol}); "
+          f"num_clipped per strip {clipped} (single-device {want_clipped}); "
+          f"losses {r0['losses']}")
+    print(f"18b. ms/step per rank (CUDA events, {SHARDED_TIMED} steps; 4 "
+          f"ranks on one card, not a multi-card figure): {json.dumps(ms)}; "
+          f"host clock {json.dumps(wall)}; peak device memory per rank "
+          f"{[round(r['peak_gib'], 3) for r in ranks]} GiB")
+    for r in ranks[:1]:
+        tot = sum(rec[1] for rec in r["collectives"].values())
+        print(f"18b. rank 0 traced step: {r['traced_wall_ms']:.1f} ms host "
+              f"clock (device synchronised around each collective), of "
+              f"which collectives {1e3 * tot:.1f} ms:")
+        for name, (calls, secs, payload) in sorted(r["collectives"].items()):
+            print(f"  {name}: {calls} calls, {1e3 * secs:.2f} ms, "
+                  f"{payload / 1e6:.3f} MB a rank puts in")
+    same = all(len(set(d)) == 1 for r in ranks for d in r["digests"])
+    same_across = len({d[0] for r in ranks for d in r["digests"][-1:]}) == 1
+    repeat = all(r["repeat"][0] == r["repeat"][1] for r in ranks)
+    print(f"18b. replicated params bit-identical on the 4 ranks after each "
+          f"of {len(r0['digests'])} steps: {same and same_across}; two "
+          f"steps from one state bit-identical on every rank: {repeat}")
+    steps_b = 1 + SHARDED_TIMED + 1 + 2
+    kernels = (KERNEL, BWD_KERNEL)
+    launches_b = collections.Counter()
+    launches_c = collections.Counter()
+    for r in ranks:
+        launches_b.update(r["launches_b"])
+        launches_c.update(r["launches_c"])
+    print(f"18b. launches over the 4 ranks ({steps_b} steps each): "
+          f"{dict(launches_b)}")
+    if not (same and same_across and repeat):
+        raise AssertionError("the sharded step is not deterministic")
+    if rel > loss_tol:
+        raise AssertionError("the 2x2 sharded step's loss disagrees with "
+                             "the single-device step")
+    if dict(launches_b) != {k: n * steps_b for k in kernels}:
+        raise AssertionError(f"each rank must launch each of {kernels} "
+                             f"once a step")
+
+    loop = r0["loop"]
+    sh, sd = np.asarray(loop["losses_sharded"]), np.asarray(
+        loop["losses_single"])
+    delta = float(np.max(np.abs(sh - sd) / np.abs(sd)))
+    print(f"18c. {SMALL_SHARDED[0]}x{SMALL_SHARDED[1]}, 2x2: kernel path vs "
+          f"dense gradients max-normalised "
+          f"{max(r['small_grad_err'] for r in ranks):.3e} (limit "
+          f"{SHARDED_GRAD_TOL}), loss {r0['small_loss']}; sharded loop "
+          f"(cuda) {len(sh)} steps vs single-device: max rel {delta:.3e} "
+          f"(limit {LOOP_TOL}), densify {loop['densify']}, capacity "
+          f"{loop['capacity']}; launches {dict(launches_c)}")
+    if max(r["small_grad_err"] for r in ranks) > SHARDED_GRAD_TOL or abs(
+            r0["small_loss"][0] - r0["small_loss"][1]) > 1e-5 * abs(
+            r0["small_loss"][1]):
+        raise AssertionError("the kernel path and dense disagree under the "
+                             "sharded step")
+    if not (delta < LOOP_TOL and sum(d[1][0] for d in loop["densify"]) > 0
+            and loop["capacity"][0] == 2 * r0["small_capacity"]):
+        raise AssertionError("the sharded loop left the single-device "
+                             "trajectory")
+    print(f"  phase 18 wall {time.perf_counter() - t_phase:.1f} s (ranks "
+          f"{spawn_s:.1f} s)")
+    total = collections.Counter(launches_a)
+    total.update(launches_b)
+    total.update(launches_c)
+    return dict(total)
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -1761,10 +2195,15 @@ def main() -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--frames", type=int, default=8)
     ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--sharded-rank", metavar="DIR",
+                    help="run as one rank of phase 18's mesh (set by the "
+                    "phase itself)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card", file=sys.stderr)
         return 1
+    if args.sharded_rank:
+        return sharded_rank(args.sharded_rank)
     dev = torch.device("cuda")
 
     # 1. the card
@@ -1845,14 +2284,19 @@ def main() -> int:
         # checked for popping through the CLIs
         eval_launches = eval_phase(args, dev, smi, scene_dir, model_dir)
 
+    # 18. the sharded step: a 1x1 mesh over NCCL, four ranks on the card
+    sharded_launches = sharded_phase(params, state, cfg, args, dev, smi)
+
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
               + train_launches.get(KERNEL, 0)
               + disk_launches.get(KERNEL, 0)
               + train_disk_launches.get(KERNEL, 0)
-              + eval_launches.get(KERNEL, 0), fwd),
+              + eval_launches.get(KERNEL, 0)
+              + sharded_launches.get(KERNEL, 0), fwd),
         entry(BWD_KERNEL, train_launches.get(BWD_KERNEL, 0)
-              + train_disk_launches.get(BWD_KERNEL, 0), bwd),
+              + train_disk_launches.get(BWD_KERNEL, 0)
+              + sharded_launches.get(BWD_KERNEL, 0), bwd),
         entry(KERNEL16, fwd3["launches"].get(KERNEL16, 0)
               + train3_launches.get(KERNEL16, 0)
               + disk_launches.get(KERNEL16, 0)

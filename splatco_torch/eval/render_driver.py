@@ -75,12 +75,14 @@ def load_trained(cfg: ModelConfig, iteration: int = -1, device=None,
 def render_set(model_path: str, name: str, iteration: int,
                cameras: List[Camera], params, active: torch.Tensor,
                contractor: Contractor, activate_level: int,
-               cfg: ModelConfig, tile16: Optional[bool] = None) -> float:
+               cfg: ModelConfig, tile16: Optional[bool] = None,
+               backend: str = "cuda") -> float:
     """Render `cameras` into <model_path>/<name>/ours_<iteration>/renders
     (and gt/ where a camera has an image); returns frames per second,
     timed with CUDA events on the card and the host clock on the CPU.
     `tile16` picks the rasterizer configuration (ops/rasterize.py; None:
-    the SPLATCO_RASTER switch)."""
+    the SPLATCO_RASTER switch); `backend="dense"` renders with the dense
+    compositor instead of the tile kernels."""
     out_dir = os.path.join(model_path, name, f"ours_{iteration}")
     render_dir = os.path.join(out_dir, "renders")
     gt_dir = os.path.join(out_dir, "gt")
@@ -95,7 +97,7 @@ def render_set(model_path: str, name: str, iteration: int,
         vis = prefilter_voxel(params["anchors"], active, cam)
         return render(params, active, contractor, cam, bg, visible_mask=vis,
                       activate_level=activate_level, kmax=cfg.kmax,
-                      tile16=tile16, **dkw).image
+                      tile16=tile16, backend=backend, **dkw).image
 
     on_card = dev.type == "cuda"
     images = []
@@ -135,11 +137,12 @@ def render_set(model_path: str, name: str, iteration: int,
 
 def render_sets(cfg: ModelConfig, iteration: int = -1,
                 skip_train: bool = False, skip_test: bool = False,
-                device=None):
+                device=None, backend: str = "cuda"):
     """Render the scene at `cfg.source_path` (train and test views, not
     shuffled) from the model at `cfg.model_path` on `device` (None: the
-    card) in the rasterizer configuration SPLATCO_RASTER selects, and
-    write num_gaussians.json.  Returns ({set: fps}, anchors)."""
+    card) in the rasterizer configuration SPLATCO_RASTER selects (or with
+    the dense compositor, `backend="dense"`), and write
+    num_gaussians.json.  Returns ({set: fps}, anchors)."""
     scene = Scene(cfg, shuffle=False, write_artifacts=False, device=device)
     params, active, contractor, lvl, it = load_trained(
         cfg, iteration, device=scene.device, scene=scene)
@@ -148,11 +151,11 @@ def render_sets(cfg: ModelConfig, iteration: int = -1,
     if not skip_train:
         fps["train"] = render_set(cfg.model_path, "train", it,
                                   scene.train_cameras(), params, active,
-                                  contractor, lvl, cfg)
+                                  contractor, lvl, cfg, backend=backend)
     if not skip_test:
         fps["test"] = render_set(cfg.model_path, "test", it,
                                  scene.test_cameras(), params, active,
-                                 contractor, lvl, cfg)
+                                 contractor, lvl, cfg, backend=backend)
     with open(os.path.join(cfg.model_path, "num_gaussians.json"),
               "w") as fh:
         json.dump({os.path.basename(os.path.normpath(cfg.model_path)):

@@ -15,6 +15,8 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
+from splatco_torch.parallel.collectives import all_reduce_sum
+
 Linear = Dict[str, torch.Tensor]
 
 
@@ -40,12 +42,21 @@ def init_batchnorm(dim: int) -> Dict[str, torch.Tensor]:
 
 
 def masked_batchnorm(params, x: torch.Tensor, mask: torch.Tensor,
-                     eps: float = 1e-5) -> torch.Tensor:
-    """Train-mode BN over the masked rows of x [N, D]; mask [N] bool."""
+                     eps: float = 1e-5, group=None) -> torch.Tensor:
+    """Train-mode BN over the masked rows of x [N, D]; mask [N] bool.
+
+    With `group` (parallel/collectives.Group), x is one shard of the rows:
+    the count and the two sums are summed over the group before the mean
+    and variance, and their gradients flow back through that sum."""
     m = mask.to(x.dtype)[:, None]
-    cnt = torch.clamp_min(m.sum(), 1.0)
+    cnt = m.sum()
     s1 = (x * m).sum(dim=0)
     s2 = ((x * x) * m).sum(dim=0)
+    if group is not None:
+        d = s1.shape[0]
+        sums = all_reduce_sum(torch.cat([cnt[None], s1, s2]), group)
+        cnt, s1, s2 = sums[0], sums[1:1 + d], sums[1 + d:]
+    cnt = torch.clamp_min(cnt, 1.0)
     mean = s1 / cnt
     var = torch.clamp_min(s2 / cnt - mean * mean, 0.0)
     y = (x - mean) * torch.rsqrt(var + eps)

@@ -1,5 +1,7 @@
 """Neural-gaussian decode + render (counterpart of
-splatco_tpu/models/renderer.py with the `backend="pallas"` path).
+splatco_tpu/models/renderer.py).  `backend="cuda"` blends through the
+binned tile kernels (ops/rasterize.py), `backend="dense"` through the
+O(N*H*W) compositor (ops/rasterize_reference.py).
 
 As in the JAX package, every anchor stays in its padded [C, ...] slot and
 masking works by zeroing opacity: the binner emits no pairs for radius 0,
@@ -25,7 +27,13 @@ from splatco_torch.models.triplane import (feature_planes_forward,
 from splatco_torch.ops.projection import (project_gaussians_cols,
                                           visible_filter)
 from splatco_torch.ops.rasterize import rasterize
+from splatco_torch.ops.rasterize_reference import rasterize_dense
 from splatco_torch.utils.math import normalize
+
+BACKENDS = ("cuda", "dense")
+# the tile the dense backend culls by, the JAX package's (32 px in both
+# rasterizer configurations)
+DENSE_TILE = 32
 
 
 class RenderOutput(NamedTuple):
@@ -87,11 +95,14 @@ def generate_neural_gaussians(
     plane_feats=None,
     q_noise: float = 0.0,
     generator: Optional[torch.Generator] = None,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """Decode anchors -> per-offset gaussians (padded, masked).  Returns
     xyz [C*K,3], color, opacity (masked), scaling, rot, neural_opacity,
     mask.  q_noise > 0 with a generator adds the tri-plane quantization
-    noise (training)."""
+    noise (training).  `group` (parallel/collectives.Group), when the
+    anchors are one shard of a gauss axis, sums the fusion heads'
+    BatchNorm statistics over that axis."""
     anchors = params["anchors"]
     anchor = anchors["anchor"]
     feat = anchors["feat"]
@@ -112,7 +123,7 @@ def generate_neural_gaussians(
     geo_fea = feature_planes_forward(
         params["planes"], xyz_norm, g_fea, visible_mask,
         activate_level=activate_level, plane_feats=plane_feats, q=q_noise,
-        generator=generator)
+        generator=generator, group=group)
 
     ob_view = anchor - camera.camera_center
     ob_dist = torch.linalg.vector_norm(ob_view, dim=1, keepdim=True)
@@ -162,6 +173,22 @@ def generate_neural_gaussians(
     }
 
 
+def rasterize_backend(backend: str, proj, colors, opacities, bg,
+                      image_height: int, image_width: int, kmax: int,
+                      tile16: Optional[bool] = None):
+    """(image, aux) of `backend`: the tile kernels' counters, or the dense
+    compositor's (nothing clipped, max_slots kmax, no records)."""
+    if backend == "dense":
+        image, _ = rasterize_dense(proj, colors, opacities, bg,
+                                   image_height, image_width,
+                                   tile_size=DENSE_TILE)
+        zero = torch.zeros((), dtype=torch.int64, device=image.device)
+        return image, {"num_overflow": 0, "max_slots": zero + kmax,
+                       "num_clipped": zero, "num_pairs": None}
+    return rasterize(proj, colors, opacities, bg, image_height, image_width,
+                     kmax=kmax, return_aux=True, tile16=tile16)
+
+
 def render(
     params: Dict[str, Any],
     active: torch.Tensor,
@@ -178,6 +205,7 @@ def render(
     kmax: int = 12,
     plane_feats=None,
     tile16: Optional[bool] = None,
+    backend: str = "cuda",
     **decode_kwargs,
 ) -> RenderOutput:
     """Full render: decode -> EWA projection -> binning -> blend.  In
@@ -185,7 +213,12 @@ def render(
     q_noise noise drawn from `generator`; eval uses q = 0.
     `viewspace_proxy` [C*K, 2], when given, is added to the projected
     means (see the module docstring).  `tile16` picks the rasterizer
-    configuration (ops/rasterize.py; None: the SPLATCO_RASTER switch)."""
+    configuration (ops/rasterize.py; None: the SPLATCO_RASTER switch).
+    `backend="dense"` blends with the dense compositor instead (culled by
+    32 px tile rects, never clipped): its num_clipped is 0 and its
+    max_slots kmax, as in the JAX package."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     if visible_mask is None:
         visible_mask = active
     g = generate_neural_gaussians(
@@ -201,9 +234,9 @@ def render(
         mx = mx + viewspace_proxy[:, 0]
         my = my + viewspace_proxy[:, 1]
     proj = proj._replace(mx=mx, my=my, radius=radius)
-    image, aux = rasterize(proj, g["color"], g["opacity"], bg,
-                           camera.image_height, camera.image_width,
-                           kmax=kmax, return_aux=True, tile16=tile16)
+    image, aux = rasterize_backend(
+        backend, proj, g["color"], g["opacity"], bg, camera.image_height,
+        camera.image_width, kmax, tile16)
     radii = radius.to(torch.int32)
     return RenderOutput(
         image=image,

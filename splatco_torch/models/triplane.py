@@ -193,8 +193,8 @@ def feature_planes_forward(params, xyz_norm: torch.Tensor,
                            g_fea, mask: torch.Tensor,
                            activate_level: int = 0, plane_feats=None,
                            q: float = 0.0,
-                           generator: Optional[torch.Generator] = None
-                           ) -> torch.Tensor:
+                           generator: Optional[torch.Generator] = None,
+                           group=None) -> torch.Tensor:
     """geo_fea [N, 2*out_dim] = hierarchical compensation sum.
 
     xyz_norm: [N,3] contracted coords in (-2,2); g_fea: the local-context
@@ -204,7 +204,9 @@ def feature_planes_forward(params, xyz_norm: torch.Tensor,
     plane_feats: optional precomputed `sample_level_feats` output.  With
     q > 0 and a `generator`, quantization noise is added to the sampled
     features of every level and to level 0's TPA features (fresh draws on
-    every call, so each view of a training step gets its own)."""
+    every call, so each view of a training step gets its own).  `group`
+    (parallel/collectives.Group) sums the BatchNorm statistics over a
+    gauss axis whose ranks hold the other rows."""
     if not isinstance(g_fea, (tuple, list)):
         g_fea = (g_fea,) * len(params["ctx_heads"])
     if plane_feats is None:
@@ -223,10 +225,11 @@ def feature_planes_forward(params, xyz_norm: torch.Tensor,
         else:
             feat = torch.cat(feats, dim=-1)
         head = params["heads"][i]
-        rr = linear(head["lin"], masked_batchnorm(head["bn"], feat, mask))
+        rr = linear(head["lin"],
+                    masked_batchnorm(head["bn"], feat, mask, group=group))
         ctx = params["ctx_heads"][i]
-        rrr = linear(ctx["lin"],
-                     masked_batchnorm(ctx["bn"], g_fea[i], mask))
+        rrr = linear(ctx["lin"], masked_batchnorm(ctx["bn"], g_fea[i], mask,
+                                                  group=group))
         res = torch.cat([rr, rrr], dim=-1)
         total = res if total is None else total + res
     return total

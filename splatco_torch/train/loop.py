@@ -113,6 +113,8 @@ class Trainer:
     # mirror the TensorBoard scalars to wandb, where installed
     use_wandb: bool = False
     device: Any = None          # None: the card
+    # "cuda": the tile kernels; "dense": the dense compositor
+    backend: str = "cuda"
 
     def setup(self, scene: Scene, seed: int = 0):
         self.dev = resolve_device(self.device)
@@ -182,7 +184,7 @@ class Trainer:
         if self.activate_level not in self._step_cache:
             self._step_cache[self.activate_level] = make_train_step(
                 self.cfg, self.opt, self.pipe.mv, self.activate_level,
-                self.tx, device=self.dev)
+                self.tx, device=self.dev, backend=self.backend)
         return self._step_cache[self.activate_level]
 
     def _pair_gates(self, cams, gts) -> torch.Tensor:
@@ -629,7 +631,7 @@ class Trainer:
                     self.params, self.mstate.active,
                     self.mstate.contractor, cam, bg, visible_mask=vis,
                     activate_level=self.activate_level, is_training=False,
-                    kmax=self.cfg.kmax, **dkw)
+                    kmax=self.cfg.kmax, backend=self.backend, **dkw)
                 img = torch.clamp(out.image, 0.0, 1.0)
                 gt = torch.clamp(cam.image, 0.0, 1.0)
                 dev_metrics.append(_eval_view_metrics(img, gt))

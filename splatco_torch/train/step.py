@@ -1,5 +1,5 @@
 """SVC training step: multi-view render, one aggregated backward
-(counterpart of splatco_tpu/train/step.py with `backend="pallas"`).
+(counterpart of splatco_tpu/train/step.py).
 
 The step renders mv views, sums the per-view losses
     (1 - lambda) * L1 + lambda * (1 - SSIM) + 0.01 * mean(prod(scaling))
@@ -55,11 +55,13 @@ def init_stats(capacity: int, n_offsets: int, device=None) -> TrainStats:
 def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
                     activate_level: int, tx: Optimizer,
                     q_noise: float = 0.03, device=None,
-                    tile16: Optional[bool] = None) -> Callable:
+                    tile16: Optional[bool] = None,
+                    backend: str = "cuda") -> Callable:
     """The SVC step for a fixed activate_level and mv, with the optimizer
     `tx` (train/optimizer.make_optimizer), running on `device` (default
     the card).  `tile16` picks the rasterizer configuration
-    (ops/rasterize.py; None: the SPLATCO_RASTER switch).
+    (ops/rasterize.py; None: the SPLATCO_RASTER switch); `backend="dense"`
+    renders with the dense compositor instead of the tile kernels.
 
     step(params, opt_state, active, contractor, stats, cameras, gts, bg,
          generator, iteration, consistency_on, tv_w, stats_on,
@@ -110,7 +112,8 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
                     viewspace_proxy=proxy if i == mv - 1 else None,
                     activate_level=activate_level, is_training=True,
                     q_noise=q_noise, generator=generator, kmax=cfg.kmax,
-                    plane_feats=plane_feats, tile16=tile16, **dkw)
+                    plane_feats=plane_feats, tile16=tile16,
+                    backend=backend, **dkw)
             with phase("losses"):
                 max_slots = torch.maximum(max_slots, out.max_slots)
                 num_clipped = num_clipped + out.num_clipped

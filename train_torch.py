@@ -1,6 +1,6 @@
 #!/usr/bin/env python
 """Training CLI of the PyTorch/CUDA port (train.py's arguments, without
---backend, --gui and --profile).
+--gui and --profile; --backend is cuda, the tile kernels, or dense).
 
     python3 train_torch.py -s <scene> -m out/run --mv 4 --num_channels 15 \
         --plane_size 2800 --no_downsample --contractor --bbox_scale 0.3 \
@@ -11,7 +11,10 @@ configuration follows SPLATCO_RASTER (v3: 16 px tiles).  The scene's
 camera lists are shuffled with a Random seeded by --seed, so a run and
 its resumption (--start_checkpoint <model>/chkpnt<N>, a bare N, or
 "latest") see the cameras in the same order.  A saved model renders with
-render_torch.py, and loads in the JAX package too."""
+render_torch.py, and loads in the JAX package too.  With the
+SPLATCO_COORDINATOR / SPLATCO_NUM_PROCESSES / SPLATCO_PROCESS_ID variables
+set, each process first joins the process group
+(splatco_torch/parallel/distributed.py) and takes its own card."""
 import argparse
 import random
 
@@ -21,6 +24,7 @@ from splatco_torch.config import (ModelConfig, OptimizationConfig,
                                   PipelineConfig, add_dataclass_args,
                                   extract_dataclass)
 from splatco_torch.data.scene import Scene
+from splatco_torch.parallel.distributed import init_distributed
 from splatco_torch.train.loop import Trainer, get_logger
 
 
@@ -54,6 +58,8 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", type=str, default="cuda",
                         choices=["cuda", "cpu"])
+    parser.add_argument("--backend", type=str, default="cuda",
+                        choices=["cuda", "dense"])
     parser.add_argument("--determinism_check", action="store_true",
                         help="run the step twice periodically and require "
                         "bit-identical results")
@@ -61,6 +67,9 @@ def main(argv=None) -> Trainer:
     parser.add_argument("--wandb", action="store_true",
                         help="mirror TB scalars to wandb (if installed)")
     args = parser.parse_args(argv)
+
+    # the multi-process runtime, when the SPLATCO_* variables ask for it
+    init_distributed(device=args.device)
 
     if args.detect_anomaly:
         torch.autograd.set_detect_anomaly(True)
@@ -88,7 +97,7 @@ def main(argv=None) -> Trainer:
         no_regularization=args.no_regularization,
         determinism_check=args.determinism_check,
         determinism_every=args.determinism_every,
-        use_wandb=args.wandb, device=args.device)
+        use_wandb=args.wandb, device=args.device, backend=args.backend)
     trainer.setup(scene, seed=args.seed)
     if args.start_checkpoint:
         trainer.restore(iteration=checkpoint_iteration(
