@@ -117,20 +117,26 @@ Run from the repository root.  Phases, each of which fails loudly:
      make_train_step(mv=1) from the same state (loss, first moments and
      every param element within the limits stated at SHARDED_ONE_*), both
      timed.  18b: four ranks of this script (--sharded-rank, started by
-     parallel/launch.py) share the card over gloo on CUDA tensors as a
-     2x2 mesh, the same model at full width (orbit views 0-1, strips of
-     544 px): which collectives gloo takes on CUDA tensors; a first step
-     held to the single-device mv = 2 step (num_clipped per strip
-     printed), two timed steps (ms/step per rank: four processes on one
-     card, not a multi-card figure), one step with the collectives traced
-     (ms and bytes per collective), then two steps from one state; the
+     torchrun) share the card over gloo on CUDA tensors as a 2x2 mesh,
+     the same model with its offsets untied (parallel/dryrun.untie_
+     offsets) at full width (orbit views 0-1, strips of 544 px): which
+     collectives gloo takes on CUDA tensors; a first step held to the
+     single-device mv = 2 step (num_clipped per strip printed), two
+     timed steps (ms/step per rank: four processes on one card, not a
+     multi-card figure), one step with the collectives traced (ms and
+     bytes per collective), then two steps from one state; the
      replicated params must be bit-identical on the four ranks after
      every step and the repeated step bit for bit on every rank, and each
-     rank launches each blend kernel once a step.  18c: the same ranks at
-     64x64 on tests/test_parallel.py's model size: the kernel path's
-     gradients against dense under the sharded step, and the sharded
-     loop (24 steps, two densify calls, a capacity regrowth, a level
-     bump) against the single-device trajectory rank 0 runs beside it.
+     rank launches each blend kernel once a step; then one step from the
+     same state in 16 px tiles (SPLATCO_RASTER=v3's configuration, kmax
+     32), held the same way to the single-device v3 step.  18c: the same
+     ranks at 64x64 on tests/test_parallel.py's model size: the kernel
+     path's gradients against dense under the sharded step, in 16 px
+     tiles the sharded step's gradients against the single-device step's
+     (offsets untied; tied printed), and the sharded loop (24 steps, two
+     densify calls, a capacity regrowth, a level bump) against the
+     single-device trajectory rank 0 runs beside it; only the sharded
+     steps' launches count.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all nine kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -147,6 +153,8 @@ import json
 import math
 import os
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
@@ -185,8 +193,8 @@ from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
                                               raster_bwd, raster_bwd_plain,
                                               raster_fwd, raster_fwd_plain)
 from splatco_torch.parallel import collectives, distributed
-from splatco_torch.parallel.dryrun import sharded_loop, step_gradients
-from splatco_torch.parallel.launch import free_port, launch
+from splatco_torch.parallel.dryrun import (sharded_loop, single_gradients,
+                                           step_gradients, untie_offsets)
 from splatco_torch.parallel.mesh import STAT_FIELDS, shard_params
 from splatco_torch.parallel.train_step import make_sharded_train_step
 from splatco_torch.train import loop as train_loop
@@ -278,18 +286,26 @@ RAFT_CROP, RAFT_CHECK_ITERS, RAFT_TOL = (400, 544), 2, 2e-3
 SHARDED_ONE_ITERS = 3
 SHARDED_ONE_LOSS_TOL, SHARDED_ONE_MU_TOL = 1e-5, 1e-5
 # phase 18b: 2 views x 2 strips (544 px) in four ranks on the card: one
-# step, SHARDED_TIMED timed, one traced, two from one state.  The first
-# loss against the single-device mv = 2 step: 1e-5 relative where nothing
-# clips (the same records, summed in other orders); where a strip or view
-# clips, each strip clips its own rects around centres in its own frame,
-# so 5e-3, the loop's limit
+# step, SHARDED_TIMED timed, one traced, two from one state, and one in
+# 16 px tiles.  The first loss against the single-device mv = 2 step:
+# 1e-5 relative where nothing clips (the same records, summed in other
+# orders: the offsets are untied, so no two of a tile's records share a
+# depth, whose order would follow each gaussian's slot rank in its
+# frame); where a strip or view clips, each strip clips its own rects
+# around centres in its own frame, so 5e-3, the loop's limit
 SHARDED_MESH, SHARDED_TIMED, SHARDED_RANK_TIMEOUT = (2, 2), 2, 600
 SHARDED_LOSS_TOL, SHARDED_LOSS_TOL_CLIPPED = 1e-5, 5e-3
 # phase 18c, at this size: the kernel path's gradients against dense under
 # the sharded step, max-normalised per leaf to 5e-4 (the JAX kernel
-# backward's bound against the dense oracle); the sharded loop's losses
-# to 5e-3 of the single-device trajectory (dryrun_multichip's limit)
+# backward's bound against the dense oracle); in 16 px tiles, with the
+# offsets untied, the sharded step's gradients against the single-device
+# step's to 1e-5 of each leaf's max (the same kernels on the same
+# records; the slot sums reorder as a strip's clamped rects move each
+# gaussian's slots; 1e-5 is the backward kernel's own limit against its
+# plain version) and its loss to 1e-5; the sharded loop's losses to 5e-3
+# of the single-device trajectory (dryrun_multichip's limit)
 SMALL_SHARDED, SHARDED_GRAD_TOL, LOOP_TOL = (64, 64), 5e-4, 5e-3
+SHARDED16_GRAD_TOL = 1e-5
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -1818,6 +1834,48 @@ def lr_of_leaves(opt, extent: float, params, opt_state, level: int = 0):
             for key, lbl in labels.items()}
 
 
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(argv, n: int, env, timeout: float):
+    """`python argv` as n ranks under torchrun (torch.distributed.run
+    --standalone), in a session of their own: (exit code, output).  When
+    one rank fails torchrun stops the others; when the time runs out the
+    session is killed, the ranks with it."""
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n}", *argv], env=env, text=True,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, _ = proc.communicate()
+    return proc.returncode, out
+
+
+def launches_of(fn, *args, **kwargs):
+    """(fn's result, the kernel launches it made)."""
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    out = fn(*args, **kwargs)
+    return out, dict(cuda_lib.LAUNCHES - before)
+
+
+def grad_err(got, want) -> float:
+    """The largest per-leaf error of gradient tree `got` against `want`,
+    each leaf's relative to its max (absolute where the max is 0)."""
+    worst, got = 0.0, flat(got)
+    for key, w in flat(want).items():
+        scale = float(w.abs().max())
+        err = float((got[key] - w).abs().max())
+        worst = max(worst, err / scale if scale > 0 else err)
+    return worst
+
+
 def one_rank_phase(params, state, cfg, args, dev):
     """Phase 18a: a 1x1 mesh over NCCL (world size 1) in this process, at
     full width: one sharded step against make_train_step(mv=1, q = 0)
@@ -1942,10 +2000,10 @@ def gloo_cuda_ops(dev) -> dict:
 
 
 def sharded_rank(out_dir: str) -> int:
-    """One rank of phases 18b-c (run by sharded_phase through
-    parallel/launch.py, with the SPLATCO_* variables and gloo)."""
+    """One rank of phases 18b-c (run by sharded_phase under torchrun,
+    with SPLATCO_BACKEND=gloo)."""
     if not distributed.init_distributed():
-        raise RuntimeError("a sharded rank needs the SPLATCO_* variables")
+        raise RuntimeError("a sharded rank needs torchrun's variables")
     dev = torch.device("cuda")
     rank = torch.distributed.get_rank()
     mesh = distributed.make_multihost_mesh(*SHARDED_MESH)
@@ -1959,6 +2017,7 @@ def sharded_rank(out_dir: str) -> int:
         np.float32) * 1.2
     params, state = init_model(cfg, pts, device=dev,
                                generator=torch.Generator().manual_seed(seed))
+    params = untie_offsets(params, seed)
     cams = orbit_cameras(MV, dev)[:SHARDED_MESH[0]]
     gts = smooth_targets(SHARDED_MESH[0], seed, dev)
     opt = OptimizationConfig()
@@ -1969,7 +2028,7 @@ def sharded_rank(out_dir: str) -> int:
                    device=dev))
     del params
     step = make_sharded_train_step(cfg, opt, mesh, tx, backend="cuda",
-                                   q_noise=0.0)
+                                   q_noise=0.0, device=dev)
     cam, gt = cams[mesh.view], gts[mesh.view]
 
     def run(carry):
@@ -2018,6 +2077,20 @@ def sharded_rank(out_dir: str) -> int:
     torch.cuda.synchronize()
     res["launches_b"] = dict(cuda_lib.LAUNCHES)
     res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+
+    # 18b in 16 px tiles (SPLATCO_RASTER=v3's configuration, read at call
+    # time): one step from the same state on the same strips
+    tile16_default = rasterize_ops.TILE16_DEFAULT
+    rasterize_ops.TILE16_DEFAULT = True
+    step16 = make_sharded_train_step(
+        dataclasses.replace(cfg, kmax=KMAX_V3), opt, mesh, tx,
+        backend="cuda", q_noise=0.0, device=dev)
+    out, res["launches_b16"] = launches_of(
+        step16, p, o, a, state.contractor, st, cam, gt, 0, *TERMS.values())
+    res["loss16"] = float(out[3]["loss"])
+    res["clipped_strips16"] = out[3]["num_clipped_strips"].tolist()
+    res["digests16"] = digests(out[:3])
+    rasterize_ops.TILE16_DEFAULT = tile16_default
     del p, o, st, carry, out, a, state
     torch.cuda.empty_cache()
 
@@ -2025,26 +2098,40 @@ def sharded_rank(out_dir: str) -> int:
     # step, then the sharded loop against the single-device trajectory
     cfg, params, state, cams, gts = small_model(seed, dev)
     res["small_capacity"] = params["anchors"]["anchor"].shape[0]
+    launches_c = collections.Counter()
     grads = {}
     for backend in ("cuda", "dense"):
-        g, stats, metrics = step_gradients(
-            mesh, cfg, params, state.active, state.contractor,
-            cams[mesh.view], gts[mesh.view], backend, dev)
-        grads[backend] = (flat(g), stats, float(metrics["loss"]))
-    worst = 0.0
-    for key, want in grads["dense"][0].items():
-        scale = float(want.abs().max())
-        err = float((grads["cuda"][0][key] - want).abs().max())
-        worst = max(worst, err / scale if scale > 0 else err)
-    res["small_grad_err"] = worst
+        (g, stats, metrics), n = launches_of(
+            step_gradients, mesh, cfg, params, state.active,
+            state.contractor, cams[mesh.view], gts[mesh.view], backend, dev)
+        launches_c.update(n)
+        grads[backend] = (g, stats, float(metrics["loss"]))
+    res["small_grad_err"] = grad_err(grads["cuda"][0], grads["dense"][0])
     res["small_loss"] = [grads["cuda"][2], grads["dense"][2]]
     res["small_demon"] = [float(grads[b][1].anchor_demon.sum())
                           for b in ("cuda", "dense")]
-    cuda_lib.LAUNCHES.clear()
+    # in 16 px tiles: the sharded step's gradients against the
+    # single-device step's (mv = 2), offsets untied and as initialised
+    rasterize_ops.TILE16_DEFAULT = True
+    cfg16 = dataclasses.replace(cfg, kmax=KMAX_V3)
+    for name, prm in (("untied", untie_offsets(params, seed)),
+                      ("tied", params)):
+        (g, _, m), n = launches_of(
+            step_gradients, mesh, cfg16, prm, state.active,
+            state.contractor, cams[mesh.view], gts[mesh.view], "cuda", dev)
+        launches_c.update(n)
+        g_sd, _, m_sd = single_gradients(cfg16, prm, state.active,
+                                         state.contractor, cams, gts,
+                                         "cuda", dev)
+        res[f"small16_{name}"] = {
+            "grad_err": grad_err(g, g_sd),
+            "loss": [float(m["loss"]), float(m_sd["loss"])],
+            "clipped": [int(m["num_clipped"]), int(m_sd["num_clipped"])]}
+    rasterize_ops.TILE16_DEFAULT = tile16_default
     res["loop"] = sharded_loop(mesh, cfg, params, state.active,
                                state.contractor, cams, gts, "cuda", dev)
-    torch.cuda.synchronize()
-    res["launches_c"] = dict(cuda_lib.LAUNCHES)
+    launches_c.update(res["loop"]["launches_sharded"])
+    res["launches_c"] = dict(launches_c)
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
         json.dump(res, fh)
     torch.distributed.destroy_process_group()
@@ -2059,36 +2146,42 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
     t_phase = time.perf_counter()
     launches_a, _ = one_rank_phase(params, state, cfg, args, dev)
 
-    # the single-device step the 2x2 mesh's first step is held to: mv = 2
-    # (orbit views 0 and 1), q = 0, from the same initial state
+    # the single-device steps the 2x2 mesh's first steps are held to:
+    # mv = 2 (orbit views 0 and 1), q = 0, from the same initial state
+    # (the offsets untied, as in the ranks), in 32 px and in 16 px tiles
     cams = orbit_cameras(MV, dev)[:SHARDED_MESH[0]]
     gts = smooth_targets(SHARDED_MESH[0], args.seed, dev)
     opt = OptimizationConfig()
-    tx = make_optimizer(opt, params, camera_extent(cams), 0, device=dev)
-    single = make_train_step(cfg, opt, SHARDED_MESH[0], 0, tx, q_noise=0.0,
-                             device=dev)
-    want = single(params, tx.init(params), state.active, state.contractor,
-                  init_stats(params["anchors"]["anchor"].shape[0],
-                             cfg.n_offsets, device=dev),
-                  cams, gts, torch.zeros(3, device=dev), None, 0,
-                  *TERMS.values())[3]
-    want_loss, want_clipped = float(want["loss"]), int(want["num_clipped"])
-    del want, single, tx
+    untied = untie_offsets(params, args.seed)
+    tx = make_optimizer(opt, untied, camera_extent(cams), 0, device=dev)
+    want = {}
+    for tile16, c in ((False, cfg), (True, dataclasses.replace(
+            cfg, kmax=KMAX_V3))):
+        single = make_train_step(c, opt, SHARDED_MESH[0], 0, tx,
+                                 q_noise=0.0, device=dev, tile16=tile16)
+        m = single(untied, tx.init(untied), state.active, state.contractor,
+                   init_stats(params["anchors"]["anchor"].shape[0],
+                              cfg.n_offsets, device=dev),
+                   cams, gts, torch.zeros(3, device=dev), None, 0,
+                   *TERMS.values())[3]
+        want[tile16] = (float(m["loss"]), int(m["num_clipped"]))
+    del m, single, tx, untied
     torch.cuda.empty_cache()
 
     n = SHARDED_MESH[0] * SHARDED_MESH[1]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("SPLATCO_COORDINATOR", "SPLATCO_NUM_PROCESSES",
+                        "SPLATCO_PROCESS_ID")}
+    env.update(SPLATCO_BACKEND="gloo", CHIP_SMOKE_SEED=str(args.seed))
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        results = launch([os.path.abspath(__file__), "--sharded-rank", tmp],
-                         n, backend="gloo",
-                         env=dict(os.environ,
-                                  CHIP_SMOKE_SEED=str(args.seed)),
-                         timeout=SHARDED_RANK_TIMEOUT)
+        code, text = run_ranks(
+            [os.path.abspath(__file__), "--sharded-rank", tmp], n, env,
+            SHARDED_RANK_TIMEOUT)
         spawn_s = time.perf_counter() - t0
-        for rank, (code, text) in enumerate(results):
-            if code != 0:
-                raise AssertionError(f"sharded rank {rank} exited {code}:\n"
-                                     f"{text[-3000:]}")
+        if code != 0:
+            raise AssertionError(f"the sharded ranks exited {code}:\n"
+                                 f"{text[-6000:]}")
         ranks = []
         for rank in range(n):
             with open(os.path.join(tmp, f"rank{rank}.json")) as fh:
@@ -2099,10 +2192,16 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
           f"{json.dumps(r0['gloo_cuda'])}")
     ms = [r["ms"] for r in ranks]
     wall = [r["wall_ms"] for r in ranks]
+    (want_loss, want_clipped), (want16, want16_clipped) = (want[False],
+                                                           want[True])
     rel = abs(r0["loss0"] - want_loss) / abs(want_loss)
     clipped = r0["clipped_strips"]
     loss_tol = (SHARDED_LOSS_TOL if sum(clipped) + want_clipped == 0
                 else SHARDED_LOSS_TOL_CLIPPED)
+    rel16 = abs(r0["loss16"] - want16) / abs(want16)
+    clipped16 = r0["clipped_strips16"]
+    loss16_tol = (SHARDED_LOSS_TOL if sum(clipped16) + want16_clipped == 0
+                  else SHARDED_LOSS_TOL_CLIPPED)
     print(f"18b. 2x2 mesh, 4 ranks sharing one card ({card}) over gloo, "
           f"{WIDTH}x{HEIGHT} views in {SHARDED_MESH[1]} strips of "
           f"{HEIGHT // SHARDED_MESH[1]} px: first step loss "
@@ -2137,14 +2236,27 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
         launches_c.update(r["launches_c"])
     print(f"18b. launches over the 4 ranks ({steps_b} steps each): "
           f"{dict(launches_b)}")
-    if not (same and same_across and repeat):
+    launches_b16 = collections.Counter()
+    for r in ranks:
+        launches_b16.update(r["launches_b16"])
+    same16 = len({d for r in ranks for d in r["digests16"]}) == 1
+    print(f"18b. 16 px tiles (kmax {KMAX_V3}), one step from the same "
+          f"state: loss {r0['loss16']:.8f} vs {want16:.8f} single-device "
+          f"mv=2, rel {rel16:.3e} (limit {loss16_tol}); num_clipped per "
+          f"strip {clipped16} (single-device {want16_clipped}); replicated "
+          f"params bit-identical on the 4 ranks: {same16}; launches "
+          f"{dict(launches_b16)}")
+    if not (same and same_across and repeat and same16):
         raise AssertionError("the sharded step is not deterministic")
-    if rel > loss_tol:
+    if rel > loss_tol or rel16 > loss16_tol:
         raise AssertionError("the 2x2 sharded step's loss disagrees with "
                              "the single-device step")
     if dict(launches_b) != {k: n * steps_b for k in kernels}:
         raise AssertionError(f"each rank must launch each of {kernels} "
                              f"once a step")
+    if dict(launches_b16) != {KERNEL16: n, BWD_KERNEL16: n}:
+        raise AssertionError("each rank must launch each 16 px kernel once "
+                             "in its 16 px step")
 
     loop = r0["loop"]
     sh, sd = np.asarray(loop["losses_sharded"]), np.asarray(
@@ -2156,12 +2268,33 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
           f"{SHARDED_GRAD_TOL}), loss {r0['small_loss']}; sharded loop "
           f"(cuda) {len(sh)} steps vs single-device: max rel {delta:.3e} "
           f"(limit {LOOP_TOL}), densify {loop['densify']}, capacity "
-          f"{loop['capacity']}; launches {dict(launches_c)}")
+          f"{loop['capacity']}")
+    for name in ("untied", "tied"):
+        print(f"18c. 16 px tiles, offsets {name}: sharded vs single-device "
+              f"mv=2 gradients max-normalised "
+              f"{max(r[f'small16_{name}']['grad_err'] for r in ranks):.3e}"
+              + (f" (limit {SHARDED16_GRAD_TOL})" if name == "untied"
+                 else " (not checked: tied depths order by slot rank)")
+              + f", loss {r0[f'small16_{name}']['loss']}, num_clipped "
+              f"{r0[f'small16_{name}']['clipped']}")
+    want_c = {KERNEL: n * (1 + len(sh)), BWD_KERNEL: n * (1 + len(sh)),
+              KERNEL16: 2 * n, BWD_KERNEL16: 2 * n}
+    print(f"18c. launches of the sharded steps over the 4 ranks (rank 0's "
+          f"single-device steps not counted): {dict(launches_c)}")
     if max(r["small_grad_err"] for r in ranks) > SHARDED_GRAD_TOL or abs(
             r0["small_loss"][0] - r0["small_loss"][1]) > 1e-5 * abs(
             r0["small_loss"][1]):
         raise AssertionError("the kernel path and dense disagree under the "
                              "sharded step")
+    for r in ranks:
+        u = r["small16_untied"]
+        if (u["grad_err"] > SHARDED16_GRAD_TOL or any(u["clipped"])
+                or abs(u["loss"][0] - u["loss"][1]) > 1e-5 * abs(
+                    u["loss"][1])):
+            raise AssertionError("in 16 px tiles the sharded step disagrees "
+                                 "with the single-device step")
+    if dict(launches_c) != want_c:
+        raise AssertionError(f"18c's sharded steps must launch {want_c}")
     if not (delta < LOOP_TOL and sum(d[1][0] for d in loop["densify"]) > 0
             and loop["capacity"][0] == 2 * r0["small_capacity"]):
         raise AssertionError("the sharded loop left the single-device "
@@ -2170,6 +2303,7 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
           f"{spawn_s:.1f} s)")
     total = collections.Counter(launches_a)
     total.update(launches_b)
+    total.update(launches_b16)
     total.update(launches_c)
     return dict(total)
 
@@ -2301,9 +2435,11 @@ def main() -> int:
               + train3_launches.get(KERNEL16, 0)
               + disk_launches.get(KERNEL16, 0)
               + train_disk_launches.get(KERNEL16, 0)
-              + eval_launches.get(KERNEL16, 0), fwd3),
+              + eval_launches.get(KERNEL16, 0)
+              + sharded_launches.get(KERNEL16, 0), fwd3),
         entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0)
-              + train_disk_launches.get(BWD_KERNEL16, 0), bwd3),
+              + train_disk_launches.get(BWD_KERNEL16, 0)
+              + sharded_launches.get(BWD_KERNEL16, 0), bwd3),
         *(entry(name, probe_launches[name], nums)
           for name, nums in probe_numbers.items()),
     ]}))

@@ -12,9 +12,17 @@ card cannot (NCCL refuses two ranks on one device) and talk over gloo on
 the CUDA tensors; ranks on the CPU use gloo.  There is no fallback from
 one to another.
 
-Run one process per rank with
+Run one process per rank, either with the JAX package's variables
     SPLATCO_COORDINATOR=host0:29500 SPLATCO_NUM_PROCESSES=N \\
     SPLATCO_PROCESS_ID=i [SPLATCO_BACKEND=gloo] python ...
+or under torch's own launcher, which sets MASTER_ADDR, MASTER_PORT,
+WORLD_SIZE and RANK:
+    [SPLATCO_BACKEND=gloo] torchrun --standalone --nproc_per_node N ...
+
+The JAX package's `local_view_rows`, `make_view_array` and
+`place_host_sharded` have no counterpart: a rank feeds its own view
+(`mesh.view`), and parallel/mesh.shard_params slices a value every rank
+holds.
 """
 from __future__ import annotations
 
@@ -26,12 +34,14 @@ from typing import List, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from splatco_torch.parallel.mesh import Mesh, make_mesh, shard_params
+from splatco_torch.parallel.mesh import Mesh, make_mesh
 from splatco_torch.utils.device import resolve_device
 
 # a rank that dies fails the others' next collective after this long,
 # instead of hanging them
 TIMEOUT_S = 120
+# the variables torchrun (torch.distributed.run) sets for each rank
+TORCHRUN_VARIABLES = ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK")
 
 
 def init_distributed(coordinator: Optional[str] = None,
@@ -41,8 +51,11 @@ def init_distributed(coordinator: Optional[str] = None,
                      timeout_s: float = TIMEOUT_S) -> bool:
     """Join the process group.  The arguments fall back to
     SPLATCO_COORDINATOR (host:port of rank 0), SPLATCO_NUM_PROCESSES,
-    SPLATCO_PROCESS_ID and SPLATCO_BACKEND.  Returns False, and does
-    nothing, when neither a coordinator nor a process count is given.
+    SPLATCO_PROCESS_ID and SPLATCO_BACKEND.  With neither a coordinator
+    nor a process count given, torchrun's MASTER_ADDR, MASTER_PORT,
+    WORLD_SIZE and RANK are used where all four are set (init_method
+    "env://", which also joins torchrun's own store).  Returns False,
+    and does nothing, when neither set of variables is there.
 
     `device` None means the card: rank i takes card i % device_count
     (torch.cuda.set_device, before the group is made), and the backend
@@ -57,18 +70,23 @@ def init_distributed(coordinator: Optional[str] = None,
         process_id = int(pid) if pid is not None else None
     backend = backend or os.environ.get("SPLATCO_BACKEND") or None
     if coordinator is None and num_processes is None:
-        return False
-    if coordinator is None or num_processes is None or process_id is None:
+        if not all(v in os.environ for v in TORCHRUN_VARIABLES):
+            return False
+        init_method = "env://"
+        num_processes = int(os.environ["WORLD_SIZE"])
+        process_id = int(os.environ["RANK"])
+    elif coordinator is None or num_processes is None or process_id is None:
         raise ValueError("init_distributed needs the coordinator, the "
                          "process count and this process's id")
+    else:
+        init_method = f"tcp://{coordinator}"
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(process_id % torch.cuda.device_count())
     backend = backend or ("nccl" if dev.type == "cuda" else "gloo")
     dist.init_process_group(
-        backend, init_method=f"tcp://{coordinator}",
-        world_size=num_processes, rank=process_id,
-        timeout=datetime.timedelta(seconds=timeout_s))
+        backend, init_method=init_method, world_size=num_processes,
+        rank=process_id, timeout=datetime.timedelta(seconds=timeout_s))
     return True
 
 
@@ -97,23 +115,3 @@ def make_multihost_mesh(n_view: int, n_gauss: int) -> Mesh:
     dist.all_gather_object(hosts, socket.gethostname())
     check_rows_on_hosts(hosts, n_view, n_gauss)
     return make_mesh(n_view, n_gauss)
-
-
-def local_view_rows(mesh: Mesh) -> List[int]:
-    """The views this rank feeds: its own view row."""
-    return [mesh.view]
-
-
-def make_view_array(mesh: Mesh, local_rows):
-    """This rank's view from the stack of its local view rows
-    ([len(local_view_rows(mesh)), ...]): a rank feeds one view, so it is
-    the stack's one row, with nothing to assemble across processes."""
-    if len(local_rows) != len(local_view_rows(mesh)):
-        raise ValueError(f"{len(local_rows)} rows for one view")
-    return local_rows[0]
-
-
-def place_host_sharded(mesh: Mesh, params, opt_state, active, stats):
-    """Every rank holds the full value; each keeps its gauss slice of the
-    anchors (parallel/mesh.shard_params)."""
-    return shard_params(mesh, params, opt_state, active, stats)

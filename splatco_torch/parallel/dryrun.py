@@ -16,17 +16,20 @@ sharded state, so the per-step losses compare the step's decomposition,
 not densify's voxel-boundary sensitivity.  Every step runs at q = 0.
 
 `step_gradients` gives one sharded step's whole gradient and metrics, to
-hold one backend against another.
+hold one backend against another, and `single_gradients` the
+single-device step's, to hold the strips against the whole view.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import collections
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 import torch.distributed as dist
 
 from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.models.anchors import grow_capacity, pad_rows
+from splatco_torch.ops import cuda_lib
 from splatco_torch.parallel.mesh import (STAT_FIELDS, Mesh, gather_rows,
                                          shard_params, unshard_params)
 from splatco_torch.parallel.train_step import make_sharded_train_step
@@ -157,19 +160,23 @@ def sharded_loop(mesh: Mesh, cfg: ModelConfig, params, active, contractor,
     """Run the loop (module docstring) on every rank of `mesh` with the
     n_view views `cams` / `gts`.  Returns the sharded trajectory's loss
     per step, rank 0's single-device losses (empty on other ranks), the
-    densify counts (sharded, single) and the capacity after each
-    densify."""
+    densify counts (sharded, single), the capacity after each densify
+    and the kernel launches (cuda_lib.LAUNCHES) of the sharded steps
+    alone."""
     k = cfg.n_offsets
     sh = ShardedTrajectory(mesh, cfg, params, active, backend, device)
     full = sh.full()  # a collective: every rank takes part
     sd: Optional[SingleTrajectory] = (
         SingleTrajectory(cfg, full, backend, device, mesh.n_view)
         if dist.get_rank() == 0 else None)
-    out: Dict[str, list] = {"losses_sharded": [], "losses_single": [],
+    out: Dict[str, Any] = {"losses_sharded": [], "losses_single": [],
                             "densify": [], "capacity": []}
+    launches: collections.Counter = collections.Counter()
     for it in range(1, steps + 1):
-        out["losses_sharded"].append(float(sh.step(
-            contractor, cams[mesh.view], gts[mesh.view])[3]["loss"]))
+        before = collections.Counter(cuda_lib.LAUNCHES)
+        loss = sh.step(contractor, cams[mesh.view], gts[mesh.view])[3]["loss"]
+        launches.update(cuda_lib.LAUNCHES - before)
+        out["losses_sharded"].append(float(loss))
         if sd is not None:
             out["losses_single"].append(float(
                 sd.step(contractor, cams, gts)[3]["loss"]))
@@ -193,30 +200,64 @@ def sharded_loop(mesh: Mesh, cfg: ModelConfig, params, active, contractor,
                 traj.opt_state = tx.init(traj.params)
                 traj.stats = _zero_stats(traj.stats)
                 traj.build(tx)
+    out["launches_sharded"] = dict(launches)
     return out
+
+
+def untie_offsets(params, seed: int):
+    """`params` with the anchors' offsets moved by a seeded normal draw of
+    scale 0.05 (in units of the anchor's scaling).  The k gaussians of an
+    anchor start at one point, at one depth, and the order of equal
+    depths in a tile follows each gaussian's slot rank, which a strip's
+    clamped rect changes; with distinct depths the strips reproduce the
+    whole view's records."""
+    anchors = params["anchors"]
+    off = anchors["offsets"]
+    draw = torch.randn(off.shape, generator=torch.Generator().manual_seed(
+        seed)).to(off.device)
+    return dict(params, anchors=dict(anchors, offsets=off + 0.05 * draw))
+
+
+# an optimizer whose update is the reduced gradient itself, so a step's
+# new params are its gradient.  Adam's first update, about lr * sign(g),
+# would hide the gradient's size and turn a gradient at rounding level
+# into a difference of 2 lr.
+GRADIENT = Optimizer(
+    init=lambda p: {m: tree_map(torch.zeros_like, p) for m in ("mu", "nu")},
+    update=lambda g, state, p: (g, state))
 
 
 def step_gradients(mesh: Mesh, cfg: ModelConfig, params, active, contractor,
                    cam, gt, backend: str, device, terms=TERMS):
-    """One sharded step from `params` (full, replicated on every rank)
-    with an optimizer that subtracts the gradient, so params minus the new
-    params is the step's gradient: returns (the full gradient tree,
-    gathered over gauss, the full statistics, the metrics).  Adam's first
-    update, about lr * sign(g), would hide the gradient's size and turn a
-    gradient at rounding level into a difference of 2 lr."""
-    sgd = Optimizer(
-        init=lambda p: {m: tree_map(torch.zeros_like, p)
-                        for m in ("mu", "nu")},
-        update=lambda g, state, p: (tree_map(torch.sub, p, g), state))
+    """One sharded step's gradient from `params` (full, replicated on
+    every rank): returns (the full gradient tree, gathered over gauss,
+    the full statistics, the metrics)."""
     stats = init_stats(params["anchors"]["anchor"].shape[0], cfg.n_offsets,
                        device=device)
-    p, o, a, st = shard_params(mesh, params, sgd.init(params), active, stats)
-    fn = make_sharded_train_step(cfg, OptimizationConfig(), mesh, sgd,
+    p, o, a, st = shard_params(mesh, params, GRADIENT.init(params), active,
+                               stats)
+    fn = make_sharded_train_step(cfg, OptimizationConfig(), mesh, GRADIENT,
                                  backend=backend, q_noise=0.0, device=device)
-    new_p, _, new_st, metrics = fn(p, o, a, contractor, st, cam, gt, 0,
+    grads, _, new_st, metrics = fn(p, o, a, contractor, st, cam, gt, 0,
                                    *terms)
-    grads = tree_map(torch.sub, p, new_p)
-    grads["anchors"] = tree_map(lambda x: gather_rows(mesh, x),
-                                grads["anchors"])
+    grads = dict(grads, anchors=tree_map(lambda x: gather_rows(mesh, x),
+                                         grads["anchors"]))
     return (grads, TrainStats(**{f: gather_rows(mesh, getattr(new_st, f))
                                  for f in STAT_FIELDS}), metrics)
+
+
+def single_gradients(cfg: ModelConfig, params, active, contractor, cams,
+                     gts, backend: str, device, terms=TERMS):
+    """The single-device step's gradient on the views `cams` / `gts`
+    (mv = len(cams)), from the same state as step_gradients: (gradient
+    tree, statistics, metrics)."""
+    fn = make_train_step(cfg, OptimizationConfig(), len(cams), 0, GRADIENT,
+                         q_noise=0.0, device=device, backend=backend)
+    bg = torch.tensor([1.0, 1.0, 1.0] if cfg.white_background
+                      else [0.0, 0.0, 0.0], device=device)
+    grads, _, stats, metrics = fn(
+        params, GRADIENT.init(params), active, contractor,
+        init_stats(params["anchors"]["anchor"].shape[0], cfg.n_offsets,
+                   device=device), list(cams), list(gts), bg, None, 0,
+        *terms)
+    return grads, stats, metrics

@@ -28,7 +28,7 @@ view row adds, and a sum over view hands every rank the same update.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -86,12 +86,12 @@ def view_seed(seed: int, view: int) -> int:
 def make_sharded_train_step(cfg: ModelConfig, opt: OptimizationConfig,
                             mesh: Mesh, tx: Optimizer,
                             activate_level: int = 0, backend: str = "cuda",
-                            q_noise: float = 0.03, device=None,
-                            tile16: Optional[bool] = None) -> Callable:
+                            q_noise: float = 0.03,
+                            device=None) -> Callable:
     """This rank's SVC step on `mesh` at a fixed activate_level, with the
     optimizer `tx` (built from the params' structure), on `device`
-    (default the card).  `backend` is "cuda" (the tile kernels, `tile16`
-    picking the configuration) or "dense".
+    (default the card).  `backend` is "cuda" (the tile kernels, in the
+    configuration the SPLATCO_RASTER switch picks) or "dense".
 
     step(params, opt_state, active, contractor, stats, cam, gt, seed,
          consistency_on, tv_w, stats_on, view_geom=None)
@@ -168,7 +168,7 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizationConfig,
             my=proj.my + proxy[:, 1] - float(gidx * h_strip),
             radius=radius)
         strip, aux = rasterize_backend(backend, sproj, cols["color"], opacity,
-                                       bg, h_strip, w, cfg.kmax, tile16)
+                                       bg, h_strip, w, cfg.kmax)
         image = all_gather(strip, mesh.gauss_group, dim=1) * mask[None]
 
         npix = 3.0 * th * tw

@@ -4,8 +4,9 @@ over gloo.  Imports torch, numpy and splatco_torch only.
     python tests/_torch_parallel_worker.py <inputs.npz> <out_dir>
         [--explicit]
 
-joins the group from the SPLATCO_* variables (with --explicit, from
-arguments made of them, the variables removed first), and runs the cases
+joins the group from the SPLATCO_* variables, or torchrun's (with
+--explicit, from arguments made of the SPLATCO_* ones, the variables
+removed first), and runs the cases
 of its world size on the model in inputs.npz (the JAX package's initial
 params, the views' ground truths and the model config):
   4 ranks (a 2x2 mesh): `step` one dense sharded step at q = 0 (the
@@ -14,11 +15,15 @@ params, the views' ground truths and the model config):
       batch padded by pad_view_batch; `loop` the sharded training loop
       (densify, capacity regrowth, a level bump) beside the single-device
       trajectory, which rank 0 runs in lockstep,
-  2 ranks (a 1x2 mesh): `cuda` and `dense`, the gradients of one sharded
-      step through the kernel path (its plain versions here) and through
-      the dense compositor; `bn`, masked_batchnorm over the gauss group.
+  2 ranks (a 1x2 mesh): `cuda` and `dense`, the gradients of one
+      sharded step through the kernel path (its plain versions here) and
+      through the dense compositor; `cuda16` and `single16`, the sharded
+      and the single-device step's gradients in the 16 px configuration
+      of the SPLATCO_RASTER switch; `bn`, masked_batchnorm over the gauss
+      group.
 Each rank writes <out_dir>/rank<r>.npz (arrays) and rank<r>.json.
 """
+import dataclasses
 import hashlib
 import json
 import os
@@ -37,13 +42,14 @@ from splatco_torch.data.cameras import look_at_camera  # noqa: E402
 from splatco_torch.models.contraction import Contractor  # noqa: E402
 from splatco_torch.models.mlp import masked_batchnorm  # noqa: E402
 from splatco_torch.models.splatco import params_from_numpy  # noqa: E402
+from splatco_torch.ops import rasterize  # noqa: E402
 from splatco_torch.parallel.distributed import (  # noqa: E402
     init_distributed, make_multihost_mesh)
 from splatco_torch.parallel.dryrun import (  # noqa: E402
-    ShardedTrajectory, sharded_loop, step_gradients)
+    ShardedTrajectory, sharded_loop, single_gradients, step_gradients,
+    untie_offsets)
 from splatco_torch.parallel.mesh import STAT_FIELDS  # noqa: E402
-from splatco_torch.parallel.train_step import (  # noqa: E402
-    make_sharded_train_step, pad_view_batch)
+from splatco_torch.parallel.train_step import pad_view_batch  # noqa: E402
 
 CPU = torch.device("cpu")
 TERMS = (1.0, 4e-7, 1.0)  # consistency_on, tv_w, stats_on
@@ -174,23 +180,42 @@ def loop_case(mesh, data, arrays, res):
 
 
 def backend_case(mesh, data, arrays, res):
-    """The gradients of one sharded step through the kernel path and
-    through the dense compositor, from one state."""
+    """The gradients of one sharded step from one state: through the
+    kernel path (`cuda`) and the dense compositor (`dense`), and in the
+    16 px configuration at kmax 32 through the kernel path (`cuda16`)
+    beside the single-device step's (`single16`), with the offsets
+    untied (parallel/dryrun.untie_offsets)."""
     cfg, params, active, contractor = load_model(data)
     gts = torch.as_tensor(data["gts"])
     h, w = gts.shape[-2:]
-    cam = cameras(mesh.n_view, h, w)[mesh.view]
-    for backend in ("cuda", "dense"):
-        grads, stats, metrics = step_gradients(
-            mesh, cfg, params, active, contractor, cam, gts[mesh.view],
-            backend, CPU, terms=TERMS)
-        res[f"{backend}_loss"] = float(metrics["loss"])
-        res[f"{backend}_l1"] = float(metrics["l1"])
-        res[f"{backend}_clipped"] = int(metrics["num_clipped"])
+    cams = cameras(mesh.n_view, h, w)
+    cfg16 = dataclasses.replace(cfg, kmax=32)
+    untied = untie_offsets(params, 3)
+    default = rasterize.TILE16_DEFAULT
+    runs = {
+        "cuda": lambda: step_gradients(
+            mesh, cfg, params, active, contractor, cams[mesh.view],
+            gts[mesh.view], "cuda", CPU, terms=TERMS),
+        "dense": lambda: step_gradients(
+            mesh, cfg, params, active, contractor, cams[mesh.view],
+            gts[mesh.view], "dense", CPU, terms=TERMS),
+        "cuda16": lambda: step_gradients(
+            mesh, cfg16, untied, active, contractor, cams[mesh.view],
+            gts[mesh.view], "cuda", CPU, terms=TERMS),
+        "single16": lambda: single_gradients(
+            cfg16, untied, active, contractor, cams, gts, "cuda", CPU,
+            terms=TERMS)}
+    for name, run in runs.items():
+        rasterize.TILE16_DEFAULT = name.endswith("16")
+        grads, stats, metrics = run()
+        res[f"{name}_loss"] = float(metrics["loss"])
+        res[f"{name}_l1"] = float(metrics["l1"])
+        res[f"{name}_clipped"] = int(metrics["num_clipped"])
         for key, leaf in flat(grads).items():
-            arrays[f"{backend}.g:{key}"] = leaf.numpy()
+            arrays[f"{name}.g:{key}"] = leaf.numpy()
         for f in STAT_FIELDS:
-            arrays[f"{backend}.s:{f}"] = getattr(stats, f).numpy()
+            arrays[f"{name}.s:{f}"] = getattr(stats, f).numpy()
+    rasterize.TILE16_DEFAULT = default
 
 
 def bn_case(mesh, data, arrays, res):

@@ -1,7 +1,8 @@
 """The sharded SVC step of splatco_torch (parallel/) on the CPU: rank
-processes over gloo (tests/_torch_parallel_worker.py, spawned through
-parallel/launch.py) against the JAX package's `make_sharded_train_step`
-on the 2x2 submesh of the conftest's 8 CPU devices.
+processes over gloo (tests/_torch_parallel_worker.py, spawned by
+`spawn` with the SPLATCO_* variables) against the JAX package's
+`make_sharded_train_step` on the 2x2 submesh of the conftest's 8 CPU
+devices.
 
 The model is tests/test_parallel.py's (200 points, feat_dim 16, n_offsets
 4, plane_size 64); JAX's initial params reach the ranks in an .npz.  One
@@ -19,15 +20,20 @@ leaf's gradient max-normalised 5e-4, the bound tests/test_rasterize_
 pallas.py holds the JAX kernel backward to against the dense oracle.
 The gradients are compared, not Adam's params: Adam's first update is
 about lr * sign(g), so a gradient at rounding level flips an element by
-2 lr (one anchor scaling did, by 0.014, at atol 2e-5).  The sharded
-loop's per-step loss stays within 5e-3 of the single-device trajectory
-(the limit of __graft_entry__.py's
-dryrun_multichip).  masked_batchnorm over a 2-rank group: 1e-6 of the
-single-process values.
+2 lr (one anchor scaling did, by 0.014, at atol 2e-5).  In 16 px tiles
+(SPLATCO_RASTER=v3) the sharded step's gradient is held to the
+single-device step's (test_sharded_16px_tiles_match_single_device).
+The sharded loop's per-step loss stays within 5e-3 of the single-device
+trajectory (the limit of __graft_entry__.py's dryrun_multichip).
+masked_batchnorm over a 2-rank group: 1e-6 of the single-process values.
 """
 import concurrent.futures
 import json
 import os
+import socket
+import subprocess
+import sys
+import time
 
 import jax
 import jax.numpy as jnp
@@ -43,7 +49,6 @@ from splatco_torch.models.mlp import masked_batchnorm
 from splatco_torch.models.splatco import params_from_numpy
 from splatco_torch.models.contraction import Contractor
 from splatco_torch.parallel import distributed, mesh as t_mesh
-from splatco_torch.parallel.launch import free_port, launch
 from splatco_torch.parallel.train_step import (make_sharded_train_step,
                                                pad_view_batch)
 from splatco_torch.train.optimizer import make_optimizer
@@ -78,18 +83,44 @@ def write_inputs(path, n_view, n_gauss, h=32, w=64):
     return case
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
 def spawn(n, inputs, out_dir, explicit=False):
-    """Run the worker as n ranks; returns each rank's (json, npz)."""
+    """Run the worker as n gloo ranks with the SPLATCO_* variables, each
+    rank's output in its own log; returns each rank's (json, npz)."""
     os.makedirs(out_dir, exist_ok=True)
     env = {k: v for k, v in os.environ.items()
            if not k.startswith(("SPLATCO_", "JAX", "XLA"))}
-    env.update(OMP_NUM_THREADS="1", PYTHONPATH=ROOT)
-    argv = [WORKER, str(inputs), str(out_dir)] + (
+    env.update(OMP_NUM_THREADS="1", PYTHONPATH=ROOT, SPLATCO_BACKEND="gloo",
+               SPLATCO_COORDINATOR=f"localhost:{free_port()}",
+               SPLATCO_NUM_PROCESSES=str(n))
+    argv = [sys.executable, WORKER, str(inputs), str(out_dir)] + (
         ["--explicit"] if explicit else [])
-    results = launch(argv, n, backend="gloo", env=env, cwd=ROOT,
-                     timeout=SPAWN_TIMEOUT)
-    for rank, (code, text) in enumerate(results):
-        assert code == 0, f"rank {rank} exit {code}:\n{text[-4000:]}"
+    logs = [open(os.path.join(out_dir, f"rank{i}.log"), "w+")
+            for i in range(n)]
+    procs = [subprocess.Popen(argv, cwd=ROOT, stdout=logs[i],
+                              stderr=subprocess.STDOUT,
+                              env=dict(env, SPLATCO_PROCESS_ID=str(i)))
+             for i in range(n)]
+    deadline = time.monotonic() + SPAWN_TIMEOUT
+    try:  # a rank that fails makes the others' next collective fail
+        for p in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 0.0))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    for rank, (p, log) in enumerate(zip(procs, logs)):
+        log.seek(0)
+        text = log.read()
+        log.close()
+        assert p.returncode == 0, f"rank {rank} exit {p.returncode}:\n" \
+            f"{text[-4000:]}"
     out = []
     for rank in range(n):
         with open(os.path.join(out_dir, f"rank{rank}.json")) as fh:
@@ -256,6 +287,38 @@ def test_sharded_kernel_path_matches_dense(runs2):
                                        rtol=1e-3, err_msg=f)
 
 
+def test_sharded_16px_tiles_match_single_device(runs2):
+    """SPLATCO_RASTER=v3's configuration (16 px tiles, kmax 32) on 32 px
+    strips, each two rows of tiles: the sharded step's gradient against
+    the single-device step's on the whole view, with the offsets untied
+    (equal depths in a tile order by slot rank, which a strip's clamped
+    rect changes).  Both run the same kernel path, so only the order of
+    sums differs: loss and l1 1e-5, each leaf 1.1e-6 of its max (the
+    JAX kernels' gradient bound), the counts exactly and the
+    accumulations 1e-6 of their max."""
+    for res, arrays in runs2["env"]:
+        assert res["cuda16_clipped"] == res["single16_clipped"] == 0
+        np.testing.assert_allclose(res["cuda16_loss"], res["single16_loss"],
+                                   rtol=1e-5)
+        np.testing.assert_allclose(res["cuda16_l1"], res["single16_l1"],
+                                   rtol=1e-5)
+        single = {k[len("single16.g:"):]: v for k, v in arrays.items()
+                  if k.startswith("single16.g:")}
+        assert len(single) > 10
+        for key, want in single.items():
+            got = arrays[f"cuda16.g:{key}"]
+            if np.abs(want).max() > 0:
+                assert rel_err(got, want) < 1.1e-6, key
+            else:  # a leaf the loss does not reach (an inactive level)
+                np.testing.assert_array_equal(got, want, key)
+        for f in ("anchor_demon", "offset_denom"):
+            np.testing.assert_array_equal(arrays[f"cuda16.s:{f}"],
+                                          arrays[f"single16.s:{f}"], f)
+        for f in ("opacity_accum", "offset_gradient_accum"):
+            assert rel_err(arrays[f"cuda16.s:{f}"],
+                           arrays[f"single16.s:{f}"]) < 1e-6, f
+
+
 def test_init_from_environment_equals_explicit_arguments(runs2):
     for (env_res, env_arr), (arg_res, arg_arr) in zip(runs2["env"],
                                                       runs2["explicit"]):
@@ -334,10 +397,30 @@ def test_rows_on_hosts_rules():
 
 def test_init_distributed_without_variables_is_a_no_op(monkeypatch):
     for name in ("SPLATCO_COORDINATOR", "SPLATCO_NUM_PROCESSES",
-                 "SPLATCO_PROCESS_ID", "SPLATCO_BACKEND"):
+                 "SPLATCO_PROCESS_ID", "SPLATCO_BACKEND",
+                 *distributed.TORCHRUN_VARIABLES):
         monkeypatch.delenv(name, raising=False)
     assert distributed.init_distributed() is False
     assert not torch.distributed.is_initialized()
+
+
+def test_init_distributed_from_torchrun_variables(monkeypatch):
+    """With no SPLATCO_* variable set, torchrun's variables make the
+    group (one gloo rank here), and the mesh factory takes it."""
+    for name in ("SPLATCO_COORDINATOR", "SPLATCO_NUM_PROCESSES",
+                 "SPLATCO_PROCESS_ID", "SPLATCO_BACKEND"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.setenv("MASTER_ADDR", "localhost")
+    monkeypatch.setenv("MASTER_PORT", str(free_port()))
+    monkeypatch.setenv("WORLD_SIZE", "1")
+    monkeypatch.setenv("RANK", "0")
+    try:
+        assert distributed.init_distributed(device="cpu")
+        assert torch.distributed.get_backend() == "gloo"
+        mesh = distributed.make_multihost_mesh(1, 1)
+        assert (mesh.view, mesh.gauss, mesh.world.size) == (0, 0, 1)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 @pytest.fixture
