@@ -137,6 +137,27 @@ Run from the repository root.  Phases, each of which fails loudly:
      densify calls, a capacity regrowth, a level bump) against the
      single-device trajectory rank 0 runs beside it; only the sharded
      steps' launches count.
+ 19. the last user paths, on phase 16's run.  19a: `train_torch.main
+     --gui` resumes a copy of its iteration-45 state for 20 iterations
+     while a client thread speaks SIBR messages at 1600x1088: frames
+     while it trains, `train=False` must hold the iteration for 0.5 s,
+     paused frames at scaling_modifier 1 and 0.5 must equal the port's
+     `render` of the published snapshot byte for byte (and differ), a
+     zero-resolution message returns only the verify string, and with
+     `keep_alive` the server answers after the last iteration until the
+     client leaves; ms per served frame (host clock, send to last byte);
+     `raster_fwd` launches 4 a step + 1 an eval frame + 1 a served frame.
+     19b: `--profile` over 5 iterations of the same run: the Chrome trace
+     must name both blend kernels.  19c: tools/profile_step_recon_torch.py
+     on phase 7's model and views: ms/step of each variant and each
+     block's cost; the step without the optimizer returns its params
+     bit for bit.  19d: the hard protocol's scene (28 views at 320x224,
+     arc_period 2; no ground-truth view may clip), a 600-iteration
+     `quality_run_torch.main --hard` (finite losses, test PSNR rising;
+     each densify call's grown / pruned / CVPM-marked anchors printed),
+     `ablation_run_torch.main` at 200 iterations (four finite variants)
+     and `finalize_quality_run_torch.main` on the run's last checkpoint
+     (the run's final metrics).
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all nine kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -158,6 +179,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 import zlib
@@ -306,6 +328,16 @@ SHARDED_LOSS_TOL, SHARDED_LOSS_TOL_CLIPPED = 1e-5, 5e-3
 # of the single-device trajectory (dryrun_multichip's limit)
 SMALL_SHARDED, SHARDED_GRAD_TOL, LOOP_TOL = (64, 64), 5e-4, 5e-3
 SHARDED16_GRAD_TOL = 1e-5
+# phase 19a: --gui resumes phase 16's chkpnt45 for 20 iterations; the
+# client pauses the run once it has published iteration 48.  19b:
+# --profile over 5 iterations from the same state.  19c: each variant of
+# the step attribution timed over this many steps.  19d: the hard
+# protocol's scene (the quality run's defaults, arc_period 2), its
+# quality run and the ablation's runs
+VIEWER_ITERS, VIEWER_PAUSE_AT, PROFILE_ITERS = 65, 48, 50
+RECON_ITERS = 6
+HARD_VIEWS, HARD_POINTS, HARD_W, HARD_H = 28, 1200, 320, 224
+HARD_ITERS, ABLATION_ITERS = 600, 200
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -1555,17 +1587,13 @@ def train_disk_phase(args, dev, card: str, scene_dir: str, model1: str):
 
         # resume a copy of the iteration-45 checkpoint in a subprocess
         model2 = os.path.join(tmp, "model_resumed")
-        os.makedirs(model2)
-        for name in (f"chkpnt{TRAIN_CKPT}.npz", f"chkpnt{TRAIN_CKPT}.json",
-                     "cfg_args.json"):
-            shutil.copy(os.path.join(model1, name), model2)
+        start = copy_checkpoint(model1, model2)
         t0 = time.perf_counter()
         res = subprocess.run(
             [sys.executable, str(Path(__file__).resolve().parent
                                  / "train_torch.py"), *argv, "-m", model2,
              "--checkpoint_iterations", str(TRAIN_ITERS),
-             "--start_checkpoint",
-             os.path.join(model2, f"chkpnt{TRAIN_CKPT}")],
+             "--start_checkpoint", start],
             capture_output=True, text=True, timeout=600)
         resume_s = time.perf_counter() - t0
         if res.returncode != 0:
@@ -2308,6 +2336,450 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
     return dict(total)
 
 
+# ---------------------------------------------------------------------
+# phase 19: the last user paths -- the viewer, the profiling switches and
+# the hard quality protocol
+
+
+def sibr_message(cam, train: bool, keep_alive: bool, modifier: float,
+                 zero: bool = False) -> dict:
+    """The SIBR viewer's message for `cam`, with the viewer's sign flips
+    that the server undoes; `zero` asks for no image."""
+    view = cam.world_view_transform.cpu().numpy().copy()
+    proj = cam.full_proj_transform.cpu().numpy().copy()
+    view[:, 1] *= -1
+    view[:, 2] *= -1
+    proj[:, 1] *= -1
+    return {"resolution_x": 0 if zero else cam.image_width,
+            "resolution_y": 0 if zero else cam.image_height,
+            "train": train, "fov_y": cam.fovy, "fov_x": cam.fovx,
+            "z_near": 0.01, "z_far": 100.0, "shs_python": False,
+            "rot_scale_python": False, "keep_alive": keep_alive,
+            "scaling_modifier": modifier,
+            "view_matrix": view.reshape(-1).tolist(),
+            "view_projection_matrix": proj.reshape(-1).tolist()}
+
+
+def sibr_roundtrip(sock, msg: dict):
+    """(image bytes or None, verify string, ms from send to last byte)."""
+    def recv(n):
+        buf = b""
+        while len(buf) < n:
+            chunk = sock.recv(n - len(buf))
+            if not chunk:
+                raise AssertionError("the viewer server closed early")
+            buf += chunk
+        return buf
+
+    raw = json.dumps(msg).encode("utf-8")
+    t0 = time.perf_counter()
+    sock.sendall(len(raw).to_bytes(4, "little") + raw)
+    img = None
+    if msg["resolution_x"] and msg["resolution_y"]:
+        img = recv(msg["resolution_x"] * msg["resolution_y"] * 3)
+    verify = recv(int.from_bytes(recv(4), "little")).decode("ascii")
+    return img, verify, 1e3 * (time.perf_counter() - t0)
+
+
+def wait_until(cond, what: str, timeout: float):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def viewer_client(servers: list, cam, out: dict):
+    """19a's SIBR client, on its own thread: frames while the run trains,
+    a pause held for 0.5 s, two paused frames (scaling_modifier 1 and 0.5)
+    held byte for byte to the port's `render` of the published snapshot,
+    a zero-resolution message, then resume with keep_alive and frames
+    until the run has finished and after.  Fills `out`; any failure lands
+    in out["error"], and the socket closes either way, which lets the run
+    end."""
+    out.update(served=0, references=0, ms={"training": [], "paused": [],
+                                           "after_end": []})
+    try:
+        wait_until(lambda: servers, "the viewer server", 600)
+        srv = servers[0]
+        tr = srv.trainer
+        with socket.create_connection(("127.0.0.1", srv.port), 60) as sock:
+            sock.settimeout(300)
+
+            def frame(train, keep_alive, modifier, phase):
+                img, verify, ms = sibr_roundtrip(
+                    sock, sibr_message(cam, train, keep_alive, modifier))
+                out["served"] += 1
+                out["ms"][phase].append(ms)
+                out["verify"] = verify
+                return img
+
+            t0 = time.monotonic()
+            while tr.published.iteration < VIEWER_PAUSE_AT:
+                frame(True, False, 1.0, "training")
+                if time.monotonic() - t0 > 600:
+                    raise AssertionError("the run did not reach iteration "
+                                         f"{VIEWER_PAUSE_AT}")
+            sibr_roundtrip(sock, sibr_message(cam, False, False, 1.0, True))
+            wait_until(lambda: srv.trainer_waiting, "the training gate", 120)
+            it0 = tr.published.iteration
+            time.sleep(0.5)
+            out["paused"] = (it0, tr.published.iteration,
+                             srv.trainer_waiting)
+            frames, same = {}, {}
+            for modifier in (1.0, 0.5):
+                frames[modifier] = frame(False, False, modifier, "paused")
+                snap = tr.published
+                with torch.no_grad():
+                    vis = prefilter_voxel(snap.params["anchors"],
+                                          snap.active, cam)
+                    ref = render(snap.params, snap.active, snap.contractor,
+                                 cam, snap.bg, visible_mask=vis,
+                                 activate_level=snap.activate_level,
+                                 is_training=False, kmax=snap.kmax,
+                                 scale_modifier=modifier,
+                                 **decode_kwargs(tr.cfg))
+                out["references"] += 1
+                same[modifier] = eight_bit(ref.image).tobytes() == \
+                    frames[modifier]
+            out["same_as_render"] = same
+            out["modifiers_differ"] = frames[1.0] != frames[0.5]
+            img, verify, _ = sibr_roundtrip(
+                sock, sibr_message(cam, False, False, 1.0, True))
+            out["zero_resolution"] = (img, verify)
+            frame(True, True, 1.0, "training")
+            while not srv.finished:
+                frame(True, True, 1.0, "training")
+                if time.monotonic() - t0 > 900:
+                    raise AssertionError("the run did not finish")
+                time.sleep(0.1)
+            out["final_iteration"] = tr.published.iteration
+            time.sleep(0.3)
+            for _ in range(2):
+                frame(True, True, 1.0, "after_end")
+    except BaseException:
+        import traceback
+        out["error"] = traceback.format_exc()
+
+
+def copy_checkpoint(model_dir: str, run_dir: str) -> str:
+    """A copy of `model_dir`'s iteration-TRAIN_CKPT training state (and
+    run config) in a new `run_dir`; returns its --start_checkpoint
+    argument."""
+    os.makedirs(run_dir)
+    for name in (f"chkpnt{TRAIN_CKPT}.npz", f"chkpnt{TRAIN_CKPT}.json",
+                 "cfg_args.json"):
+        shutil.copy(os.path.join(model_dir, name), run_dir)
+    return os.path.join(run_dir, f"chkpnt{TRAIN_CKPT}")
+
+
+def viewer_phase(args, dev, card: str, tmp: str, scene_dir: str,
+                 model_dir: str):
+    """19a: train_torch.main --gui resumes phase 16's iteration-45 state
+    for 20 iterations while viewer_client speaks SIBR messages at full
+    width.  Returns the main path's launches (the client's reference
+    renders left out)."""
+    import train_torch
+    from splatco_torch.viewer import network_gui
+
+    t_phase = time.perf_counter()
+    tile = raster_v3.TILE if TILE16_DEFAULT else TILE
+    kernels = (FWD_KERNELS[tile], BWD_KERNELS[tile])
+    run_dir = os.path.join(tmp, "viewer_run")
+    start = copy_checkpoint(model_dir, run_dir)
+    cam = orbit_camera(3, DISK_VIEWS, width=WIDTH, height_px=HEIGHT,
+                       device=dev)
+    servers, out = [], {}
+    start0 = network_gui.ViewerServer.start
+
+    def start_and_record(srv):
+        start0(srv)
+        servers.append(srv)
+
+    client = threading.Thread(target=viewer_client,
+                              args=(servers, cam, out), daemon=True)
+    argv = ["-s", scene_dir, *TRAIN_ARGS, "--seed", str(args.seed),
+            "-m", run_dir, "--start_checkpoint", start,
+            "--iterations", str(VIEWER_ITERS),
+            "--test_iterations", str(VIEWER_ITERS),
+            "--save_iterations", str(VIEWER_ITERS),
+            "--gui", "--ip", "127.0.0.1", "--port", str(free_port())]
+    cuda_lib.LAUNCHES.clear()
+    network_gui.ViewerServer.start = start_and_record
+    try:
+        client.start()
+        t0 = time.perf_counter()
+        trainer = train_torch.main(argv)
+        run_s = time.perf_counter() - t0
+    finally:
+        network_gui.ViewerServer.start = start0
+    client.join(60)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    if client.is_alive():
+        raise AssertionError("the viewer client did not finish")
+    if "error" in out:
+        raise AssertionError(f"the viewer client failed:\n{out['error']}")
+    srv = servers[0]
+    if srv.error is not None:
+        raise AssertionError(f"the viewer server failed:\n{srv.error}")
+    if srv._thread.is_alive():
+        raise AssertionError("the viewer server did not stop")
+
+    steps = VIEWER_ITERS - TRAIN_CKPT
+    eval_frames = (len(trainer.scene.test_cameras())
+                   + len(trainer.train_cams[5:30:5]))
+    want = {kernels[0]: MV * steps + eval_frames + out["served"]
+            + out["references"], kernels[1]: MV * steps}
+    ms = {k: [round(v, 1) for v in vals] for k, vals in out["ms"].items()}
+    print(f"viewer ({card}): train_torch.main --gui resumed chkpnt"
+          f"{TRAIN_CKPT} for {steps} iterations ({run_s:.1f} s), "
+          f"{out['served']} frames served at {WIDTH}x{HEIGHT}; ms per "
+          f"served frame (host clock, send to last byte): while training "
+          f"median {np.median(out['ms']['training']):.1f} of "
+          f"{ms['training']}, paused {ms['paused']}, after the last "
+          f"iteration {ms['after_end']}; launches {launches} ({eval_frames} "
+          f"eval frames, {out['references']} reference renders)")
+    print(f"  paused at iteration {out['paused'][0]}, 0.5 s later "
+          f"{out['paused'][1]} (trainer at the gate {out['paused'][2]}); "
+          f"paused frames equal to render() of the published snapshot "
+          f"{out['same_as_render']}, scaling_modifier 1 vs 0.5 differ "
+          f"{out['modifiers_differ']}; zero resolution: image "
+          f"{out['zero_resolution'][0]!r}, verify "
+          f"{out['zero_resolution'][1] == scene_dir}; served after the last "
+          f"iteration ({out['final_iteration']}): {len(ms['after_end'])}")
+    if not (out["paused"][0] == out["paused"][1] and out["paused"][2]):
+        raise AssertionError("train=False did not hold the run")
+    if not all(out["same_as_render"].values()):
+        raise AssertionError("a paused frame differs from render() of the "
+                             "published snapshot")
+    if not out["modifiers_differ"]:
+        raise AssertionError("scaling_modifier changed nothing")
+    if out["zero_resolution"] != (None, scene_dir) or \
+            out["verify"] != scene_dir:
+        raise AssertionError("the verify string or the zero-resolution "
+                             "reply is wrong")
+    if out["final_iteration"] != VIEWER_ITERS or len(ms["after_end"]) != 2:
+        raise AssertionError("keep_alive did not serve past the last "
+                             "iteration")
+    if launches != want:
+        raise AssertionError(f"the viewer run launched {launches}, not "
+                             f"{want}")
+    print(f"  phase 19a wall {time.perf_counter() - t_phase:.1f} s")
+    launches[kernels[0]] -= out["references"]
+    return launches
+
+
+def profile_cli_phase(args, card: str, tmp: str, scene_dir: str,
+                      model_dir: str):
+    """19b: train_torch.main --profile resumes phase 16's iteration-45
+    state for 5 iterations; the Chrome trace must name both blend
+    kernels.  Returns the launches."""
+    import train_torch
+
+    t_phase = time.perf_counter()
+    tile = raster_v3.TILE if TILE16_DEFAULT else TILE
+    kernels = (FWD_KERNELS[tile], BWD_KERNELS[tile])
+    run_dir = os.path.join(tmp, "profile_run")
+    start = copy_checkpoint(model_dir, run_dir)
+    cuda_lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    train_torch.main(["-s", scene_dir, *TRAIN_ARGS, "--seed", str(args.seed),
+                      "-m", run_dir, "--start_checkpoint", start,
+                      "--iterations", str(PROFILE_ITERS),
+                      "--save_iterations", str(PROFILE_ITERS), "--profile"])
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    path = os.path.join(run_dir, "profile_trace", "trace.json")
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    device_us = collections.Counter()
+    for e in events:
+        if e.get("cat") == "kernel":
+            for sym in ("fwd_kernel", "bwd_kernel"):
+                if sym in e.get("name", ""):
+                    device_us[sym] += e.get("dur", 0)
+    steps = PROFILE_ITERS - TRAIN_CKPT
+    print(f"--profile ({card}): {steps} iterations in {run_s:.1f} s, trace "
+          f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, "
+          f"{sum(e.get('cat') == 'kernel' for e in events)} kernel events; "
+          f"the blend kernels' device ms in the trace "
+          f"{ {k: round(v / 1e3, 3) for k, v in device_us.items()} }; "
+          f"launches {launches}; phase 19b wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    want = {name: MV * steps for name in kernels}
+    if launches != want:
+        raise AssertionError(f"--profile launched {launches}, not {want}")
+    if set(device_us) != {"fwd_kernel", "bwd_kernel"}:
+        raise AssertionError("the trace does not name both blend kernels")
+    return launches
+
+
+def step_recon_phase(params, state, cfg, args, dev, card: str):
+    """19c: tools/profile_step_recon_torch.py's `time_variants` on phase
+    7's model and views (mv = 4 at full width).  Returns the launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import profile_step_recon_torch as recon
+
+    t_phase = time.perf_counter()
+    tile = raster_v3.TILE if TILE16_DEFAULT else TILE
+    cams = orbit_cameras(recon.MV, dev)
+    gts = smooth_targets(recon.MV, args.seed, dev)
+    cuda_lib.LAUNCHES.clear()
+    ms = recon.time_variants(cfg, OptimizationConfig(), params, state, cams,
+                             gts, torch.zeros(3, device=dev),
+                             camera_extent(cams), RECON_ITERS, dev)
+    torch.cuda.synchronize()
+    launches = dict(cuda_lib.LAUNCHES)
+    cost = {k[1:]: ms["full"] - v for k, v in ms.items() if k != "full"}
+    print(f"step attribution ({card}): ms/step (CUDA events, mean of "
+          f"{RECON_ITERS}) {json.dumps(ms)}; each block's cost (full - "
+          f"without it) {json.dumps(cost)}"
+          f"; the params a step without the optimizer returns equal its "
+          f"input bit for bit; launches {launches}; phase 19c wall "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    n = len(recon.VARIANTS) * (2 + RECON_ITERS) * recon.MV
+    want = {FWD_KERNELS[tile]: n, BWD_KERNELS[tile]: n}
+    if launches != want:
+        raise AssertionError(f"the attribution launched {launches}, not "
+                             f"{want}")
+    return launches
+
+
+def hard_phase(dev, card: str, tmp: str):
+    """19d: the hard protocol's scene, a 600-iteration quality run on it,
+    the ablation at 200 iterations and the finalize tool on the run's
+    last checkpoint, through the tools' `main`.  Returns the launches."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    import ablation_run_torch
+    import finalize_quality_run_torch
+    import quality_run_torch
+    from splatco_torch.utils import synthetic
+
+    t_phase = time.perf_counter()
+    tile = raster_v3.TILE if TILE16_DEFAULT else TILE
+    work = os.path.join(tmp, "hard")
+    scene = os.path.join(work, "scene")
+    shape = ["--views", str(HARD_VIEWS), "--points", str(HARD_POINTS),
+             "--width", str(HARD_W), "--height", str(HARD_H)]
+    total = collections.Counter()
+
+    # the scene, with each ground-truth render's kmax and clip count
+    clips = []
+    rasterize0 = synthetic.rasterize
+
+    def rasterize_and_record(*a, **kw):
+        out = rasterize0(*a, **kw)
+        clips.append((kw["kmax"], int(out[1]["num_clipped"])))
+        return out
+
+    synthetic.rasterize = rasterize_and_record
+    try:
+        cuda_lib.LAUNCHES.clear()
+        t0 = time.perf_counter()
+        synthetic.write_hard_dataset(scene, n_views=HARD_VIEWS,
+                                     n_pts=HARD_POINTS, width=HARD_W,
+                                     height=HARD_H, arc_period=2,
+                                     device=dev)
+        scene_s = time.perf_counter() - t0
+    finally:
+        synthetic.rasterize = rasterize0
+    total.update(cuda_lib.LAUNCHES)
+    print(f"hard scene ({card}): {HARD_VIEWS} views at {HARD_W}x{HARD_H}, "
+          f"{HARD_POINTS} points, arc_period 2, written in {scene_s:.1f} s;"
+          f" ground-truth kmax per view {[k for k, _ in clips]}, clipped "
+          f"{sum(c for _, c in clips)}")
+    if len(clips) != HARD_VIEWS or any(c for _, c in clips):
+        raise AssertionError("a ground-truth view clipped gaussians")
+
+    cuda_lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    run = quality_run_torch.main(
+        ["--hard", "--arc_period", "2", "--iterations", str(HARD_ITERS),
+         "--skip_artifacts", "--scene", scene, "--model",
+         os.path.join(work, "quality"), "--out",
+         os.path.join(work, "quality.json"), *shape])
+    torch.cuda.synchronize()
+    quality_s = time.perf_counter() - t0
+    launches = dict(cuda_lib.LAUNCHES)
+    total.update(launches)
+    traj = run["trajectory"]
+    losses = [m["loss"] for m in traj if "loss" in m]
+    evals = [(m["iteration"], m["test_psnr"]) for m in traj
+             if "test_psnr" in m]
+    events = [m for m in traj if "densify_grown" in m]
+    print(f"  quality run --hard ({card}): {HARD_ITERS} iterations in "
+          f"{quality_s:.1f} s ({1e3 * run['wall_seconds'] / HARD_ITERS:.1f}"
+          f" ms/iteration of training, host clock), test PSNR "
+          f"{[(i, round(p, 3)) for i, p in evals]}, final "
+          f"{json.dumps(run['final_test'])}, anchors {run['anchors_final']};"
+          f" launches {launches}")
+    for m in events:
+        print(f"    densify @{m['iteration']}: grown {m['densify_grown']}, "
+              f"pruned {m['densify_pruned']}, marked by CVPM "
+              f"{m['cvpm_marked']}, dropped {m['densify_dropped']} -> "
+              f"{m['anchors_after']} anchors")
+    if not losses or not all(v is not None and math.isfinite(v)
+                             for v in losses):
+        raise AssertionError("a logged loss is not finite")
+    if not evals[-1][1] > evals[0][1]:
+        raise AssertionError(f"test PSNR did not rise: {evals}")
+    if launches.get(BWD_KERNELS[tile]) != run["config"]["mv"] * HARD_ITERS:
+        raise AssertionError(f"the quality run launched {launches}")
+
+    cuda_lib.LAUNCHES.clear()
+    t0 = time.perf_counter()
+    ablation = ablation_run_torch.main(
+        ["--hard", "--arc_period", "2", "--iterations", str(ABLATION_ITERS),
+         "--work", work, "--out", os.path.join(work, "ablation.json"),
+         *shape])
+    torch.cuda.synchronize()
+    total.update(cuda_lib.LAUNCHES)
+    variants = ablation["variants"]
+    print(f"  ablation ({card}): {ABLATION_ITERS} iterations a variant, "
+          f"{time.perf_counter() - t0:.1f} s: " + "; ".join(
+              f"{n} {json.dumps(v['final_test'])} dynamics "
+              f"{v.get('dynamics')}" for n, v in variants.items()))
+    if list(variants) != list(ablation_run_torch.VARIANTS) or not all(
+            math.isfinite(x) for v in variants.values()
+            for x in v["final_test"].values()):
+        raise AssertionError("the ablation's variants are not all finite")
+
+    cuda_lib.LAUNCHES.clear()
+    fin = finalize_quality_run_torch.main(
+        ["--scene", scene, "--model", os.path.join(work, "quality"),
+         "--out", os.path.join(work, "final.json"),
+         "--iterations", str(HARD_ITERS), "--skip_artifacts", *shape])
+    torch.cuda.synchronize()
+    total.update(cuda_lib.LAUNCHES)
+    rel = max(abs(fin["final_test"][k] - v) / max(abs(v), 1e-12)
+              for k, v in run["final_test"].items())
+    print(f"  finalize ({card}): restored iteration "
+          f"{fin['finalized_from_checkpoint']}, final "
+          f"{json.dumps(fin['final_test'])} (largest relative difference "
+          f"to the run's {rel:.2e}), {len(fin['trajectory'])} progress "
+          f"lines and {len(fin['events'])} events from the log; phase 19d "
+          f"wall {time.perf_counter() - t_phase:.1f} s")
+    if fin["finalized_from_checkpoint"] != HARD_ITERS or rel > 1e-6:
+        raise AssertionError("the finalized payload is not the run's")
+    return dict(total)
+
+
+def last_paths_phase(args, dev, card: str, tmp: str, scene_dir: str,
+                     model_dir: str, params, state, cfg):
+    """Phase 19 (19a-d); returns the main paths' launches."""
+    t_phase = time.perf_counter()
+    total = collections.Counter()
+    total.update(viewer_phase(args, dev, card, tmp, scene_dir, model_dir))
+    total.update(profile_cli_phase(args, card, tmp, scene_dir, model_dir))
+    total.update(step_recon_phase(params, state, cfg, args, dev, card))
+    total.update(hard_phase(dev, card, tmp))
+    print(f"phase 19 ({card}): {time.perf_counter() - t_phase:.1f} s, "
+          f"launches {dict(total)}")
+    return dict(total)
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -2417,6 +2889,9 @@ def main() -> int:
         # 17. the trained model rendered, scored and its orbit stream
         # checked for popping through the CLIs
         eval_launches = eval_phase(args, dev, smi, scene_dir, model_dir)
+        # 19. the viewer, the profiling switches and the hard protocol
+        last_launches = last_paths_phase(args, dev, smi, tmp, scene_dir,
+                                         model_dir, params, state, cfg)
 
     # 18. the sharded step: a 1x1 mesh over NCCL, four ranks on the card
     sharded_launches = sharded_phase(params, state, cfg, args, dev, smi)
@@ -2427,19 +2902,23 @@ def main() -> int:
               + disk_launches.get(KERNEL, 0)
               + train_disk_launches.get(KERNEL, 0)
               + eval_launches.get(KERNEL, 0)
-              + sharded_launches.get(KERNEL, 0), fwd),
+              + sharded_launches.get(KERNEL, 0)
+              + last_launches.get(KERNEL, 0), fwd),
         entry(BWD_KERNEL, train_launches.get(BWD_KERNEL, 0)
               + train_disk_launches.get(BWD_KERNEL, 0)
-              + sharded_launches.get(BWD_KERNEL, 0), bwd),
+              + sharded_launches.get(BWD_KERNEL, 0)
+              + last_launches.get(BWD_KERNEL, 0), bwd),
         entry(KERNEL16, fwd3["launches"].get(KERNEL16, 0)
               + train3_launches.get(KERNEL16, 0)
               + disk_launches.get(KERNEL16, 0)
               + train_disk_launches.get(KERNEL16, 0)
               + eval_launches.get(KERNEL16, 0)
-              + sharded_launches.get(KERNEL16, 0), fwd3),
+              + sharded_launches.get(KERNEL16, 0)
+              + last_launches.get(KERNEL16, 0), fwd3),
         entry(BWD_KERNEL16, train3_launches.get(BWD_KERNEL16, 0)
               + train_disk_launches.get(BWD_KERNEL16, 0)
-              + sharded_launches.get(BWD_KERNEL16, 0), bwd3),
+              + sharded_launches.get(BWD_KERNEL16, 0)
+              + last_launches.get(BWD_KERNEL16, 0), bwd3),
         *(entry(name, probe_launches[name], nums)
           for name, nums in probe_numbers.items()),
     ]}))

@@ -17,6 +17,10 @@ from splatco_torch.utils.device import resolve_device
 from splatco_torch.utils.math import inverse_sigmoid, round_up
 
 
+def trainable_fields() -> Tuple[str, ...]:
+    return ("anchor", "offsets", "feat", "opacity", "scaling", "rotation")
+
+
 def init_anchor_state(
     points: np.ndarray,
     feat_dim: int,

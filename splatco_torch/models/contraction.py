@@ -1,6 +1,7 @@
 """MERF-style scene contraction (counterpart of
 splatco_tpu/models/contraction.py): the scene bbox maps linearly to
-[-1,1], and the outside is warped into (-2,-1] / [1,2) by 2 - 1/|x|."""
+[-1,1], and the outside is warped into (-2,-1] / [1,2) by 2 - 1/|x|;
+`decontract` maps back."""
 from __future__ import annotations
 
 import dataclasses
@@ -36,3 +37,14 @@ def contract(c: Contractor, xyz: torch.Tensor) -> torch.Tensor:
     a = torch.abs(ind)
     warped = torch.sign(ind) * (2.0 - 1.0 / torch.clamp_min(a, 1.0))
     return torch.where(a > 1.0, warped, ind)
+
+
+def decontract(c: Contractor, xyz: torch.Tensor) -> torch.Tensor:
+    """The inverse of `contract` with contraction on: unwarp |x| > 1
+    (|x| clamped below 2), then map [-1, 1] back onto the bbox."""
+    a = torch.abs(xyz)
+    inv = torch.sign(xyz) / torch.clamp_min(
+        1.0 - (torch.clamp_max(a, 2.0 - 1e-6) - 1.0), 1e-6)
+    res = torch.where(a > 1.0, inv, xyz)
+    return (res * (c.xyz_max - c.xyz_min) / 2.0
+            + (c.xyz_max + c.xyz_min) / 2.0)

@@ -206,6 +206,7 @@ def render(
     plane_feats=None,
     tile16: Optional[bool] = None,
     backend: str = "cuda",
+    scale_modifier: float = 1.0,
     **decode_kwargs,
 ) -> RenderOutput:
     """Full render: decode -> EWA projection -> binning -> blend.  In
@@ -216,7 +217,9 @@ def render(
     configuration (ops/rasterize.py; None: the SPLATCO_RASTER switch).
     `backend="dense"` blends with the dense compositor instead (culled by
     32 px tile rects, never clipped): its num_clipped is 0 and its
-    max_slots kmax, as in the JAX package."""
+    max_slots kmax, as in the JAX package.  `scale_modifier` multiplies
+    the decoded scales before the projection (the rasterizer setting the
+    SIBR viewer drives); `RenderOutput.scaling` is the scaled value."""
     if backend not in BACKENDS:
         raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
     if visible_mask is None:
@@ -226,6 +229,8 @@ def render(
         activate_level=activate_level, plane_feats=plane_feats,
         q_noise=q_noise if is_training else 0.0, generator=generator,
         **decode_kwargs)
+    if scale_modifier != 1.0:
+        g["scaling"] = g["scaling"] * scale_modifier
 
     proj = project_gaussians_cols(g["xyz"], g["scaling"], g["rot"], camera)
     radius = torch.where(g["opacity"] > 0.0, proj.radius, 0.0)

@@ -254,3 +254,24 @@ def tv_loss(params, w: float, activate_level: int = 0) -> torch.Tensor:
             lv = lv + smooth_l1_sum(p[:, :, 1:], p[:, :, :-1])
         total = total + wl * lv / 6.0
     return total
+
+
+def fake_quantize(x: torch.Tensor, n_bits: int = 12) -> torch.Tensor:
+    """FakeQuantize (the reference's grids.py): latent there, kept for
+    compression-mode parity."""
+    n = 2 ** n_bits
+    scale = 5.0 / (n / 2 - 1)
+    zero = n / 2
+    xi = torch.clamp(torch.floor(x / scale + zero), 0, n - 1)
+    return (xi - zero) * scale
+
+
+def resize_plane(plane: torch.Tensor, new_hw) -> torch.Tensor:
+    """Bilinear resize of a plane [R, H, W] to [R, *new_hw] (the
+    reference's scale_volume_grid).  Half-pixel centres, and a triangle
+    filter widened by the factor where an axis shrinks, as
+    jax.image.resize(method="linear") does: `antialias=True` makes
+    F.interpolate match it in both directions (plain bilinear matches
+    only where it enlarges)."""
+    return F.interpolate(plane[None], size=tuple(new_hw), mode="bilinear",
+                         align_corners=False, antialias=True)[0]

@@ -30,7 +30,7 @@ from typing import NamedTuple
 
 import torch
 
-from splatco_torch.ops.projection import ProjectedCols
+from splatco_torch.ops.projection import ProjectedCols, rect_bounds
 
 TILE = 32
 # record rows
@@ -54,11 +54,7 @@ def _rects(mx, my, rad, tile_size: int, tiles_x: int, tiles_y: int,
            kmax: int):
     """Per-gaussian clipped tile rects: (x0, y0, sx_c, counts, clipped)."""
     i32 = torch.int32
-    r = rad
-    x0 = torch.clamp(torch.floor((mx - r) / tile_size), 0, tiles_x).to(i32)
-    y0 = torch.clamp(torch.floor((my - r) / tile_size), 0, tiles_y).to(i32)
-    x1 = torch.clamp(torch.ceil((mx + r) / tile_size), 0, tiles_x).to(i32)
-    y1 = torch.clamp(torch.ceil((my + r) / tile_size), 0, tiles_y).to(i32)
+    x0, y0, x1, y1 = rect_bounds(mx, my, rad, tile_size, tiles_x, tiles_y)
     sx = torch.clamp_min(x1 - x0, 0)
     sy = torch.clamp_min(y1 - y0, 0)
     clipped = (sx * sy > kmax) & (rad > 0)

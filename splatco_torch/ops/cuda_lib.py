@@ -8,8 +8,9 @@ edited source or header is rebuilt and a stale library is never loaded.  Nothing
 runs on first use, or up front (one `nvcc` per source, all started
 together) when a script calls it.
 
-`LAUNCHES` counts kernel launches by name: each wrapper adds one where it
-launches its kernel, and nowhere else.
+`LAUNCHES` counts kernel launches by name: each wrapper adds one
+(`count_launch`, under a lock, since a viewer thread launches too) where
+it launches its kernel, and nowhere else.
 """
 from __future__ import annotations
 
@@ -36,6 +37,12 @@ LAUNCHES: collections.Counter = collections.Counter()
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def sources() -> list:

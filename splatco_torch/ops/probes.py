@@ -83,7 +83,7 @@ def _launch(name: str, key: str, t: torch.Tensor, fn, *args):
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    cuda_lib.LAUNCHES[key] += 1
+    cuda_lib.count_launch(key)
 
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong

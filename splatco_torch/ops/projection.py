@@ -1,5 +1,8 @@
 """EWA projection stage of the Gaussian rasterizer (counterpart of
-splatco_tpu/ops/projection.py, the columnwise `project_cols` path).
+splatco_tpu/ops/projection.py).  The columnwise path (`project_cols`,
+`ProjectedCols`) is the one `render` runs; the AoS path (`project`,
+`ProjectedGaussians`) is the same math on [N, 3, 3] matrices, the public
+API the tools and the JAX package's callers use.
 
   * row-vector convention: p_hom = [p,1] @ full_proj (matrices stored
     transposed, see data/cameras.py),
@@ -21,6 +24,15 @@ NEAR_CLIP = 0.2
 LOWPASS = 0.3
 
 
+class ProjectedGaussians(NamedTuple):
+    """Per-gaussian screen-space quantities (all [N, ...]), AoS."""
+    means2d: torch.Tensor   # [N,2] pixel coords
+    depths: torch.Tensor    # [N] view-space z
+    conics: torch.Tensor    # [N,3] upper triangle of inverse cov2d (a, b, c)
+    radii: torch.Tensor     # [N] int32, 0 => culled
+    p_view_z: torch.Tensor  # [N] raw view z (before the near cull)
+
+
 class ProjectedCols(NamedTuple):
     """SoA screen-space quantities: seven [N] float32 columns."""
     mx: torch.Tensor      # pixel x
@@ -30,6 +42,89 @@ class ProjectedCols(NamedTuple):
     cb: torch.Tensor      # conic b
     cc: torch.Tensor      # conic c
     radius: torch.Tensor  # float32, 0 => culled
+
+
+def cols_of(proj: ProjectedGaussians) -> ProjectedCols:
+    return ProjectedCols(
+        mx=proj.means2d[:, 0], my=proj.means2d[:, 1], depth=proj.depths,
+        ca=proj.conics[:, 0], cb=proj.conics[:, 1], cc=proj.conics[:, 2],
+        radius=proj.radii.to(torch.float32))
+
+
+def aos_of(cols: ProjectedCols) -> ProjectedGaussians:
+    return ProjectedGaussians(
+        means2d=torch.stack([cols.mx, cols.my], dim=1),
+        depths=cols.depth,
+        conics=torch.stack([cols.ca, cols.cb, cols.cc], dim=1),
+        radii=cols.radius.to(torch.int32),
+        p_view_z=cols.depth)
+
+
+def project(means3d: torch.Tensor, cov3d: torch.Tensor,
+            viewmatrix: torch.Tensor, projmatrix: torch.Tensor,
+            image_width: int, image_height: int, tan_fovx: float,
+            tan_fovy: float) -> ProjectedGaussians:
+    """EWA-project gaussians with world positions [N, 3] and world-space
+    covariances [N, 3, 3] (`build_covariance`); the matrices [4, 4] are
+    transposed world->view and full projection."""
+    n = means3d.shape[0]
+    focal_x = image_width / (2.0 * tan_fovx)
+    focal_y = image_height / (2.0 * tan_fovy)
+    hom = torch.cat([means3d, means3d.new_ones((n, 1))], dim=-1)
+
+    p_view = hom @ viewmatrix  # [N,4]
+    tz = p_view[:, 2]
+    in_front = tz > NEAR_CLIP
+    p_hom = hom @ projmatrix
+    p_w = 1.0 / (p_hom[:, 3] + 1e-7)
+    p_proj = p_hom[:, :3] * p_w[:, None]
+
+    # EWA with the frustum clamp on the point the Jacobian is taken at
+    limx = 1.3 * tan_fovx
+    limy = 1.3 * tan_fovy
+    safe_z = torch.where(torch.abs(tz) < 1e-8, 1e-8, tz)
+    tx = torch.clamp(p_view[:, 0] / safe_z, -limx, limx) * tz
+    ty = torch.clamp(p_view[:, 1] / safe_z, -limy, limy) * tz
+    inv_z = 1.0 / safe_z
+    inv_z2 = inv_z * inv_z
+    zeros = torch.zeros_like(tz)
+    J = torch.stack([
+        torch.stack([focal_x * inv_z, zeros, -focal_x * tx * inv_z2], -1),
+        torch.stack([zeros, focal_y * inv_z, -focal_y * ty * inv_z2], -1),
+        torch.stack([zeros, zeros, zeros], -1)], dim=-2)  # [N,3,3]
+    W = viewmatrix[:3, :3].T  # world->cam rotation
+    T = J @ W[None]
+    cov2d = (T @ cov3d @ T.transpose(-1, -2))[:, :2, :2]
+    cov00 = cov2d[:, 0, 0] + LOWPASS
+    cov01 = cov2d[:, 0, 1]
+    cov11 = cov2d[:, 1, 1] + LOWPASS
+
+    det = cov00 * cov11 - cov01 * cov01
+    det_ok = det != 0.0
+    inv_det = torch.where(det_ok, 1.0 / torch.where(det_ok, det, 1.0), 0.0)
+    conics = torch.stack([cov11 * inv_det, -cov01 * inv_det,
+                          cov00 * inv_det], dim=-1)
+    mid = 0.5 * (cov00 + cov11)
+    lambda1 = mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))
+    radius_f = torch.ceil(3.0 * torch.sqrt(lambda1))
+
+    means2d = torch.stack(
+        [((p_proj[:, 0] + 1.0) * image_width - 1.0) * 0.5,
+         ((p_proj[:, 1] + 1.0) * image_height - 1.0) * 0.5], dim=-1)
+    on_screen = ((means2d[:, 0] + radius_f > 0)
+                 & (means2d[:, 0] - radius_f < image_width)
+                 & (means2d[:, 1] + radius_f > 0)
+                 & (means2d[:, 1] - radius_f < image_height))
+    visible = in_front & det_ok & on_screen
+    radii = torch.where(visible, radius_f, 0.0).to(torch.int32)
+    return ProjectedGaussians(means2d=means2d, depths=tz, conics=conics,
+                              radii=radii, p_view_z=tz)
+
+
+def project_from_camera(means3d, cov3d, camera) -> ProjectedGaussians:
+    return project(means3d, cov3d, camera.world_view_transform,
+                   camera.full_proj_transform, camera.image_width,
+                   camera.image_height, camera.tan_fovx, camera.tan_fovy)
 
 
 def covariance_cols(scales: torch.Tensor, quats: torch.Tensor):
@@ -155,3 +250,26 @@ def visible_filter(means3d, scales, quats, camera) -> torch.Tensor:
     with torch.no_grad():
         proj = project_gaussians_cols(means3d, scales, quats, camera)
     return proj.radius > 0
+
+
+def rect_bounds(mx, my, radius, tile_size: int, tiles_x: int, tiles_y: int):
+    """(x0, y0, x1, y1) int32 columns of each gaussian's tile rect: the
+    tiles its radius square touches, exclusive upper, clamped to the grid
+    (CUDA's getRect).  The binning and the dense compositor's tile cull
+    both take their rects from here."""
+    def span(c, lo_hi, n):
+        return torch.clamp(lo_hi(c / tile_size), 0, n).to(torch.int32)
+
+    return (span(mx - radius, torch.floor, tiles_x),
+            span(my - radius, torch.floor, tiles_y),
+            span(mx + radius, torch.ceil, tiles_x),
+            span(my + radius, torch.ceil, tiles_y))
+
+
+def tile_rect(means2d: torch.Tensor, radii: torch.Tensor, tile_size: int,
+              tiles_x: int, tiles_y: int) -> torch.Tensor:
+    """Per-gaussian tile rect [N, 4] = (x0, y0, x1, y1), exclusive upper,
+    in tiles; an empty rect (x0 >= x1 or y0 >= y1) touches no tile."""
+    r = radii.to(means2d.dtype)
+    return torch.stack(rect_bounds(means2d[:, 0], means2d[:, 1], r,
+                                   tile_size, tiles_x, tiles_y), dim=-1)

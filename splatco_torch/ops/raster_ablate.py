@@ -120,5 +120,5 @@ def raster_fwd16_ablate(records: torch.Tensor, tile_start: torch.Tensor,
                         t_final.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} launch failed: CUDA error {err}")
-    cuda_lib.LAUNCHES[f"{KERNEL}[{variant}]"] += 1
+    cuda_lib.count_launch(f"{KERNEL}[{variant}]")
     return rgb, t_final

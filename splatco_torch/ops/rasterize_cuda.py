@@ -179,7 +179,7 @@ def raster_fwd(records: torch.Tensor, tile_start: torch.Tensor,
                  stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_launch(name)
     return rgb, t_final
 
 
@@ -401,5 +401,5 @@ def raster_bwd(records: torch.Tensor, tile_start: torch.Tensor,
                  t_final.data_ptr(), bg.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    cuda_lib.LAUNCHES[name] += 1
+    cuda_lib.count_launch(name)
     return out

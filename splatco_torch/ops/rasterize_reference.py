@@ -30,7 +30,7 @@ from typing import Optional
 
 import torch
 
-from splatco_torch.ops.projection import ProjectedCols
+from splatco_torch.ops.projection import ProjectedCols, rect_bounds
 
 ALPHA_MIN = 1.0 / 255.0
 ALPHA_MAX = 0.99
@@ -42,18 +42,6 @@ def depth_order(depths: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     back."""
     key = torch.where(valid, depths, torch.inf)
     return torch.argsort(key, stable=True)
-
-
-def tile_rect(mx, my, radius, tile_size: int, tiles_x: int, tiles_y: int):
-    """Per-gaussian tile rect [N, 4] = (x0, y0, x1, y1), exclusive upper,
-    in tiles, clamped to the grid (CUDA getRect)."""
-    def span(c, lo_hi, n):
-        return torch.clamp(lo_hi(c / tile_size), 0, n).to(torch.int32)
-
-    return torch.stack([span(mx - radius, torch.floor, tiles_x),
-                        span(my - radius, torch.floor, tiles_y),
-                        span(mx + radius, torch.ceil, tiles_x),
-                        span(my + radius, torch.ceil, tiles_y)], dim=-1)
 
 
 def rasterize_dense(proj: ProjectedCols, colors: torch.Tensor,
@@ -78,9 +66,10 @@ def rasterize_dense(proj: ProjectedCols, colors: torch.Tensor,
     px = torch.arange(image_width, dtype=torch.float32,
                       device=dev).repeat(image_height)
     if tile_size is not None:
-        rects = tile_rect(mx.detach(), my.detach(), radius[order],
-                          tile_size, -(-image_width // tile_size),
-                          -(-image_height // tile_size))
+        rects = torch.stack(rect_bounds(
+            mx.detach(), my.detach(), radius[order], tile_size,
+            -(-image_width // tile_size), -(-image_height // tile_size)),
+            dim=-1)
         ptx = (px / tile_size).to(torch.int32)
         pty = (py / tile_size).to(torch.int32)
 

@@ -124,6 +124,29 @@ def load_pytree(path: str, device=None):
     return params_from_numpy(_read_archive(path), device=device)
 
 
+def load_pytree_like(path: str, template):
+    """An archive loaded into the structure of `template` (a nested
+    dict/list of tensors): every leaf of the template must be there with
+    its shape, and takes its dtype and device."""
+    archive = _read_archive(path)
+
+    def build(tree, key):
+        if isinstance(tree, dict):
+            return {k: build(v, f"{key}['{k}']") for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(build(v, f"{key}[{i}]")
+                              for i, v in enumerate(tree))
+        if key not in archive:
+            raise KeyError(f"{path} has no {key}")
+        if archive[key].shape != tuple(tree.shape):
+            raise ValueError(f"{key}: {archive[key].shape} in {path}, "
+                             f"{tuple(tree.shape)} in the template")
+        return torch.as_tensor(archive[key], dtype=tree.dtype,
+                               device=tree.device)
+
+    return build(template, "")
+
+
 def save_model_checkpoint(model_path: str, iteration: int,
                           params: Dict[str, Any], active: torch.Tensor,
                           meta: Optional[dict] = None) -> None:

@@ -27,7 +27,7 @@ import logging
 import os
 import random
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -55,6 +55,19 @@ def _eval_view_metrics(img, gt):
     """L1, mean PSNR and SSIM of one view, as device scalars."""
     return torch.stack([l1_loss(img, gt), psnr(img, gt).mean(),
                         ssim(img, gt)])
+
+
+class ViewerSnapshot(NamedTuple):
+    """What a viewer renders: the trainer's state after an iteration's
+    host logic, published as one tuple so a reader on another thread
+    never pairs the params of one capacity with the mask of another."""
+    iteration: int
+    params: Dict[str, Any]
+    active: torch.Tensor
+    contractor: Contractor
+    activate_level: int
+    kmax: int
+    bg: torch.Tensor
 
 
 def get_logger(path: str) -> logging.Logger:
@@ -115,6 +128,9 @@ class Trainer:
     device: Any = None          # None: the card
     # "cuda": the tile kernels; "dense": the dense compositor
     backend: str = "cuda"
+    # optional viewer/network_gui.ViewerServer: its `train` control field
+    # pauses and resumes the loop, its `keep_alive` holds it at the end
+    viewer: Optional[Any] = None
 
     def setup(self, scene: Scene, seed: int = 0):
         self.dev = resolve_device(self.device)
@@ -144,6 +160,7 @@ class Trainer:
         self._gate_cache: Dict[Any, float] = {}
         self._clip_warned = False
         self.train_cams = scene.train_cameras()
+        self.published: Optional[ViewerSnapshot] = None
         self.metrics_log = []
         self.ema_loss = 0.0
         self.tb_writer = None
@@ -263,6 +280,18 @@ class Trainer:
         cams.sort(key=lambda c: (c.image_height, c.image_width))
         return cams
 
+    def publish(self, iteration: Optional[int] = None):
+        """Publish the state a viewer renders.  The step, the optimizer,
+        densify and regrowth return new tensors and never write into the
+        ones they are given, so the published tensors stay as they were
+        when published."""
+        self.published = ViewerSnapshot(
+            iteration=self.start_iter if iteration is None else iteration,
+            params=self.params, active=self.mstate.active,
+            contractor=self.mstate.contractor,
+            activate_level=self.activate_level, kmax=self.cfg.kmax,
+            bg=self._bg())
+
     def _bg(self):
         bg = [1.0, 1.0, 1.0] if self.cfg.white_background else [0, 0, 0]
         return torch.tensor(bg, dtype=torch.float32, device=self.dev)
@@ -295,7 +324,11 @@ class Trainer:
         self._last_l1 = 0.0
         t_window = time.perf_counter()
         window_n = 0
+        if self.viewer is not None:
+            self.publish()
         for it in range(self.start_iter + 1, iterations + 1):
+            if self.viewer is not None:
+                self.viewer.wait_training_allowed()
             cams = self._sample_cameras()
             gts = [c.image for c in cams]
             in_update = opt.update_from < it < opt.update_until
@@ -362,6 +395,10 @@ class Trainer:
             if it in self.checkpoint_iterations and self.cfg.model_path:
                 log.info(f"[ITER {it}] saving training checkpoint")
                 self.save_training_state(it)
+            if self.viewer is not None:
+                self.publish(it)
+        if self.viewer is not None:
+            self.viewer.wait_released()
         return self.metrics_log
 
     def _update_contractor(self):

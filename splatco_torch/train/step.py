@@ -35,6 +35,11 @@ from splatco_torch.train.optimizer import Optimizer, tree_leaves, tree_map
 from splatco_torch.utils.device import resolve_device
 
 
+# the blocks `make_train_step(disable=...)` can remove
+DISABLE = frozenset({"ssim", "consistency", "tv", "stats", "optimizer",
+                     "sreg"})
+
+
 @dataclasses.dataclass
 class TrainStats:
     """Densification statistics (the reference's training_statis state)."""
@@ -52,11 +57,37 @@ def init_stats(capacity: int, n_offsets: int, device=None) -> TrainStats:
                       offset_denom=z(capacity * n_offsets))
 
 
+def _accumulate_stats(stats: TrainStats, stats_on,
+                      vis_anchor: torch.Tensor, out,
+                      proxy_grad: torch.Tensor, cam, c: int, k: int
+                      ) -> TrainStats:
+    """The densification statistics of one step from its last view: the
+    visible anchors' opacity sums and counts, and the norms of the
+    selected gaussians' screen-space gradients in NDC units."""
+    vis_anchor = vis_anchor[:, None]
+    neur_op = torch.clamp_min(out.neural_opacity.detach(), 0.0).reshape(c, k)
+    slot_mask = (out.selection_mask & out.visibility_filter)[:, None]
+    gscale = torch.tensor([0.5 * cam.image_width, 0.5 * cam.image_height],
+                          dtype=torch.float32, device=proxy_grad.device)
+    gnorm = torch.linalg.vector_norm(proxy_grad * gscale, dim=-1,
+                                     keepdim=True)
+    return TrainStats(
+        opacity_accum=stats.opacity_accum + stats_on * torch.where(
+            vis_anchor, neur_op.sum(dim=1, keepdim=True), 0.0),
+        anchor_demon=stats.anchor_demon + stats_on * torch.where(
+            vis_anchor, 1.0, 0.0),
+        offset_gradient_accum=stats.offset_gradient_accum
+        + stats_on * torch.where(slot_mask, gnorm, 0.0),
+        offset_denom=stats.offset_denom
+        + stats_on * torch.where(slot_mask, 1.0, 0.0))
+
+
 def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
                     activate_level: int, tx: Optimizer,
                     q_noise: float = 0.03, device=None,
                     tile16: Optional[bool] = None,
-                    backend: str = "cuda") -> Callable:
+                    backend: str = "cuda",
+                    disable: frozenset = frozenset()) -> Callable:
     """The SVC step for a fixed activate_level and mv, with the optimizer
     `tx` (train/optimizer.make_optimizer), running on `device` (default
     the card).  `tile16` picks the rasterizer configuration
@@ -74,7 +105,17 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
     row-major order; None computes them in the step).  `stage(name)`,
     when given, returns a context manager wrapped around each phase
     ("planes", "forward_view<i>", "losses", "backward", "stats", "adam"),
-    for timing.  The inputs are not modified."""
+    for timing.  The inputs are not modified.
+
+    `disable` is a profiling tool (tools/profile_step_recon_torch.py): it
+    removes the named blocks, of DISABLE, so that the step's time can be
+    attributed by differencing; "optimizer" returns the params and the
+    optimizer state it was given, "stats" the statistics.  Training
+    leaves it empty."""
+    unknown = set(disable) - DISABLE
+    if unknown:
+        raise ValueError(f"unknown blocks {sorted(unknown)}: not in "
+                         f"{sorted(DISABLE)}")
     dev = resolve_device(device)
     dkw = decode_kwargs(cfg)
     lam = opt.lambda_dssim
@@ -118,10 +159,12 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
                 max_slots = torch.maximum(max_slots, out.max_slots)
                 num_clipped = num_clipped + out.num_clipped
                 ll1 = l1_loss(out.image, gts[i])
-                ssim_l = 1.0 - ssim(out.image, gts[i])
+                ssim_l = (1.0 - ssim(out.image, gts[i])
+                          if "ssim" not in disable else 0.0)
                 m = out.selection_mask.to(torch.float32)
                 sreg = ((torch.prod(out.scaling, dim=1) * m).sum()
-                        / torch.clamp_min(m.sum(), 1.0))
+                        / torch.clamp_min(m.sum(), 1.0)
+                        if "sreg" not in disable else 0.0)
                 total = total + ((1.0 - lam) * ll1 + lam * ssim_l
                                  + 0.01 * sreg)
             images.append(out.image)
@@ -129,7 +172,7 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
         with phase("losses"):
             con = torch.zeros((), device=dev)
             pidx = 0
-            for i in range(mv):
+            for i in range(mv if "consistency" not in disable else 0):
                 for j in range(i + 1, mv):
                     mh = min(gts[i].shape[-2], gts[j].shape[-2])
                     mw = min(gts[i].shape[-1], gts[j].shape[-1])
@@ -142,8 +185,9 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
                     con = con + torch.where(gate > 0.6, gate * diff.abs(),
                                             0.0)
             total = total + consistency_on * 0.05 * con
-            total = total + tv_loss(leaves["planes"], 1.0,
-                                    activate_level) * tv_w
+            if "tv" not in disable:
+                total = total + tv_loss(leaves["planes"], 1.0,
+                                        activate_level) * tv_w
 
         with phase("backward"):
             flat = tree_leaves(leaves)
@@ -158,29 +202,14 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
             it = iter(grads[:-1])
             grads = tree_map(lambda _: next(it), leaves)
 
-        with phase("stats"):
-            vis_anchor = vis_masks[-1][:, None]
-            neur_op = torch.clamp_min(out.neural_opacity.detach(),
-                                      0.0).reshape(c, k)
-            slot_mask = (out.selection_mask & out.visibility_filter)[:, None]
-            cam = cameras[-1]
-            gscale = torch.tensor([0.5 * cam.image_width,
-                                   0.5 * cam.image_height],
-                                  dtype=torch.float32, device=dev)
-            gnorm = torch.linalg.vector_norm(proxy_grad * gscale, dim=-1,
-                                             keepdim=True)
-            stats = TrainStats(
-                opacity_accum=stats.opacity_accum + stats_on * torch.where(
-                    vis_anchor, neur_op.sum(dim=1, keepdim=True), 0.0),
-                anchor_demon=stats.anchor_demon + stats_on * torch.where(
-                    vis_anchor, 1.0, 0.0),
-                offset_gradient_accum=stats.offset_gradient_accum
-                + stats_on * torch.where(slot_mask, gnorm, 0.0),
-                offset_denom=stats.offset_denom
-                + stats_on * torch.where(slot_mask, 1.0, 0.0))
-
-        with phase("adam"):
-            new_params, opt_state = tx.update(grads, opt_state, params)
+        if "stats" not in disable:
+            with phase("stats"):
+                stats = _accumulate_stats(stats, stats_on, vis_masks[-1],
+                                          out, proxy_grad, cameras[-1], c, k)
+        new_params = params
+        if "optimizer" not in disable:
+            with phase("adam"):
+                new_params, opt_state = tx.update(grads, opt_state, params)
         metrics: Dict[str, Any] = {
             "loss": total.detach(), "l1": ll1.detach(), "con": con.detach(),
             "num_overflow": 0, "max_slots": max_slots,

@@ -30,7 +30,7 @@ from splatco_torch.eval.raft import (init_raft_params, load_raft_weights,
                                      make_flow_fn, raft_params_from_numpy)
 from splatco_torch.eval.render_driver import (load_trained, render_set,
                                               render_sets)
-from splatco_torch.models.contraction import Contractor
+from splatco_torch.models.contraction import Contractor, make_contractor
 from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import (decode_kwargs, init_model,
                                           params_from_numpy)
@@ -40,8 +40,10 @@ from splatco_torch.train.checkpoint import (load_model_checkpoint,
 from splatco_torch.train.import_reference import load_reference_model
 from splatco_torch.train.optimizer import make_optimizer, opt_state_from_numpy
 from splatco_torch.train.step import init_stats, make_train_step
-from splatco_torch.utils.synthetic import (write_blender_dataset,
-                                           write_colmap_dataset)
+from splatco_torch.utils.synthetic import (hard_camera,
+                                           write_blender_dataset,
+                                           write_colmap_dataset,
+                                           write_hard_dataset)
 from splatco_tpu.data.cameras import look_at_camera as j_look_at
 from splatco_tpu.eval import render_driver as j_driver
 from splatco_tpu.models.contraction import Contractor as j_Contractor
@@ -238,15 +240,17 @@ def test_jax_checkpoint_renders_through_port(tmp_path):
 def test_port_imports_no_jax():
     """Importing every module of splatco_torch, chip_smoke.py, the CLIs
     (render_torch.py, train_torch.py, metrics_torch.py,
-    detect_popping_torch.py) and tools/quality_run_torch.py and
-    tools/profile_torch_eval.py pulls in neither jax nor splatco_tpu
-    (fresh interpreter)."""
+    detect_popping_torch.py) and the tools (quality_run_torch.py,
+    ablation_run_torch.py, finalize_quality_run_torch.py,
+    profile_step_recon_torch.py, profile_torch_eval.py) pulls in neither
+    jax nor splatco_tpu (fresh interpreter)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import splatco_torch, chip_smoke, render_torch, train_torch\n"
         "import metrics_torch, detect_popping_torch\n"
         "sys.path.insert(0, 'tools')\n"
-        "import quality_run_torch, profile_torch_eval\n"
+        "import quality_run_torch, profile_torch_eval, ablation_run_torch\n"
+        "import finalize_quality_run_torch, profile_step_recon_torch\n"
         "for m in pkgutil.walk_packages(splatco_torch.__path__,"
         " 'splatco_torch.'):\n"
         "    importlib.import_module(m.name)\n"
@@ -285,6 +289,9 @@ ENTRY_POINTS = {
     "load_train_state": lambda: load_train_state("unused", 1),
     "write_colmap_dataset": lambda: write_colmap_dataset("unused"),
     "write_blender_dataset": lambda: write_blender_dataset("unused"),
+    "write_hard_dataset": lambda: write_hard_dataset("unused"),
+    "hard_camera": lambda: hard_camera(0, 4, 32, 24),
+    "make_contractor": lambda: make_contractor([0, 0, 0], [1, 1, 1], 1.0),
     "evaluate": lambda: evaluate(["unused"]),
     "evaluate_dir": lambda: evaluate_dir("unused"),
     "lpips.load_weights": lambda: lpips.load_weights("unused.npz"),

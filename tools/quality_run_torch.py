@@ -10,11 +10,16 @@ metrics, then the offline artifacts of the trained model: render_sets
 orbit stream (popping_results.json, its plots).
 
     python3 tools/quality_run_torch.py --iterations 15000 \
-        --out RESULTS_torch.json [--device cpu]
+        --out RESULTS_torch.json [--device cpu] [--hard [--arc_period 2]]
 
-Runs on the card unless --device cpu is given.  A failing artifact stage
-fails the run.  The hard synthetic protocol (--hard, --arc_period) is not
-ported."""
+--hard writes the hard protocol's scene (utils/synthetic.py
+write_hard_dataset: sharp detail, a sparse noisy init, close and far
+cameras, every --arc_period-th view on the inner arc), where
+densification, pruning and CVPM have work to do.  Runs on the card
+unless --device cpu is given.  A failing artifact stage fails the run.
+The run keeps a training checkpoint at every eval, which
+tools/finalize_quality_run_torch.py turns into the same payload when a
+run is cut short."""
 import argparse
 import json
 import os
@@ -42,7 +47,7 @@ from splatco_torch.ops.losses import psnr, ssim  # noqa: E402
 from splatco_torch.train.loop import Trainer  # noqa: E402
 from splatco_torch.utils.device import resolve_device  # noqa: E402
 from splatco_torch.utils.synthetic import (  # noqa: E402
-    orbit_camera, write_blender_dataset)
+    orbit_camera, write_blender_dataset, write_hard_dataset)
 
 ORBIT_FRAMES = 48
 
@@ -90,6 +95,62 @@ def offline_artifacts(cfg, tr, args):
     return out
 
 
+def protocol(scene: str, model: str, iterations: int,
+             max_capacity: int = 0, downsample: bool = False):
+    """(cfg, opt, pipe, trainer keyword arguments) of the quality
+    protocol: the production configuration with the reference's cadence
+    scaled to `iterations`, so every phase (stat warm-up, densify window,
+    activation, polish) runs; graph downsampling off unless asked for,
+    as the reference's quick-start passes --no_downsample."""
+    cfg = ModelConfig(source_path=scene, model_path=model,
+                      feat_dim=32, n_offsets=10, voxel_size=0.01,
+                      plane_size=512, num_channels=9, appearance_dim=0,
+                      contractor=True, white_background=True, eval=True,
+                      max_capacity=max_capacity)
+    opt = OptimizationConfig(iterations=iterations)
+    if not downsample:
+        opt.graph_downsampling_iters = []
+    scale = iterations / 30000.0
+    opt.start_stat = max(int(500 * scale), 10)
+    opt.update_from = max(int(1500 * scale), 20)
+    opt.update_until = max(int(15000 * scale), 200)
+    opt.position_lr_max_steps = iterations
+    opt.offset_lr_max_steps = iterations
+    opt.mlp_opacity_lr_max_steps = iterations
+    opt.mlp_cov_lr_max_steps = iterations
+    opt.mlp_color_lr_max_steps = iterations
+    act1 = max(int(12000 * scale), 100)
+    act2 = max(int(21000 * scale), 200)
+    tests = sorted({max(int(f * scale), 1) for f in
+                    (3000, 7000, 12000, 17000, 22000, 30000)} | {iterations})
+    kwargs = dict(test_iterations=tuple(tests),
+                  save_iterations=(iterations,),
+                  checkpoint_iterations=tuple(tests),  # resumable at evals
+                  activation_iterations=(act1, act2))
+    return cfg, opt, PipelineConfig(mv=4), kwargs
+
+
+def final_test(tr, scene) -> dict:
+    """PSNR, SSIM and FLIP of the trained model on each test view."""
+    bg = tr._bg()
+    dkw = decode_kwargs(tr.cfg)
+    finals = {"psnr": [], "ssim": [], "flip": []}
+    with torch.inference_mode():
+        for cam in scene.test_cameras():
+            vis = prefilter_voxel(tr.params["anchors"], tr.mstate.active,
+                                  cam)
+            out = render(tr.params, tr.mstate.active, tr.mstate.contractor,
+                         cam, bg, visible_mask=vis,
+                         activate_level=tr.activate_level,
+                         is_training=False, kmax=tr.cfg.kmax, **dkw)
+            img = torch.clamp(out.image, 0, 1)
+            gt = torch.clamp(cam.image, 0, 1)
+            finals["psnr"].append(float(psnr(img, gt).mean()))
+            finals["ssim"].append(float(ssim(img, gt)))
+            finals["flip"].append(float(ldr_flip(img, gt)))
+    return finals
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--iterations", type=int, default=15000)
@@ -99,10 +160,18 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     ap.add_argument("--views", type=int, default=28)
     ap.add_argument("--points", type=int, default=1200)
+    ap.add_argument("--hard", action="store_true",
+                    help="use the hard synthetic protocol (high-frequency "
+                    "content, sparse noisy init, close-in cameras) so "
+                    "densification growth, opacity pruning, CVPM and "
+                    "capacity regrowth fire")
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--height", type=int, default=224)
     ap.add_argument("--max_capacity", type=int, default=0,
                     help="cap densify capacity regrowth")
+    ap.add_argument("--arc_period", type=int, default=3,
+                    help="hard rig: every P-th view on the inner arc "
+                    "(2 = a dense arc for short ablation runs)")
     ap.add_argument("--downsample", action="store_true",
                     help="re-enable graph downsampling (the reference's "
                     "quick-start passes --no_downsample)")
@@ -122,68 +191,29 @@ def main(argv=None):
     if not os.path.exists(os.path.join(args.scene,
                                        "transforms_train.json")):
         print(f"writing synthetic scene -> {args.scene}")
-        write_blender_dataset(args.scene, n_views=args.views,
-                              n_pts=args.points, width=args.width,
-                              height=args.height, device=dev)
+        if args.hard:
+            write_hard_dataset(args.scene, n_views=args.views,
+                               n_pts=args.points, width=args.width,
+                               height=args.height,
+                               arc_period=args.arc_period, device=dev)
+        else:
+            write_blender_dataset(args.scene, n_views=args.views,
+                                  n_pts=args.points, width=args.width,
+                                  height=args.height, device=dev)
 
     it_total = args.iterations
-    cfg = ModelConfig(source_path=args.scene, model_path=args.model,
-                      feat_dim=32, n_offsets=10, voxel_size=0.01,
-                      plane_size=512, num_channels=9, appearance_dim=0,
-                      contractor=True, white_background=True, eval=True,
-                      max_capacity=args.max_capacity)
-    opt = OptimizationConfig(iterations=it_total)
-    # the reference's quick-start passes --no_downsample
-    if not args.downsample:
-        opt.graph_downsampling_iters = []
-    # scale the reference cadence to the run length so every phase
-    # (stat warm-up, densify window, activation, polish) is exercised
-    scale = it_total / 30000.0
-    opt.start_stat = max(int(500 * scale), 10)
-    opt.update_from = max(int(1500 * scale), 20)
-    opt.update_until = max(int(15000 * scale), 200)
-    opt.position_lr_max_steps = it_total
-    opt.offset_lr_max_steps = it_total
-    opt.mlp_opacity_lr_max_steps = it_total
-    opt.mlp_cov_lr_max_steps = it_total
-    opt.mlp_color_lr_max_steps = it_total
-    act1 = max(int(12000 * scale), 100)
-    act2 = max(int(21000 * scale), 200)
-    tests = sorted({max(int(f * scale), 1) for f in
-                    (3000, 7000, 12000, 17000, 22000, 30000)} | {it_total})
-    pipe = PipelineConfig(mv=4)
-
+    cfg, opt, pipe, kwargs = protocol(args.scene, args.model, it_total,
+                                      args.max_capacity, args.downsample)
     scene = Scene(cfg, shuffle=False, device=dev)
-    tr = Trainer(cfg, opt, pipe, test_iterations=tuple(tests),
-                 save_iterations=(it_total,),
-                 checkpoint_iterations=tuple(tests),  # resumable at evals
-                 activation_iterations=(act1, act2),
-                 no_multilevel=args.no_multilevel,
+    tr = Trainer(cfg, opt, pipe, no_multilevel=args.no_multilevel,
                  no_consistency=args.no_consistency,
-                 no_cvpm=args.no_cvpm, device=dev)
+                 no_cvpm=args.no_cvpm, device=dev, **kwargs)
     tr.setup(scene, seed=0)
     t0 = time.time()
     tr.train(iterations=it_total, progress_every=max(it_total // 60, 10))
     wall = time.time() - t0
 
-    # ---- final offline metrics over the test split ----------------------
-    bg = tr._bg()
-    dkw = decode_kwargs(cfg)
-    finals = {"psnr": [], "ssim": [], "flip": []}
-    with torch.inference_mode():
-        for cam in scene.test_cameras():
-            vis = prefilter_voxel(tr.params["anchors"], tr.mstate.active,
-                                  cam)
-            out = render(tr.params, tr.mstate.active, tr.mstate.contractor,
-                         cam, bg, visible_mask=vis,
-                         activate_level=tr.activate_level,
-                         is_training=False, kmax=cfg.kmax, **dkw)
-            img = torch.clamp(out.image, 0, 1)
-            gt = torch.clamp(cam.image, 0, 1)
-            finals["psnr"].append(float(psnr(img, gt).mean()))
-            finals["ssim"].append(float(ssim(img, gt)))
-            finals["flip"].append(float(ldr_flip(img, gt)))
-
+    finals = final_test(tr, scene)
     # ---- offline artifacts: render / metrics / popping against the
     # trained model ---------------------------------------------------------
     artifacts = (None if args.skip_artifacts
@@ -195,7 +225,7 @@ def main(argv=None):
             "backend": "cuda" if dev.type == "cuda" else "plain",
             "mv": pipe.mv, "views": args.views, "points": args.points,
             "resolution": [args.height, args.width],
-            "activation_iterations": [act1, act2],
+            "activation_iterations": list(kwargs["activation_iterations"]),
             "densify_window": [opt.update_from, opt.update_until],
             "graph_downsampling_iters": list(
                 opt.graph_downsampling_iters),

@@ -1,6 +1,6 @@
 #!/usr/bin/env python
-"""Training CLI of the PyTorch/CUDA port (train.py's arguments, without
---gui and --profile; --backend is cuda, the tile kernels, or dense).
+"""Training CLI of the PyTorch/CUDA port (train.py's arguments; --backend
+is cuda, the tile kernels, or dense).
 
     python3 train_torch.py -s <scene> -m out/run --mv 4 --num_channels 15 \
         --plane_size 2800 --no_downsample --contractor --bbox_scale 0.3 \
@@ -14,8 +14,16 @@ its resumption (--start_checkpoint <model>/chkpnt<N>, a bare N, or
 render_torch.py, and loads in the JAX package too.  With the
 SPLATCO_COORDINATOR / SPLATCO_NUM_PROCESSES / SPLATCO_PROCESS_ID variables
 set, each process first joins the process group
-(splatco_torch/parallel/distributed.py) and takes its own card."""
+(splatco_torch/parallel/distributed.py) and takes its own card.
+
+--gui serves the SIBR network viewer on --ip:--port while it trains
+(splatco_torch/viewer/network_gui.py): the viewer can pause and resume
+training, scale the gaussians, and keep the server up past the last
+iteration.  --profile records the run with torch.profiler (CPU, and CUDA
+on the card) into <model_path or .>/profile_trace/trace.json, a Chrome
+trace."""
 import argparse
+import os
 import random
 
 import torch
@@ -42,6 +50,8 @@ def main(argv=None) -> Trainer:
     add_dataclass_args(parser, ModelConfig())
     add_dataclass_args(parser, OptimizationConfig())
     add_dataclass_args(parser, PipelineConfig())
+    parser.add_argument("--ip", type=str, default="127.0.0.1")
+    parser.add_argument("--port", type=int, default=6009)
     parser.add_argument("--debug_from", type=int, default=-1)
     parser.add_argument("--detect_anomaly", action="store_true")
     parser.add_argument("--test_iterations", nargs="+", type=int,
@@ -60,6 +70,10 @@ def main(argv=None) -> Trainer:
                         choices=["cuda", "cpu"])
     parser.add_argument("--backend", type=str, default="cuda",
                         choices=["cuda", "dense"])
+    parser.add_argument("--gui", action="store_true",
+                        help="start the network viewer server")
+    parser.add_argument("--profile", action="store_true",
+                        help="record a torch.profiler trace of the run")
     parser.add_argument("--determinism_check", action="store_true",
                         help="run the step twice periodically and require "
                         "bit-identical results")
@@ -102,9 +116,36 @@ def main(argv=None) -> Trainer:
     if args.start_checkpoint:
         trainer.restore(iteration=checkpoint_iteration(
             args.start_checkpoint))
-    trainer.train()
+    if args.gui:
+        from splatco_torch.viewer.network_gui import ViewerServer
+        trainer.viewer = ViewerServer(trainer, args.ip, args.port)
+        trainer.viewer.start()
+    try:
+        if args.profile:
+            profile_run(trainer, model.model_path or ".")
+        else:
+            trainer.train()
+    finally:
+        if trainer.viewer is not None:
+            trainer.viewer.stop()
     print("\nTraining complete.")
     return trainer
+
+
+def profile_run(trainer: Trainer, out_dir: str) -> str:
+    """trainer.train() under torch.profiler; returns the Chrome trace's
+    path, <out_dir>/profile_trace/trace.json."""
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if trainer.dev.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        trainer.train()
+    path = os.path.join(out_dir, "profile_trace", "trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    prof.export_chrome_trace(path)
+    return path
 
 
 if __name__ == "__main__":
