@@ -148,9 +148,9 @@ Run from the repository root.  Phases, each of which fails loudly:
      client leaves; ms per served frame (host clock, send to last byte);
      `raster_fwd` launches 4 a step + 1 an eval frame + 1 a served frame.
      19b: `--profile` over 5 iterations of the same run: the Chrome trace
-     must name both blend kernels.  19c: tools/profile_step_recon_torch.py
-     on phase 7's model and views: ms/step of each variant and each
-     block's cost; the step without the optimizer returns its params
+     must name both blend kernels and the `plane_sample` ranges.  19c:
+     tools/profile_step_recon_torch.py on phase 7's model and views:
+     ms/step of each variant and each block's cost; the step without the optimizer returns its params
      bit for bit.  19d: the hard protocol's scene (28 views at 320x224,
      arc_period 2; no ground-truth view may clip), a 600-iteration
      `quality_run_torch.main --hard` (finite losses, test PSNR rising;
@@ -158,8 +158,24 @@ Run from the repository root.  Phases, each of which fails loudly:
      `ablation_run_torch.main` at 200 iterations (four finite variants)
      and `finalize_quality_run_torch.main` on the run's last checkpoint
      (the run's final metrics).
+ 20. the tri-plane sampler (ops/plane_sample.py), whose kernels every
+     decode above launched (`plane_sample_fwd` once a plane of a decode;
+     `plane_sample_bwd` once a plane of a training step; counted exactly
+     in phases 4, 7, 12, 13 and 17's orbit, at least once in the
+     others).  20a: at full width (131,072 rows, R 5, planes of 700^2
+     and 1400^2; a quarter of the rows inside, a quarter partly off the
+     plane, half at one point) the forward and its keys equal their plain
+     versions bit for bit, the backward's three gradients each within
+     1e-5 of its max of the plain version and two launches bit for bit.
+     20b: each timed beside its bound, its plain version and
+     `F.grid_sample` (forward; its backward, `grid_sampler_2d_backward`).
+     20c: phase 16's iteration-45 state (capacity 131,072): the
+     sampler's forward + backward over level 0's 6 planes and all 12,
+     through the plain version with autograd (`index_put_`, the path
+     before these kernels) and through the kernels, over all rows and
+     over the active ones alone.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
-Prints a `kernels` JSON line (all nine kernels), then, as the last line,
+Prints a `kernels` JSON line (all eleven kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
 there is no CUDA card.
 """
@@ -198,11 +214,14 @@ from splatco_torch.data.scene import Scene
 from splatco_torch.eval import metrics_driver, popping, raft
 from splatco_torch.eval.render_driver import (load_trained, render_set,
                                               render_sets)
-from splatco_torch.models.renderer import (generate_neural_gaussians,
+from splatco_torch.models.contraction import Contractor
+from splatco_torch.models.renderer import (anchor_plane_coords,
+                                           generate_neural_gaussians,
                                            prefilter_voxel, render)
 from splatco_torch.models.splatco import decode_kwargs, init_model
-from splatco_torch.ops import (cuda_lib, lpips, probes, raster_ablate,
-                               raster_v3)
+from splatco_torch.models.triplane import _split_coords, apply_tpa
+from splatco_torch.ops import (cuda_lib, lpips, plane_sample, probes,
+                               raster_ablate, raster_v3)
 from splatco_torch.ops import rasterize as rasterize_ops
 from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.flip import ldr_flip
@@ -220,7 +239,8 @@ from splatco_torch.parallel.dryrun import (sharded_loop, single_gradients,
 from splatco_torch.parallel.mesh import STAT_FIELDS, shard_params
 from splatco_torch.parallel.train_step import make_sharded_train_step
 from splatco_torch.train import loop as train_loop
-from splatco_torch.train.checkpoint import (params_to_numpy,
+from splatco_torch.train.checkpoint import (load_train_state,
+                                            params_to_numpy,
                                             save_model_checkpoint)
 from splatco_torch.train.optimizer import (group_schedules, label_params,
                                            make_optimizer)
@@ -260,7 +280,12 @@ REPLACES = {
     probes.ACCUM: "tools/micro_mosaic.py:140",
     probes.BLEND: "tools/micro_mosaic.py:171",
     raster_ablate.KERNEL: "tools/profile_kernel_v3.py:61",
+    # the tri-plane sampler: an XLA stage (the gather of `_sample_plane`;
+    # the backward is its jax.grad scatter-add), not a Pallas kernel
+    plane_sample.FWD_KERNEL: "splatco_tpu/models/triplane.py:51",
+    plane_sample.BWD_KERNEL: "splatco_tpu/models/triplane.py:51",
 }
+SAMPLER = (plane_sample.FWD_KERNEL, plane_sample.BWD_KERNEL)
 # phase 14: the tools time each probe mode and ablation variant over this
 # many launches, after one checked launch and a warm-up
 PROBE_ITERS = 20
@@ -338,6 +363,15 @@ VIEWER_ITERS, VIEWER_PAUSE_AT, PROFILE_ITERS = 65, 48, 50
 RECON_ITERS = 6
 HARD_VIEWS, HARD_POINTS, HARD_W, HARD_H = 28, 1200, 320, 224
 HARD_ITERS, ABLATION_ITERS = 600, 200
+# phase 20: the tri-plane sampler's kernels at full width (a trained
+# model's capacity after its regrowth, the quick start's R = 15 // 3 and
+# plane sizes).  The forward and its keys are held to their plain
+# versions bit for bit (the same float32 operations, --fmad=false); the
+# backward's three gradients each to this share of its max |value| (the
+# plain version sums in the kernel's order, so 0 is expected; index_put_
+# on the card would sum in another), and two launches bit for bit
+SAMPLER_ROWS, SAMPLER_R, SAMPLER_SIZES = 131072, 5, (700, 1400)
+SAMPLER_TOL, SAMPLER_ITERS = 1e-5, 20
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -374,6 +408,29 @@ def grid(tile16: bool):
 
 def tile_of(tile16: bool) -> int:
     return raster_v3.TILE if tile16 else TILE
+
+
+def blend_launches(launches: dict) -> dict:
+    """The blend kernels' part of a run's launches (the tri-plane
+    sampler's part is held by `check_sampler`)."""
+    return {k: v for k, v in launches.items() if k not in SAMPLER}
+
+
+def planes_sampled(level: int) -> int:
+    """Planes one decode samples at `level`: three a level, and level 0's
+    three TPA-modulated planes."""
+    return 3 * (level + 1) + 3
+
+
+def check_sampler(launches: dict, what: str, fwd=None, bwd=None):
+    """The sampler's kernels launched exactly `fwd` and `bwd` times in
+    `what`, or at least once where the count is None."""
+    got = tuple(launches.get(k, 0) for k in SAMPLER)
+    if not all(g >= 1 if w is None else g == w
+               for g, w in zip(got, (fwd, bwd))):
+        raise AssertionError(f"{what} launched the sampler's kernels "
+                             f"{got} times, not {(fwd, bwd)} (None: at "
+                             "least once)")
 
 
 def compare_kernel(binned, tiles_x, tiles_y, work=None, tile=TILE):
@@ -688,10 +745,13 @@ def train_phase(params, state, cfg, args, dev, tile16=False):
     if not losses[0]["con"] > 0.0:
         raise AssertionError("the consistency term did not run")
     kernels = (FWD_KERNELS[tile_of(tile16)], BWD_KERNELS[tile_of(tile16)])
-    if launches != {name: MV * n_steps for name in kernels}:
+    if blend_launches(launches) != {k: MV * n_steps for k in kernels}:
         raise AssertionError(f"training launched {launches} for {n_steps} "
                              f"steps of {MV} views: each of {kernels} "
                              f"{MV * n_steps} times, nothing else")
+    # one sampling of the planes a step, shared by its views
+    planes = planes_sampled(0) * (n_steps - 2) + planes_sampled(2) * 2
+    check_sampler(launches, "training", planes, planes)
     return trainer, launches, step_ms
 
 
@@ -828,9 +888,10 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
     print(f"render_set ({tile} px tiles, kmax {cfg.kmax}): {frames} frames "
           f"at {WIDTH}x{HEIGHT}, {1e3 / fps:.3f} ms/frame (CUDA events, "
           f"after a warm-up frame); launches {launches}")
-    if launches != {name: frames}:
+    if blend_launches(launches) != {name: frames}:
         raise AssertionError(f"render_set launched {launches} for {frames} "
                              "frames")
+    check_sampler(launches, "render_set", frames * planes_sampled(level), 0)
 
     tiles_x, tiles_y = grid(tile16)
     with torch.inference_mode():
@@ -1257,9 +1318,10 @@ def disk_phase(args, dev, card: str, scene_dir: str):
         if not n == n_json == n_anchor:
             raise AssertionError("num_gaussians.json's anchors are not the "
                                  "model's")
-        if launches != {name: frames}:
+        if blend_launches(launches) != {name: frames}:
             raise AssertionError(f"render_sets launched {launches} for "
                                  f"{frames} frames")
+        check_sampler(launches, "render_sets", bwd=0)
 
         loaded, l_active, contractor, level, _ = load_trained(cfg,
                                                               device=dev)
@@ -1580,8 +1642,9 @@ def train_disk_phase(args, dev, card: str, scene_dir: str, model1: str):
         if not psnr[TRAIN_ITERS] > psnr[1]:
             raise AssertionError(f"test PSNR did not rise: {psnr}")
         want = {kernels[0]: MV * steps + eval_frames, kernels[1]: MV * steps}
-        if launches != want:
+        if blend_launches(launches) != want:
             raise AssertionError(f"training launched {launches}, not {want}")
+        check_sampler(launches, "training from disk")
         staged_view_checks(probe, tile)
         probe.raster.clear()
 
@@ -1694,9 +1757,10 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
                    ("test", "renders"): 2, ("test", "gt"): 2}
     if counts != want_counts:
         raise AssertionError(f"render_torch.py wrote {counts}")
-    if launches != {name: DISK_VIEWS}:
+    if blend_launches(launches) != {name: DISK_VIEWS}:
         raise AssertionError(f"render_torch.py launched {launches} for "
                              f"{DISK_VIEWS} views")
+    check_sampler(launches, "render_torch.py", bwd=0)
 
     # 2. the metrics CLI with seeded LPIPS weights at VGG16's widths, each
     # test view recomputed on the CPU from the same PNG pixels
@@ -1773,9 +1837,11 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
             save_png(os.path.join(orbit_dir, f"{i:05d}.png"),
                      img.clamp(0, 1).cpu().numpy())
     orbit_launches = dict(cuda_lib.LAUNCHES)
-    if orbit_launches != {name: ORBIT_FRAMES}:
+    if blend_launches(orbit_launches) != {name: ORBIT_FRAMES}:
         raise AssertionError(f"the orbit launched {orbit_launches} for "
                              f"{ORBIT_FRAMES} frames")
+    check_sampler(orbit_launches, "the orbit",
+                  ORBIT_FRAMES * planes_sampled(level), 0)
 
     # 4. the popping CLI with RAFT: seeded weights in the official layout
     pth = os.path.join(model_dir, "raft_random.pth")
@@ -1831,7 +1897,9 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
           f"{time.perf_counter() - t_phase:.1f} s")
     if not err <= RAFT_TOL * scale:
         raise AssertionError(f"RAFT: card and CPU differ by {err:.3e}")
-    return {name: DISK_VIEWS + ORBIT_FRAMES}
+    total = collections.Counter(launches)
+    total.update(orbit_launches)
+    return dict(total)
 
 
 # ---------------------------------------------------------------------
@@ -2279,12 +2347,14 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
     if rel > loss_tol or rel16 > loss16_tol:
         raise AssertionError("the 2x2 sharded step's loss disagrees with "
                              "the single-device step")
-    if dict(launches_b) != {k: n * steps_b for k in kernels}:
+    if blend_launches(launches_b) != {k: n * steps_b for k in kernels}:
         raise AssertionError(f"each rank must launch each of {kernels} "
                              f"once a step")
-    if dict(launches_b16) != {KERNEL16: n, BWD_KERNEL16: n}:
+    if blend_launches(launches_b16) != {KERNEL16: n, BWD_KERNEL16: n}:
         raise AssertionError("each rank must launch each 16 px kernel once "
                              "in its 16 px step")
+    check_sampler(launches_b, "18b's sharded steps")
+    check_sampler(launches_b16, "18b's 16 px sharded step")
 
     loop = r0["loop"]
     sh, sd = np.asarray(loop["losses_sharded"]), np.asarray(
@@ -2321,8 +2391,9 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
                     u["loss"][1])):
             raise AssertionError("in 16 px tiles the sharded step disagrees "
                                  "with the single-device step")
-    if dict(launches_c) != want_c:
+    if blend_launches(launches_c) != want_c:
         raise AssertionError(f"18c's sharded steps must launch {want_c}")
+    check_sampler(launches_c, "18c's sharded steps")
     if not (delta < LOOP_TOL and sum(d[1][0] for d in loop["densify"]) > 0
             and loop["capacity"][0] == 2 * r0["small_capacity"]):
         raise AssertionError("the sharded loop left the single-device "
@@ -2562,9 +2633,10 @@ def viewer_phase(args, dev, card: str, tmp: str, scene_dir: str,
     if out["final_iteration"] != VIEWER_ITERS or len(ms["after_end"]) != 2:
         raise AssertionError("keep_alive did not serve past the last "
                              "iteration")
-    if launches != want:
+    if blend_launches(launches) != want:
         raise AssertionError(f"the viewer run launched {launches}, not "
                              f"{want}")
+    check_sampler(launches, "the viewer run")
     print(f"  phase 19a wall {time.perf_counter() - t_phase:.1f} s")
     launches[kernels[0]] -= out["references"]
     return launches
@@ -2600,6 +2672,7 @@ def profile_cli_phase(args, card: str, tmp: str, scene_dir: str,
             for sym in ("fwd_kernel", "bwd_kernel"):
                 if sym in e.get("name", ""):
                     device_us[sym] += e.get("dur", 0)
+    sampler_named = any(e.get("name") == "plane_sample" for e in events)
     steps = PROFILE_ITERS - TRAIN_CKPT
     print(f"--profile ({card}): {steps} iterations in {run_s:.1f} s, trace "
           f"{os.path.getsize(path) / 2 ** 20:.1f} MiB, "
@@ -2609,10 +2682,14 @@ def profile_cli_phase(args, card: str, tmp: str, scene_dir: str,
           f"launches {launches}; phase 19b wall "
           f"{time.perf_counter() - t_phase:.1f} s")
     want = {name: MV * steps for name in kernels}
-    if launches != want:
+    if blend_launches(launches) != want:
         raise AssertionError(f"--profile launched {launches}, not {want}")
+    check_sampler(launches, "--profile")
     if set(device_us) != {"fwd_kernel", "bwd_kernel"}:
         raise AssertionError("the trace does not name both blend kernels")
+    if not sampler_named:
+        raise AssertionError("the trace does not name the plane_sample "
+                             "ranges")
     return launches
 
 
@@ -2641,9 +2718,10 @@ def step_recon_phase(params, state, cfg, args, dev, card: str):
           f"{time.perf_counter() - t_phase:.1f} s")
     n = len(recon.VARIANTS) * (2 + RECON_ITERS) * recon.MV
     want = {FWD_KERNELS[tile]: n, BWD_KERNELS[tile]: n}
-    if launches != want:
+    if blend_launches(launches) != want:
         raise AssertionError(f"the attribution launched {launches}, not "
                              f"{want}")
+    check_sampler(launches, "the attribution")
     return launches
 
 
@@ -2780,6 +2858,228 @@ def last_paths_phase(args, dev, card: str, tmp: str, scene_dir: str,
     return dict(total)
 
 
+# ---------------------------------------------------------------------
+# phase 20: the tri-plane sampler's kernels (ops/plane_sample.py)
+
+
+def same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return same_bits(a.cpu().numpy(), b.cpu().numpy())
+
+
+def sampler_case(size: int, seed: int, dev):
+    """A plane [SAMPLER_R, size, size], coordinates of SAMPLER_ROWS rows
+    (a quarter inside [-1, 1], a quarter over [-1.5, 1.5], so partly off
+    the plane, and half at one point, as a regrown model's zero padding
+    rows are), strided columns as `_split_coords` gives them, and a
+    cotangent [rows, SAMPLER_R]."""
+    rng = np.random.default_rng(seed)
+    n, q = SAMPLER_ROWS, SAMPLER_ROWS // 4
+    uv = np.concatenate([rng.uniform(-1.0, 1.0, (q, 3)),
+                         rng.uniform(-1.5, 1.5, (q, 3)),
+                         np.tile([0.0123, -0.4567, 0.0], (n - 2 * q, 1))])
+
+    def dev32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    uv = dev32(uv)
+    return (dev32(rng.normal(size=(SAMPLER_R, size, size)) * 0.1),
+            uv[:, 0], uv[:, 1], dev32(rng.normal(size=(n, SAMPLER_R))))
+
+
+def sampler_bounds(plane, n: int, table):
+    """(forward, backward) bounds at these inputs: each input read once,
+    each output written once, the texels gathered counted once per
+    distinct cell the rows touch; fp32 operations per row and channel
+    (the forward's weights and four products, the backward's scan adds
+    per table entry)."""
+    r, h, w = plane.shape
+    keys = table[0]
+    valid = keys < h * w
+    cells = int(((keys[1:] != keys[:-1]) & valid[1:]).sum()) + int(valid[0])
+    texels = 4 * r * cells
+    fwd_bytes = 8 * n + texels + 4 * n * r + 4 * 4 * n
+    bwd_bytes = (4 * n * r + 8 * n + texels + (4 + 8) * 4 * n
+                 + 4 * r * h * w + 8 * n)
+    fwd = bound(fwd_bytes, n * 12 + n * r * 11)
+    bwd = bound(bwd_bytes, 4 * n * r * 9 + n * r * 12 + n * 14)
+    print(f"  sampler work at {h}x{w}: {n} rows, R {r}, {cells} distinct "
+          f"cells touched; forward {fwd_bytes} bytes, bound "
+          f"{fwd[0]:.5f} ms ({fwd[1]}); backward {bwd_bytes} bytes, "
+          f"bound {bwd[0]:.5f} ms ({bwd[1]})")
+    return fwd, bwd
+
+
+def sampler_checks(dev, card: str, seed: int):
+    """20a-b: the sampler's kernels against their plain versions at full
+    width on `sampler_case`'s inputs, then timed beside their plain
+    versions and torch's grid_sample (the library yardstick: its backward
+    sums with atomics; timed, never used).  Returns the numbers of each
+    kernel's `kernels` entry (the first size's, every size's in
+    `modes`)."""
+    numbers = {name: {"modes": {}} for name in SAMPLER}
+    for size in SAMPLER_SIZES:
+        plane, u, v, g = sampler_case(size, seed + size, dev)
+        n = u.shape[0]
+        out, keys = plane_sample.plane_sample_fwd(plane, u, v, keys=True)
+        want = plane_sample.plane_sample_fwd_plain(plane, u, v)
+        same_keys = torch.equal(keys, plane_sample.corner_keys_plain(
+            u, v, size, size))
+        fwd_err = float((out - want).abs().max())
+        table = plane_sample.key_table(keys)
+        got = plane_sample.plane_sample_bwd(g, u, v, plane, table)
+        again = plane_sample.plane_sample_bwd(g, u, v, plane, table)
+        plain = plane_sample.plane_sample_bwd_plain(g, u, v, plane, table)
+        rel = [float((a - b).abs().max()) / float(b.abs().max())
+               for a, b in zip(got, plain)]
+        bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
+        repeat = all(same_floats(a, b) for a, b in zip(got, again))
+        exact = all(same_floats(a, b) for a, b in zip(got, plain))
+        grid = torch.stack([v, u], -1)[None, None]  # [1, 1, N, 2]: x on W
+        lib = torch.nn.functional.grid_sample(
+            plane[None], grid, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        lib_err = float((lib[0, :, 0].T - want).abs().max())
+        print(f"20a. sampler at {size}x{size}, {n} rows, R {SAMPLER_R}: "
+              f"forward vs plain max |d| {fwd_err:.3e} (must be 0), keys "
+              f"equal {same_keys}; backward vs plain d_plane / d_u / d_v "
+              f"max |d| / max {rel[0]:.3e} / {rel[1]:.3e} / {rel[2]:.3e} "
+              f"(limit {SAMPLER_TOL}), bit for bit {exact}; two launches "
+              f"bit for bit {repeat}; grid_sample vs plain max |d| "
+              f"{lib_err:.3e}")
+        if not (fwd_err == 0.0 and same_floats(out, want) and same_keys):
+            raise AssertionError(f"{SAMPLER[0]} disagrees with its plain "
+                                 f"version at {size}x{size}")
+        if max(rel) > SAMPLER_TOL or not repeat:
+            raise AssertionError(f"{SAMPLER[1]} disagrees with its plain "
+                                 f"version at {size}x{size} or does not "
+                                 "repeat")
+
+        fwd_bound_, bwd_bound_ = sampler_bounds(plane, n, table)
+        g_lib = g.T.contiguous()[None, :, None, :]  # [1, R, 1, N]
+        plane_req = plane.detach().requires_grad_()
+        grid_req = grid.detach().requires_grad_()
+
+        def lib_both():
+            y = torch.nn.functional.grid_sample(
+                plane_req[None], grid_req, mode="bilinear",
+                padding_mode="zeros", align_corners=True)
+            return torch.autograd.grad(y, (plane_req, grid_req), g_lib)
+
+        ms = {
+            "fwd": cuda_time_ms(lambda: plane_sample.plane_sample_fwd(
+                plane, u, v, keys=True), SAMPLER_ITERS),
+            "sort": cuda_time_ms(lambda: plane_sample.key_table(keys),
+                                 SAMPLER_ITERS),
+            "bwd": cuda_time_ms(lambda: plane_sample.plane_sample_bwd(
+                g, u, v, plane, table), SAMPLER_ITERS),
+            "fwd_plain": cuda_time_ms(
+                lambda: plane_sample.plane_sample_fwd_plain(plane, u, v), 5),
+            "bwd_plain": cuda_time_ms(
+                lambda: plane_sample.plane_sample_bwd_plain(
+                    g, u, v, plane, table), 2),
+            "fwd_lib": cuda_time_ms(
+                lambda: torch.nn.functional.grid_sample(
+                    plane[None], grid, mode="bilinear",
+                    padding_mode="zeros", align_corners=True),
+                SAMPLER_ITERS),
+            "bwd_lib": cuda_time_ms(
+                lambda: torch.ops.aten.grid_sampler_2d_backward(
+                    g_lib, plane[None], grid, 0, 0, True, [True, True]),
+                SAMPLER_ITERS),
+            "both_lib": cuda_time_ms(lib_both, SAMPLER_ITERS)}
+        print(f"20b. {size}x{size} ({card}, CUDA events): forward kernel "
+              f"{ms['fwd']:.5f} ms (+ the key sort {ms['sort']:.5f}), "
+              f"backward kernels {ms['bwd']:.5f} ms; plain on the card "
+              f"{ms['fwd_plain']:.4f} / {ms['bwd_plain']:.4f} ms; "
+              f"grid_sample forward {ms['fwd_lib']:.5f} ms, its backward "
+              f"(grid_sampler_2d_backward) {ms['bwd_lib']:.5f} ms, forward "
+              f"+ backward through autograd {ms['both_lib']:.5f} ms")
+        for name, err, kind, bnd in ((SAMPLER[0], fwd_err, "fwd", fwd_bound_),
+                                     (SAMPLER[1], bwd_err, "bwd",
+                                      bwd_bound_)):
+            rec = {"max_abs_err": err, "ms": ms[kind],
+                   "plain_ms": ms[f"{kind}_plain"], "bound_ms": bnd[0],
+                   "bound_by": bnd[1], "library_ms": ms[f"{kind}_lib"]}
+            numbers[name]["modes"][f"{size}x{size}"] = rec
+            if size == SAMPLER_SIZES[0]:
+                numbers[name].update(err=err, ms=ms[kind], bound=bnd,
+                                     plain_ms=ms[f"{kind}_plain"],
+                                     library_ms=ms[f"{kind}_lib"])
+    return numbers
+
+
+def padding_question(model_dir: str, dev, card: str):
+    """20c: phase 16's trained, regrown state (chkpnt TRAIN_CKPT: capacity
+    131,072, zero padding rows past the active anchors).  The sampler's
+    forward and backward over the planes of level 0 (what phase 16's
+    steps sample) and of level 2 (all 12), timed with the plain version
+    through autograd (the path before these kernels: `index_put_` in the
+    backward), with the kernels, and with either on the active rows
+    alone: does the padding explain the plain backward's time?"""
+    tree, meta = load_train_state(model_dir, TRAIN_CKPT, device=dev)
+    params, active = tree["params"], tree["active"].bool()
+    contractor = Contractor(
+        xyz_min=torch.tensor(meta["contractor_min"], device=dev),
+        xyz_max=torch.tensor(meta["contractor_max"], device=dev),
+        enabled=bool(meta["contractor_enabled"]))
+    planes = params["planes"]
+    with torch.no_grad():
+        xyz = anchor_plane_coords(params, contractor)
+        level0 = planes["grids"][0]
+        att = apply_tpa(planes["tpa"], torch.cat(
+            [level0["xy"], level0["xz"], level0["yz"]], dim=0))
+    r = level0["xy"].shape[0]
+    sampled = [att[:r], att[r:2 * r], att[2 * r:]]
+    for grid_ in planes["grids"]:
+        sampled += [grid_["xy"], grid_["xz"], grid_["yz"]]
+    # (plane, coordinate columns) in sample_level_feats' pairing
+    pairs = [(0, 1), (0, 2), (1, 2)]
+    jobs = [(p.detach().clone().requires_grad_(), pairs[i % 3])
+            for i, p in enumerate(sampled)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    pad = int((~active).sum())
+    pad_cells = len(torch.unique(xyz[~active], dim=0)) if pad else 0
+    times = {}
+    for rows_name, rows in (("all rows", slice(None)),
+                            ("active rows", active)):
+        coords = [c.detach().clone().requires_grad_()
+                  for c in _split_coords(xyz[rows])]
+        cot = torch.randn((coords[0].shape[0], r), generator=gen,
+                          device=dev)
+        for level, count in ((0, planes_sampled(0)), (2, len(jobs))):
+            todo = jobs[:count]
+            leaves = [p for p, _ in todo] + coords
+            for name, fn in (("plain", plane_sample.plane_sample_fwd_plain),
+                             ("kernels", plane_sample.sample_plane)):
+
+                def run():
+                    outs = [fn(p, coords[a], coords[b]) for p, (a, b) in todo]
+                    return torch.autograd.grad(outs, leaves,
+                                               [cot] * len(outs))
+
+                times[(rows_name, level, name)] = cuda_time_ms(run, 3)
+    print(f"20c. phase 16's state at iteration {meta['iteration']} "
+          f"({card}): capacity {active.numel()}, {int(active.sum())} "
+          f"active anchors, {pad} padding rows at {pad_cells} distinct "
+          f"point(s); the sampler's forward + backward ms (CUDA events, "
+          f"mean of 3): " + "; ".join(
+              f"level {lv} ({planes_sampled(0) if lv == 0 else len(jobs)} "
+              f"planes) {rn}: plain {times[(rn, lv, 'plain')]:.3f}, kernels "
+              f"{times[(rn, lv, 'kernels')]:.3f}"
+              for rn in ("all rows", "active rows") for lv in (0, 2)))
+    return times
+
+
+def sampler_phase(dev, card: str, seed: int, model_dir: str):
+    """Phase 20: 20a-b `sampler_checks`, 20c `padding_question`.
+    Returns the kernels' numbers."""
+    t_phase = time.perf_counter()
+    numbers = sampler_checks(dev, card, seed)
+    padding_question(model_dir, dev, card)
+    print(f"  phase 20 wall {time.perf_counter() - t_phase:.1f} s")
+    return numbers
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -2791,6 +3091,8 @@ def entry(name, launches, numbers):
            "bound_ms": numbers["bound"][0],
            "bound_by": numbers["bound"][1],
            "library_ms": numbers.get("library_ms")}
+    if name in SAMPLER:
+        out["replaces_kind"] = "XLA stage (no Pallas kernel)"
     if "modes" in numbers:
         out["modes"] = numbers["modes"]
     return out
@@ -2892,10 +3194,16 @@ def main() -> int:
         # 19. the viewer, the profiling switches and the hard protocol
         last_launches = last_paths_phase(args, dev, smi, tmp, scene_dir,
                                          model_dir, params, state, cfg)
+        # 20. the tri-plane sampler's kernels at full width, and phase 16's
+        # trained state with and without its padding rows
+        sampler_numbers = sampler_phase(dev, smi, args.seed, model_dir)
 
     # 18. the sharded step: a 1x1 mesh over NCCL, four ranks on the card
     sharded_launches = sharded_phase(params, state, cfg, args, dev, smi)
 
+    phases = (fwd["launches"], train_launches, fwd3["launches"],
+              train3_launches, disk_launches, train_disk_launches,
+              eval_launches, last_launches, sharded_launches)
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
               + train_launches.get(KERNEL, 0)
@@ -2921,6 +3229,8 @@ def main() -> int:
               + last_launches.get(BWD_KERNEL16, 0), bwd3),
         *(entry(name, probe_launches[name], nums)
           for name, nums in probe_numbers.items()),
+        *(entry(name, sum(p.get(name, 0) for p in phases),
+                sampler_numbers[name]) for name in SAMPLER),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -21,35 +21,13 @@ import torch.nn.functional as F
 
 from splatco_torch.models.mlp import (init_batchnorm, init_linear, linear,
                                       masked_batchnorm)
+# `_sample_plane` is the sampler's plain version; `sample_plane` launches
+# its CUDA kernels for a card's tensors
+from splatco_torch.ops.plane_sample import \
+    plane_sample_fwd_plain as _sample_plane  # noqa: F401
+from splatco_torch.ops.plane_sample import sample_plane
 
 CTX_DIM_BASE = 71  # feat32 + anchor3 + offsets30 + scaling6 (n_offsets=10)
-
-
-def _sample_plane(plane: torch.Tensor, u: torch.Tensor, v: torch.Tensor
-                  ) -> torch.Tensor:
-    """Bilinear sample plane [R, H, W] at normalized coords u (H axis),
-    v (W axis) in [-1, 1]; align_corners=True, zeros outside.  [N] -> [N,R].
-    The four corners are gathered and weighted explicitly."""
-    r, h, w = plane.shape
-    x = (u + 1.0) * 0.5 * (h - 1)
-    y = (v + 1.0) * 0.5 * (w - 1)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    tx = x - x0
-    ty = y - y0
-    flat = plane.reshape(r, h * w)
-
-    def corner(cx, cy, wgt):
-        inb = (cx >= 0) & (cx <= h - 1) & (cy >= 0) & (cy <= w - 1)
-        idx = (torch.clamp(cx, 0, h - 1).to(torch.int64) * w
-               + torch.clamp(cy, 0, w - 1).to(torch.int64))
-        return flat[:, idx] * (wgt * inb.to(plane.dtype))[None, :]
-
-    out = (corner(x0, y0, (1 - tx) * (1 - ty))
-           + corner(x0 + 1, y0, tx * (1 - ty))
-           + corner(x0, y0 + 1, (1 - tx) * ty)
-           + corner(x0 + 1, y0 + 1, tx * ty))
-    return out.T
 
 
 def init_plane_grid(channels: int, size: int, generator: torch.Generator
@@ -70,9 +48,9 @@ def sample_plane_grid(params, xyz_norm: torch.Tensor) -> List[torch.Tensor]:
     Returns [xy, xz, yz] features, each [N, R]."""
     fx, fy, fz = _split_coords(xyz_norm)
     return [
-        _sample_plane(params["xy"], fx, fy),
-        _sample_plane(params["xz"], fx, fz),
-        _sample_plane(params["yz"], fy, fz),
+        sample_plane(params["xy"], fx, fy),
+        sample_plane(params["xz"], fx, fz),
+        sample_plane(params["yz"], fy, fz),
     ]
 
 
@@ -172,9 +150,9 @@ def sample_level_feats(params, xyz_norm: torch.Tensor,
             r = planes["xy"].shape[0]
             fx, fy, fz = _split_coords(xyz_norm)
             ta_feats = [
-                _sample_plane(att[:r], fx, fy),
-                _sample_plane(att[r:2 * r], fx, fz),
-                _sample_plane(att[2 * r:], fy, fz),
+                sample_plane(att[:r], fx, fy),
+                sample_plane(att[r:2 * r], fx, fz),
+                sample_plane(att[2 * r:], fy, fz),
             ]
         out.append((feats, ta_feats))
     return tuple(out)

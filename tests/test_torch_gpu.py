@@ -23,8 +23,12 @@ once a view per step and the forward once an eval frame, and a run
 resumed from its iteration-10 checkpoint ends bit for bit where the
 straight run ended; a step with the context grids (use_spatial_ctx)
 repeats bit for bit.  The evaluation metrics (FLIP, LPIPS) and RAFT agree
-with the CPU on a small seeded pair.
+with the CPU on a small seeded pair.  The tri-plane sampler's kernels
+(ops/plane_sample.py) equal their plain versions, the forward and its
+keys bit for bit, each backward gradient to 1e-5 of its max (the plain
+version sums in the kernel's order), two backward launches bit for bit.
 """
+import collections
 import dataclasses
 import functools
 import math
@@ -42,8 +46,8 @@ from splatco_torch.eval import raft
 from splatco_torch.eval.render_driver import render_sets
 from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import decode_kwargs, init_model
-from splatco_torch.ops import (cuda_lib, flip, lpips, probes, raster_ablate,
-                               raster_v3)
+from splatco_torch.ops import (cuda_lib, flip, lpips, plane_sample, probes,
+                               raster_ablate, raster_v3)
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import bin_frame, tile_grid
@@ -320,14 +324,17 @@ def leaves(tree):
 
 
 def check_step(dev, tile16):
-    """Each of the configuration's kernels launches once per view, two
-    steps are bit-identical, and the loss equals the CPU's to 1e-4
+    """Each of the configuration's blend kernels launches once per view
+    and each sampler kernel once per plane (level 0 and its TPA planes),
+    two steps are bit-identical, and the loss equals the CPU's to 1e-4
     relative (matmul, exp and pixel sums round differently)."""
     tile = raster_v3.TILE if tile16 else TILE
     kernels = (FWD_KERNELS[tile], BWD_KERNELS[tile])
     cuda_lib.LAUNCHES.clear()
     first = toy_step(dev, tile16)
-    assert dict(cuda_lib.LAUNCHES) == {name: 2 for name in kernels}
+    assert dict(cuda_lib.LAUNCHES) == {**{name: 2 for name in kernels},
+                                       plane_sample.FWD_KERNEL: 6,
+                                       plane_sample.BWD_KERNEL: 6}
     second = toy_step(dev, tile16)
     for a, b in zip(leaves(first[:3]), leaves(second[:3])):
         assert torch.equal(a, b)
@@ -442,7 +449,9 @@ def test_render_sets_from_disk_matches_in_memory(card, tmp_path):
     cuda_lib.LAUNCHES.clear()
     _, n = render_sets(cfg, device=card)
     assert n == int(active.sum())
-    assert dict(cuda_lib.LAUNCHES) == {FWD_KERNELS[TILE]: 9}
+    # 9 frames, each sampling 12 planes (every level, TPA)
+    assert dict(cuda_lib.LAUNCHES) == {FWD_KERNELS[TILE]: 9,
+                                       plane_sample.FWD_KERNEL: 9 * 12}
     cam = sc.test_cameras()[0]
     with torch.inference_mode():
         vis = prefilter_voxel(params["anchors"], active, cam)
@@ -494,8 +503,13 @@ def test_trainer_on_the_card_resumes_bit_for_bit(card, tmp_path):
     log = straight.train(iterations=20, progress_every=1000)
     frames = 2 * (len(straight.scene.test_cameras())
                   + len(straight.train_cams[5:30:5]))
-    assert dict(cuda_lib.LAUNCHES) == {FWD_KERNELS[TILE]: 2 * 20 + frames,
-                                       BWD_KERNELS[TILE]: 2 * 20}
+    # the sampler: 6 planes a step and an eval frame at level 0
+    # (iterations 1-6), 9 at level 1
+    planes = 6 * 6 + 9 * 14
+    assert dict(cuda_lib.LAUNCHES) == {
+        FWD_KERNELS[TILE]: 2 * 20 + frames, BWD_KERNELS[TILE]: 2 * 20,
+        plane_sample.FWD_KERNEL: planes + frames // 2 * (6 + 9),
+        plane_sample.BWD_KERNEL: planes}
     assert any("densify_grown" in m for m in log)
     psnr = [m["test_psnr"] for m in log if "test_psnr" in m]
     assert psnr[1] > psnr[0]
@@ -540,3 +554,36 @@ def test_eval_metrics_and_raft_on_the_card_match_the_cpu(card):
     assert flows[card].shape == (128, 192, 2)
     scale = max(float(flows["cpu"].abs().max()), 1.0)
     assert float((flows[card] - flows["cpu"]).abs().max()) <= 2e-3 * scale
+
+
+@pytest.mark.parametrize("case", ["in_range", "off_plane", "one_point"])
+def test_plane_sample_kernels_match_plain(card, case):
+    """The sampler's kernels against their plain versions on a 70x110
+    plane (R 5), strided coordinate columns as `_split_coords` gives
+    them: rows inside the plane, partly off it, or 90 % at one point
+    (a texel run across many of the backward's chunks)."""
+    n = 20_000
+    rng = np.random.default_rng(8)
+    plane = torch.tensor(rng.normal(size=(5, 70, 110)).astype(np.float32),
+                         device=card)
+    uv = rng.uniform(-1.5 if case == "off_plane" else -1.0, 1.0, (n, 2))
+    if case == "one_point":
+        uv[:int(0.9 * n)] = (0.123, -0.4567)
+    uv = torch.tensor(uv.astype(np.float32), device=card)
+    u, v = uv[:, 0], uv[:, 1]
+    g = torch.tensor(rng.normal(size=(n, 5)).astype(np.float32),
+                     device=card)
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    out, keys = plane_sample.plane_sample_fwd(plane, u, v, keys=True)
+    assert torch.equal(out, plane_sample.plane_sample_fwd_plain(plane, u, v))
+    assert torch.equal(keys, plane_sample.corner_keys_plain(u, v, 70, 110))
+    table = plane_sample.key_table(keys)
+    got = plane_sample.plane_sample_bwd(g, u, v, plane, table)
+    again = plane_sample.plane_sample_bwd(g, u, v, plane, table)
+    want = plane_sample.plane_sample_bwd_plain(g, u, v, plane, table)
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert float((a - c).abs().max()) <= 1e-5 * float(c.abs().max())
+    launched = cuda_lib.LAUNCHES - before
+    assert launched == {plane_sample.FWD_KERNEL: 1,
+                        plane_sample.BWD_KERNEL: 2}

@@ -46,9 +46,11 @@ import profile_step_recon_torch  # noqa: E402
 # every block but the optimizer: one JAX compile covers them all
 COMBINED = frozenset({"ssim", "consistency", "tv", "sreg", "stats"})
 # sha256 of one step's params, moments, statistics and losses, computed
-# by `step_digest` with the step of the commit before `disable` existed
+# by `step_digest` with the step of the commit before `disable` existed,
+# with the tri-plane sampler of ops/plane_sample.py in it (whose backward
+# sums each texel's entries in its key table's order)
 DEFAULT_STEP_DIGEST = \
-    "5ab3e47ff581c0e1cb9f18548f317fe0cbe91924d717f8d4acc1a3f2d6420a96"
+    "27cc33fa6624b7f7df37f6d0c651d033e6767b0cacbd18d8a814029e58bb1145"
 
 
 @pytest.fixture(autouse=True)

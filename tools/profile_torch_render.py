@@ -68,10 +68,11 @@ def main() -> None:
             torch.cuda.synchronize()
     events = prof.key_averages()
     # device time of kernels, memcpys and memsets (device-side events;
-    # the aten ops that launched them and the stage ranges spanning them
-    # would count the same time again)
+    # the aten ops that launched them, the stage ranges and the sampler's
+    # `plane_sample` ranges spanning them would count the same time again)
     device_us = sum(e.self_device_time_total for e in events
                     if e.device_type == torch.autograd.DeviceType.CUDA
+                    and not e.is_user_annotation
                     and e.key not in stage_ms[0])
     summary = {
         "frames": args.frames,

@@ -25,6 +25,11 @@ device time over the mean CUDA-event time of the other steps from 31 on
 (neither the staged nor a profiled one).  It also prints the table of
 operators by their device time, children included: each autograd
 node's `evaluate_function` row holds its backward's kernels.
+
+The tri-plane sampler's forward and backward run inside
+`record_function("plane_sample")` ranges: their kernels' device time is
+the summary's `plane_sample_device_ms_per_step` and the `plane_sample`
+row of the tables.
 """
 from __future__ import annotations
 
@@ -104,6 +109,8 @@ def main() -> None:
         "wall_ms_per_step": 1e3 * wall_s / args.steps,
         "device_busy_ms_per_step": device_us / 1e3 / args.steps,
         "device_busy_share": device_us / 1e6 / wall_s,
+        "plane_sample_device_ms_per_step":
+            sampler_device_us(events) / 1e3 / args.steps,
         "stage_ms_mean": {k: float(np.mean([s[k] for s in stage_ms]))
                           for k in stage_ms[0]},
         "card": card,
@@ -144,6 +151,8 @@ def profile_disk(args, dev):
         "device_busy_ms_per_step": device_us / 1e3 / len(profiled),
         "device_busy_share": device_us / 1e3 / len(profiled)
         / float(np.mean(later)),
+        "plane_sample_device_ms_per_step":
+            sampler_device_us(events) / 1e3 / len(profiled),
         "staged_step": cs.TRAIN_STAGED,
         "stage_ms": probe.stages.ms(),
     }
@@ -152,11 +161,21 @@ def profile_disk(args, dev):
 
 def device_time_us(events, skip=()) -> float:
     """Device time of kernels, memcpys and memsets (device-side events;
-    the aten ops that launched them and the ranges spanning them would
-    count the same time again)."""
+    the aten ops that launched them and the ranges spanning them, the
+    `record_function` ones on the device too, would count the same time
+    again)."""
     return sum(e.self_device_time_total for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.key not in skip)
+               and not e.is_user_annotation and e.key not in skip)
+
+
+def sampler_device_us(events) -> float:
+    """Device time of the kernels launched inside the tri-plane sampler's
+    `plane_sample` ranges (ops/plane_sample.py: its two kernels and the
+    key table's sort), forward and backward."""
+    return sum(e.device_time_total for e in events
+               if e.key == "plane_sample"
+               and e.device_type == torch.autograd.DeviceType.CPU)
 
 
 def report(summary, events, out, by_op=False) -> None:
