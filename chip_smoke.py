@@ -164,11 +164,15 @@ Run from the repository root.  Phases, each of which fails loudly:
      in phases 4, 7, 12, 13 and 17's orbit, at least once in the
      others).  20a: at full width (131,072 rows, R 5, planes of 700^2
      and 1400^2; a quarter of the rows inside, a quarter partly off the
-     plane, half at one point) the forward and its keys equal their plain
-     versions bit for bit, the backward's three gradients each within
-     1e-5 of its max of the plain version and two launches bit for bit.
-     20b: each timed beside its bound, its plain version and
-     `F.grid_sample` (forward; its backward, `grid_sampler_2d_backward`).
+     plane, half at one point), and at 700^2 with every row at one cell
+     and every |g| at the top of its binade, the forward and the
+     backward's three gradients equal their plain versions bit for bit,
+     and two backward launches agree bit for bit.  20b: each timed
+     beside its bound, its plain version and `F.grid_sample` (forward;
+     its backward, `grid_sampler_2d_backward`); the backward's passes and
+     the kernels of one sampled plane's forward and backward by
+     torch.profiler, beside the kernels of the stable sort the sampler
+     needed before its backward summed integers.
      20c: phase 16's iteration-45 state (capacity 131,072): the
      sampler's forward + backward over level 0's 6 planes and all 12,
      through the plain version with autograd (`index_put_`, the path
@@ -365,13 +369,13 @@ HARD_VIEWS, HARD_POINTS, HARD_W, HARD_H = 28, 1200, 320, 224
 HARD_ITERS, ABLATION_ITERS = 600, 200
 # phase 20: the tri-plane sampler's kernels at full width (a trained
 # model's capacity after its regrowth, the quick start's R = 15 // 3 and
-# plane sizes).  The forward and its keys are held to their plain
-# versions bit for bit (the same float32 operations, --fmad=false); the
-# backward's three gradients each to this share of its max |value| (the
-# plain version sums in the kernel's order, so 0 is expected; index_put_
-# on the card would sum in another), and two launches bit for bit
+# plane sizes), and every row at one cell with every |g| at the top of
+# its binade (the integer sums' largest).  The forward and all three
+# gradients are held to their plain versions bit for bit (the same
+# float32 operations, --fmad=false, and the same int64 sums), and two
+# backward launches to each other
 SAMPLER_ROWS, SAMPLER_R, SAMPLER_SIZES = 131072, 5, (700, 1400)
-SAMPLER_TOL, SAMPLER_ITERS = 1e-5, 20
+SAMPLER_ITERS = 20
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -2866,95 +2870,145 @@ def same_floats(a: torch.Tensor, b: torch.Tensor) -> bool:
     return same_bits(a.cpu().numpy(), b.cpu().numpy())
 
 
-def sampler_case(size: int, seed: int, dev):
+def sampler_case(size: int, seed: int, dev, one_cell: bool = False):
     """A plane [SAMPLER_R, size, size], coordinates of SAMPLER_ROWS rows
     (a quarter inside [-1, 1], a quarter over [-1.5, 1.5], so partly off
     the plane, and half at one point, as a regrown model's zero padding
-    rows are), strided columns as `_split_coords` gives them, and a
-    cotangent [rows, SAMPLER_R]."""
+    rows are; with `one_cell` all at that point), strided columns as
+    `_split_coords` gives them, and a cotangent [rows, SAMPLER_R] (with
+    `one_cell`, every |g| the largest float32 below 16, one sign a
+    channel)."""
     rng = np.random.default_rng(seed)
     n, q = SAMPLER_ROWS, SAMPLER_ROWS // 4
-    uv = np.concatenate([rng.uniform(-1.0, 1.0, (q, 3)),
-                         rng.uniform(-1.5, 1.5, (q, 3)),
-                         np.tile([0.0123, -0.4567, 0.0], (n - 2 * q, 1))])
+    spread = 0 if one_cell else q
+    uv = np.concatenate([rng.uniform(-1.0, 1.0, (spread, 3)),
+                         rng.uniform(-1.5, 1.5, (spread, 3)),
+                         np.tile([0.0123, -0.4567, 0.0], (n - 2 * spread, 1))])
+    g = rng.normal(size=(n, SAMPLER_R))
+    if one_cell:
+        top = float(np.nextafter(np.float32(16.0), np.float32(0.0)))
+        g = np.tile(np.where(np.arange(SAMPLER_R) % 2 == 0, top, -top), (n, 1))
 
     def dev32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
 
     uv = dev32(uv)
     return (dev32(rng.normal(size=(SAMPLER_R, size, size)) * 0.1),
-            uv[:, 0], uv[:, 1], dev32(rng.normal(size=(n, SAMPLER_R))))
+            uv[:, 0], uv[:, 1], dev32(g))
 
 
-def sampler_bounds(plane, n: int, table):
-    """(forward, backward) bounds at these inputs: each input read once,
-    each output written once, the texels gathered counted once per
-    distinct cell the rows touch; fp32 operations per row and channel
-    (the forward's weights and four products, the backward's scan adds
-    per table entry)."""
+def corner_cells(u, v, h: int, w: int):
+    """[4 N]: each (row, corner)'s flat texel, or h * w off the plane."""
+    cell = plane_sample._cell(u, v, h, w)
+    cells = []
+    for k in range(4):
+        _, inb, idx = plane_sample._corner(cell, k, h, w)
+        cells.append(torch.where(inb, idx, h * w))
+    return torch.stack(cells, dim=1).reshape(-1)
+
+
+def sampler_bounds(plane, u, v):
+    """(forward, backward) bounds at these inputs: the function's own
+    work, each input read once and each output written once, the texels
+    gathered counted once per distinct texel the rows' corners reach;
+    fp32 operations (the forward's cell, weights and four products a row
+    and channel; the backward's scaled product per corner and channel,
+    the coordinates' gradients, the texels' conversions)."""
     r, h, w = plane.shape
-    keys = table[0]
-    valid = keys < h * w
-    cells = int(((keys[1:] != keys[:-1]) & valid[1:]).sum()) + int(valid[0])
-    texels = 4 * r * cells
-    fwd_bytes = 8 * n + texels + 4 * n * r + 4 * 4 * n
-    bwd_bytes = (4 * n * r + 8 * n + texels + (4 + 8) * 4 * n
-                 + 4 * r * h * w + 8 * n)
+    n = u.shape[0]
+    cells = corner_cells(u, v, h, w)
+    texels = int(torch.unique(cells[cells < h * w]).numel())
+    fwd_bytes = 8 * n + 4 * r * texels + 4 * n * r
+    bwd_bytes = 4 * n * r + 8 * n + 4 * r * texels + 4 * r * h * w + 8 * n
     fwd = bound(fwd_bytes, n * 12 + n * r * 11)
-    bwd = bound(bwd_bytes, 4 * n * r * 9 + n * r * 12 + n * 14)
-    print(f"  sampler work at {h}x{w}: {n} rows, R {r}, {cells} distinct "
-          f"cells touched; forward {fwd_bytes} bytes, bound "
+    bwd = bound(bwd_bytes, 4 * n * r * 3 + n * r * 12 + n * 14
+                + 2 * r * h * w)
+    print(f"  sampler work at {h}x{w}: {n} rows, R {r}, {texels} distinct "
+          f"texels reached; forward {fwd_bytes} bytes, bound "
           f"{fwd[0]:.5f} ms ({fwd[1]}); backward {bwd_bytes} bytes, "
           f"bound {bwd[0]:.5f} ms ({bwd[1]})")
     return fwd, bwd
 
 
+def device_split(fn, iters: int) -> dict:
+    """Per call of fn, by kernel or memset name (torch.profiler, after a
+    warm-up call and a warm-up step of the profiler): (device µs a launch,
+    launches a call)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA],
+            schedule=torch.profiler.schedule(wait=0, warmup=1,
+                                             active=iters),
+            acc_events=True) as prof:
+        for _ in range(iters + 1):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA \
+                and not e.is_user_annotation and e.count:
+            name = e.key.replace("(anonymous namespace)::", "")
+            name = name.split("(")[0].split("<")[0] or e.key
+            us, k = out.get(name, (0.0, 0))
+            out[name] = (us + e.self_device_time_total, k + e.count)
+    return {name: (us / k, k / iters) for name, (us, k) in out.items()}
+
+
+def split_text(split: dict) -> str:
+    return ", ".join(f"{k.strip()} {us:.3f} µs x{n:g}"
+                     for k, (us, n) in sorted(split.items()))
+
+
 def sampler_checks(dev, card: str, seed: int):
     """20a-b: the sampler's kernels against their plain versions at full
-    width on `sampler_case`'s inputs, then timed beside their plain
-    versions and torch's grid_sample (the library yardstick: its backward
-    sums with atomics; timed, never used).  Returns the numbers of each
-    kernel's `kernels` entry (the first size's, every size's in
-    `modes`)."""
+    width on `sampler_case`'s inputs (and every row at one cell), then
+    timed beside their plain versions and torch's grid_sample (the
+    library yardstick: its backward sums with float atomics; timed, never
+    used).  Returns the numbers of each kernel's `kernels` entry (the
+    first size's, every size's in `modes`)."""
     numbers = {name: {"modes": {}} for name in SAMPLER}
-    for size in SAMPLER_SIZES:
-        plane, u, v, g = sampler_case(size, seed + size, dev)
+    cases = [(size, False) for size in SAMPLER_SIZES]
+    cases.append((SAMPLER_SIZES[0], True))
+    for size, one_cell in cases:
+        plane, u, v, g = sampler_case(size, seed + size, dev, one_cell)
         n = u.shape[0]
-        out, keys = plane_sample.plane_sample_fwd(plane, u, v, keys=True)
+        out = plane_sample.plane_sample_fwd(plane, u, v)
         want = plane_sample.plane_sample_fwd_plain(plane, u, v)
-        same_keys = torch.equal(keys, plane_sample.corner_keys_plain(
-            u, v, size, size))
         fwd_err = float((out - want).abs().max())
-        table = plane_sample.key_table(keys)
-        got = plane_sample.plane_sample_bwd(g, u, v, plane, table)
-        again = plane_sample.plane_sample_bwd(g, u, v, plane, table)
-        plain = plane_sample.plane_sample_bwd_plain(g, u, v, plane, table)
-        rel = [float((a - b).abs().max()) / float(b.abs().max())
-               for a, b in zip(got, plain)]
+        got = plane_sample.plane_sample_bwd(g, u, v, plane)
+        again = plane_sample.plane_sample_bwd(g, u, v, plane)
+        plain = plane_sample.plane_sample_bwd_plain(g, u, v, plane)
         bwd_err = max(float((a - b).abs().max()) for a, b in zip(got, plain))
         repeat = all(same_floats(a, b) for a, b in zip(got, again))
-        exact = all(same_floats(a, b) for a, b in zip(got, plain))
+        exact = [same_floats(a, b) for a, b in zip(got, plain)]
         grid = torch.stack([v, u], -1)[None, None]  # [1, 1, N, 2]: x on W
         lib = torch.nn.functional.grid_sample(
             plane[None], grid, mode="bilinear", padding_mode="zeros",
             align_corners=True)
         lib_err = float((lib[0, :, 0].T - want).abs().max())
-        print(f"20a. sampler at {size}x{size}, {n} rows, R {SAMPLER_R}: "
-              f"forward vs plain max |d| {fwd_err:.3e} (must be 0), keys "
-              f"equal {same_keys}; backward vs plain d_plane / d_u / d_v "
-              f"max |d| / max {rel[0]:.3e} / {rel[1]:.3e} / {rel[2]:.3e} "
-              f"(limit {SAMPLER_TOL}), bit for bit {exact}; two launches "
-              f"bit for bit {repeat}; grid_sample vs plain max |d| "
-              f"{lib_err:.3e}")
-        if not (fwd_err == 0.0 and same_floats(out, want) and same_keys):
+        what = (f"{size}x{size}, every row at one cell, |g| "
+                f"{float(g.abs().max()):.9g}" if one_cell
+                else f"{size}x{size}")
+        print(f"20a. sampler at {what}, {n} rows, R {SAMPLER_R}: forward "
+              f"bit for bit {same_floats(out, want)} (max |d| "
+              f"{fwd_err:.3e}); backward d_plane / d_u / d_v bit for bit "
+              f"{exact[0]} / {exact[1]} / {exact[2]} (max |d| "
+              f"{bwd_err:.3e}); two launches bit for bit {repeat}; "
+              f"grid_sample vs plain max |d| {lib_err:.3e}; d_plane "
+              f"max |value| {float(got[0].abs().max()):.6g}")
+        if not same_floats(out, want):
             raise AssertionError(f"{SAMPLER[0]} disagrees with its plain "
-                                 f"version at {size}x{size}")
-        if max(rel) > SAMPLER_TOL or not repeat:
+                                 f"version at {what}")
+        if not (all(exact) and repeat):
             raise AssertionError(f"{SAMPLER[1]} disagrees with its plain "
-                                 f"version at {size}x{size} or does not "
-                                 "repeat")
+                                 f"version at {what} or does not repeat")
+        if one_cell:
+            continue
 
-        fwd_bound_, bwd_bound_ = sampler_bounds(plane, n, table)
+        fwd_bound_, bwd_bound_ = sampler_bounds(plane, u, v)
         g_lib = g.T.contiguous()[None, :, None, :]  # [1, R, 1, N]
         plane_req = plane.detach().requires_grad_()
         grid_req = grid.detach().requires_grad_()
@@ -2965,18 +3019,26 @@ def sampler_checks(dev, card: str, seed: int):
                 padding_mode="zeros", align_corners=True)
             return torch.autograd.grad(y, (plane_req, grid_req), g_lib)
 
+        uv_req = torch.stack([u, v], 1).requires_grad_()
+
+        def both():  # one sampled plane, forward and backward
+            y = plane_sample.sample_plane(plane_req, uv_req[:, 0],
+                                          uv_req[:, 1])
+            return torch.autograd.grad(y, (plane_req, uv_req), g)
+
+        def bwd():
+            return plane_sample.plane_sample_bwd(g, u, v, plane)
+
         ms = {
             "fwd": cuda_time_ms(lambda: plane_sample.plane_sample_fwd(
-                plane, u, v, keys=True), SAMPLER_ITERS),
-            "sort": cuda_time_ms(lambda: plane_sample.key_table(keys),
-                                 SAMPLER_ITERS),
-            "bwd": cuda_time_ms(lambda: plane_sample.plane_sample_bwd(
-                g, u, v, plane, table), SAMPLER_ITERS),
+                plane, u, v), SAMPLER_ITERS),
+            "bwd": cuda_time_ms(bwd, SAMPLER_ITERS),
+            "both": cuda_time_ms(both, SAMPLER_ITERS),
             "fwd_plain": cuda_time_ms(
                 lambda: plane_sample.plane_sample_fwd_plain(plane, u, v), 5),
             "bwd_plain": cuda_time_ms(
-                lambda: plane_sample.plane_sample_bwd_plain(
-                    g, u, v, plane, table), 2),
+                lambda: plane_sample.plane_sample_bwd_plain(g, u, v, plane),
+                2),
             "fwd_lib": cuda_time_ms(
                 lambda: torch.nn.functional.grid_sample(
                     plane[None], grid, mode="bilinear",
@@ -2987,19 +3049,38 @@ def sampler_checks(dev, card: str, seed: int):
                     g_lib, plane[None], grid, 0, 0, True, [True, True]),
                 SAMPLER_ITERS),
             "both_lib": cuda_time_ms(lib_both, SAMPLER_ITERS)}
+        passes = device_split(bwd, SAMPLER_ITERS)
+        round_ = device_split(both, SAMPLER_ITERS)
+        keys = corner_cells(u, v, size, size).to(torch.int32)
+        sort = device_split(lambda: torch.sort(keys, stable=True),
+                            SAMPLER_ITERS)
         print(f"20b. {size}x{size} ({card}, CUDA events): forward kernel "
-              f"{ms['fwd']:.5f} ms (+ the key sort {ms['sort']:.5f}), "
-              f"backward kernels {ms['bwd']:.5f} ms; plain on the card "
+              f"{ms['fwd']:.5f} ms, backward kernels {ms['bwd']:.5f} ms, "
+              f"sample_plane forward + backward through autograd "
+              f"{ms['both']:.5f} ms; plain on the card "
               f"{ms['fwd_plain']:.4f} / {ms['bwd_plain']:.4f} ms; "
               f"grid_sample forward {ms['fwd_lib']:.5f} ms, its backward "
               f"(grid_sampler_2d_backward) {ms['bwd_lib']:.5f} ms, forward "
               f"+ backward through autograd {ms['both_lib']:.5f} ms")
+        print(f"  the backward's passes (torch.profiler, µs a launch, "
+              f"launches a call; place_entries and tile_sums start before "
+              f"the kernel ahead of them ends, so their spans overlap): "
+              f"{split_text(passes)}")
+        print(f"  one plane's forward + backward through autograd "
+              f"launches {sum(k for _, k in round_.values()):g} kernels "
+              f"and memsets: {split_text(round_)}; the stable sort of its "
+              f"{keys.numel()} corner cells, which the sampler needed "
+              f"before its backward summed integers, launches "
+              f"{sum(k for _, k in sort.values()):g}: {split_text(sort)}")
         for name, err, kind, bnd in ((SAMPLER[0], fwd_err, "fwd", fwd_bound_),
                                      (SAMPLER[1], bwd_err, "bwd",
                                       bwd_bound_)):
             rec = {"max_abs_err": err, "ms": ms[kind],
                    "plain_ms": ms[f"{kind}_plain"], "bound_ms": bnd[0],
                    "bound_by": bnd[1], "library_ms": ms[f"{kind}_lib"]}
+            if kind == "bwd":
+                rec["passes_us"] = {k.strip(): us
+                                    for k, (us, _) in passes.items()}
             numbers[name]["modes"][f"{size}x{size}"] = rec
             if size == SAMPLER_SIZES[0]:
                 numbers[name].update(err=err, ms=ms[kind], bound=bnd,

@@ -1,6 +1,6 @@
 // The tri-plane sampler's per-row arithmetic, shared by the forward
 // (plane_sample_fwd.cu) and the backward (plane_sample_bwd.cu), so both
-// compute a row's cell, weights and corner indices as `_sample_plane` in
+// compute a row's cell, weights and corner texels as `_sample_plane` in
 // splatco_torch/ops/plane_sample.py does, operation for operation (built
 // with --fmad=false: no product is fused into a sum).
 //
@@ -14,6 +14,10 @@
 #include <cuda_runtime.h>
 
 namespace plane_sample {
+
+// channels whose texels (or cotangents) one batch of loads fetches: a
+// row's loads for up to kGroup channels are issued back to back
+constexpr int kGroup = 2;
 
 struct Cell {
   float x0, y0, tx, ty;
@@ -31,18 +35,34 @@ __device__ __forceinline__ Cell cell_of(float u, float v, int h, int w) {
 }
 
 // Corner k's bilinear weight; `inb` whether it lies on the plane and
-// `idx` its flat index x * W + y, clamped onto the plane (the plain
-// version reads the clamped texel and multiplies it by 0 outside).
+// (ix, iy) its texel clamped onto the plane, flat index ix * W + iy (the
+// plain version reads the clamped texel and multiplies it by 0 outside).
 __device__ __forceinline__ float corner(const Cell& c, int k, int h, int w,
-                                        bool* inb, int* idx) {
+                                        bool* inb, int* ix, int* iy) {
   const float cx = (k & 1) ? c.x0 + 1.0f : c.x0;
   const float cy = (k & 2) ? c.y0 + 1.0f : c.y0;
   const float wx = (k & 1) ? c.tx : 1.0f - c.tx;
   const float wy = (k & 2) ? c.ty : 1.0f - c.ty;
   const float hm = (float)(h - 1), wm = (float)(w - 1);
   *inb = cx >= 0.0f && cx <= hm && cy >= 0.0f && cy <= wm;
-  *idx = (int)fminf(fmaxf(cx, 0.0f), hm) * w + (int)fminf(fmaxf(cy, 0.0f), wm);
+  *ix = (int)fminf(fmaxf(cx, 0.0f), hm);
+  *iy = (int)fminf(fmaxf(cy, 0.0f), wm);
   return wx * wy;
+}
+
+// A row's four corners: weights, in-bounds flags and clamped texels.
+struct Corners {
+  float wgt[4];
+  bool inb[4];
+  int ix[4], iy[4];
+};
+
+__device__ __forceinline__ Corners corners_of(const Cell& c, int h, int w) {
+  Corners q;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    q.wgt[k] = corner(c, k, h, w, &q.inb[k], &q.ix[k], &q.iy[k]);
+  return q;
 }
 
 }  // namespace plane_sample

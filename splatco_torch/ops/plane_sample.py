@@ -5,29 +5,37 @@ Counterpart of `_sample_plane` in splatco_tpu/models/triplane.py, an XLA
 gather there (and its `jax.grad` an XLA scatter-add), here a pair of CUDA
 kernels: `csrc/plane_sample_fwd.cu` and `csrc/plane_sample_bwd.cu`.
 
-`sample_plane(plane, u, v)` is the autograd entry point, [N] -> [N, R].
-Its forward gathers the four corners of each row and, when the plane
-needs a gradient, writes each (row, corner)'s cell, the key table's keys
-(a corner off the plane gets the key H * W, which sorts after every cell
-and is never summed); `key_table` sorts them stably, so each cell's
-entries stay in row order.  The backward sums each cell's entries in an
-order fixed by the table alone (a segmented scan within chunks of
-`CHUNK` entries, then the parts of a run that crosses chunks, `GROUP` at
-a time by an xor butterfly, in chunk order), with no float atomics, so a
-step repeats bit for bit; the coordinates' gradients are per row.
+`sample_plane(plane, u, v)` is the autograd entry point, [N] -> [N, R];
+its forward keeps only the plane and the coordinates for the backward.
+The backward sums each texel's entries g[n, r] * weight(n, corner)
+exactly, as integers: each float32 product is scaled by a power of two
+2**k, rounded half to even to int64, and the int64 sums are converted to
+float32 once and scaled back by 2**-k.  Integer addition is associative,
+so the sums do not depend on their order (the kernel adds them with
+atomics, split across blocks as it likes): no float atomic, no sort, and
+a step repeats bit for bit.  k (`grad_exponent`, from integer exponents)
+keeps N * max|g| * 2**k <= 2**62, within a factor of 4 of the largest k
+that does, so no sum can overflow (a row's in-bounds weights sum to at
+most 1); it is clamped to [-126, 126].  The resolution 2**-k is thus
+about N * max|g| * 2**-62, and each d_plane value is the float32
+rounding of a number within entries * 2**-(k + 1) of the exact sum of
+its entries' float32 products (entries: the rows whose corners reach
+that texel).  A cotangent with a NaN or an inf gives a d_plane of NaN.
+The coordinates' gradients are per row.
 
 For CUDA tensors `plane_sample_fwd` and `plane_sample_bwd` launch their
 kernels (each call adds one to `cuda_lib.LAUNCHES`); for CPU tensors they
 run the plain versions beside them; any other device raises.  There is no
 fallback from one to the other.  The plain versions repeat the kernels'
-float32 operations in the kernels' order (the kernels are built with
---fmad=false), so on the same inputs the two agree bit for bit.
+float32 operations (the kernels are built with --fmad=false) and their
+integer sums, so on the same inputs the two agree bit for bit.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+import math
+from typing import Optional
 
 import torch
 
@@ -35,10 +43,9 @@ from splatco_torch.ops import cuda_lib
 
 FWD_KERNEL = "plane_sample_fwd"
 BWD_KERNEL = "plane_sample_bwd"
-CHUNK = 256  # key-table entries a block of the backward (kChunk)
-GROUP = 32   # a run's chunk parts added per butterfly round (a warp)
-
-Table = Tuple[torch.Tensor, torch.Tensor]  # sorted keys int32, order int64
+# the backward's int64 sums of a 32 x 32 texel tile live in a block's
+# shared memory (R x 8 KiB), at most 227 KiB
+MAX_R = 28
 
 
 def _cell(u: torch.Tensor, v: torch.Tensor, h: int, w: int):
@@ -84,91 +91,36 @@ def plane_sample_fwd_plain(plane: torch.Tensor, u: torch.Tensor,
     return out.T
 
 
-def corner_keys_plain(u: torch.Tensor, v: torch.Tensor, h: int,
-                      w: int) -> torch.Tensor:
-    """keys [4 N] int32: entry 4 n + k is corner k's cell of row n, or
-    h * w where the corner lies off the plane (the forward kernel's
-    keys)."""
-    cell = _cell(u, v, h, w)
-    keys = []
-    for k in range(4):
-        _, inb, idx = _corner(cell, k, h, w)
-        keys.append(torch.where(inb, idx, h * w))
-    return torch.stack(keys, dim=1).reshape(-1).to(torch.int32)
+def grad_exponent(max_abs: float, n: int) -> int:
+    """k of the backward's scale 2**k for a cotangent whose largest |value|
+    is `max_abs` over `n` rows: k = 62 - b - e from integer exponents
+    alone (max_abs < 2**e, e = -126 below float32's normal range;
+    n <= 2**b), so n * max_abs * 2**k <= 2**62, clamped to [-126, 126] so
+    that 2**k and 2**-k are normal float32 values (`grad_exponent` in
+    csrc/plane_sample_bwd.cu)."""
+    e = max(math.frexp(max_abs)[1], -126)
+    b = max(n - 1, 0).bit_length()
+    return min(max(62 - b - e, -126), 126)
 
 
-def key_table(keys: torch.Tensor) -> Table:
-    """The key table: the keys sorted stably (equal cells keep row order,
-    the off-plane corners last) and each sorted entry's index 4 n + k."""
-    return torch.sort(keys, stable=True)
-
-
-def _scan_chunks(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """The backward kernel's segmented Hillis-Steele scan: key [C, CHUNK],
-    val [C, CHUNK, R] -> each entry's sum of its run from the chunk's
-    start (or the run's) up to itself, in the kernel's order."""
-    d = 1
-    while d < CHUNK:
-        prev_key = torch.nn.functional.pad(key, (d, 0), value=-1)[:, :-d]
-        prev_val = torch.nn.functional.pad(val, (0, 0, d, 0))[:, :-d]
-        val = torch.where((prev_key == key)[..., None], prev_val + val, val)
-        d *= 2
-    return val
-
-
-def _plane_grad_plain(g, u, v, plane, table: Table) -> torch.Tensor:
-    """d_plane [R, H, W] in the backward kernel's order of sums."""
+def _plane_grad_plain(g, u, v, plane) -> torch.Tensor:
+    """d_plane [R, H, W]: each corner's float32 product g * weight, scaled
+    by 2**k, rounded half to even to int64 and summed exactly by
+    `index_add_`, then converted once and scaled back."""
     r, h, w = plane.shape
-    cells, dev = h * w, plane.device
-    keys, order = table
-    total = keys.numel()
-    chunks = -(-total // CHUNK)
-    pad = chunks * CHUNK - total
-    key = torch.nn.functional.pad(keys.to(torch.int64), (0, pad),
-                                  value=cells)
-    valid = key < cells
-    e = torch.where(valid, torch.nn.functional.pad(order, (0, pad)), 0)
-    row = e // 4
-    wgt, _, _ = _corner(_cell(u[row], v[row], h, w), e % 4, h, w)
-    val = torch.where(valid[:, None], g[row] * wgt[:, None], 0.0)
-    key = key.view(chunks, CHUNK)
-    val = _scan_chunks(key, val.view(chunks, CHUNK, r))
-    valid = valid.view(chunks, CHUNK)
-
-    ends = torch.ones_like(key, dtype=torch.bool)
-    ends[:, :-1] = key[:, 1:] != key[:, :-1]
-    before = torch.cat([key.new_full((1,), -1), key[:-1, -1]])
-    started = (key == key[:, :1]) & (before[:, None] == key)
-    after = torch.cat([key[1:, 0], key.new_full((1,), -1)])
-    crosses = torch.zeros_like(ends)
-    crosses[:, -1] = after == key[:, -1]
-    out = torch.zeros((r, cells), dtype=plane.dtype, device=dev)
-    whole = ends & valid & ~started & ~crosses
-    out[:, key[whole]] = val[whole].T
-    head = torch.zeros((chunks, r), dtype=plane.dtype, device=dev)
-    part = ends & valid & started
-    head[part.nonzero()[:, 0]] = val[part]
-    owner = (crosses[:, -1] & valid[:, -1] & ~started[:, -1]).nonzero()[:, 0]
-    if owner.numel():
-        run_key = key[owner, -1]
-        idx = torch.arange(chunks, device=dev)
-        length = ((key[None, :, 0] == run_key[:, None])
-                  & (idx[None, :] > owner[:, None])).sum(1)
-        rounds = -(-length // GROUP)
-        span = int(rounds.max()) * GROUP
-        j = owner[:, None] + 1 + torch.arange(span, device=dev)[None, :]
-        part = torch.where(
-            (j - owner[:, None] - 1 < length[:, None])[..., None],
-            head[j.clamp(max=chunks - 1)], 0.0)
-        part = part.view(owner.numel(), -1, GROUP, r)
-        while part.shape[2] > 1:
-            half = part.shape[2] // 2
-            part = part[:, :, :half] + part[:, :, half:]
-        acc = val[owner, -1]
-        for i in range(part.shape[1]):
-            acc = torch.where((i < rounds)[:, None], acc + part[:, i, 0], acc)
-        out[:, run_key] = acc.T
-    return out.view(r, h, w)
+    n = u.shape[0]
+    max_abs = float(g.abs().max()) if g.numel() else 0.0
+    if not math.isfinite(max_abs):
+        return torch.full_like(plane, float("nan"))
+    k = grad_exponent(max_abs, n)
+    cell = _cell(u, v, h, w)
+    acc = torch.zeros((r, h * w), dtype=torch.int64, device=plane.device)
+    for c in range(4):
+        wgt, inb, idx = _corner(cell, c, h, w)
+        val = g[inb] * wgt[inb][:, None]
+        acc.index_add_(1, idx[inb],
+                       torch.round(val * 2.0 ** k).to(torch.int64).T)
+    return (acc.to(plane.dtype) * 2.0 ** -k).view(r, h, w)
 
 
 def _coord_grads_plain(g, u, v, plane):
@@ -192,12 +144,11 @@ def _coord_grads_plain(g, u, v, plane):
 
 def plane_sample_bwd_plain(g: torch.Tensor, u: torch.Tensor,
                            v: torch.Tensor, plane: torch.Tensor,
-                           table: Optional[Table], coords: bool = True):
+                           plane_grad: bool = True, coords: bool = True):
     """The sampler's gradients for the output cotangent g [N, R]:
-    (d_plane [R, H, W] or None without a table, d_u, d_v [N] or None
-    without `coords`), each sum in the backward kernel's order."""
-    d_plane = (None if table is None
-               else _plane_grad_plain(g, u, v, plane, table))
+    (d_plane [R, H, W] or None without `plane_grad`, d_u, d_v [N] or None
+    without `coords`), each as the backward kernel computes it."""
+    d_plane = _plane_grad_plain(g, u, v, plane) if plane_grad else None
     d_u, d_v = (_coord_grads_plain(g, u, v, plane) if coords
                 else (None, None))
     return d_plane, d_u, d_v
@@ -219,8 +170,11 @@ def _check(plane, u, v):
         raise ValueError(f"{FWD_KERNEL}: unsupported device {plane.device}")
     r, h, w = plane.shape
     if 4 * u.shape[0] >= 2 ** 31 or h * w >= 2 ** 31:
-        raise ValueError("the key table's int32 entries cannot hold "
+        raise ValueError("the backward's int32 entries cannot hold "
                          f"{u.shape[0]} rows of a {h}x{w} plane")
+    if plane.device.type == "cuda" and r > MAX_R:
+        raise ValueError(f"the kernels take at most {MAX_R} channels, got "
+                         f"{r}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -242,37 +196,39 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def plane_sample_fwd(plane: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                     keys: bool = False
-                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(samples [N, R], the key table's keys [4 N] int32 with `keys`, else
-    None)."""
+def plane_sample_fwd(plane: torch.Tensor, u: torch.Tensor,
+                     v: torch.Tensor) -> torch.Tensor:
+    """Samples [N, R] of plane [R, H, W] at rows (u, v)."""
     _check(plane, u, v)
-    r, h, w = plane.shape
     if plane.device.type == "cpu":
-        return (plane_sample_fwd_plain(plane, u, v),
-                corner_keys_plain(u, v, h, w) if keys else None)
+        return plane_sample_fwd_plain(plane, u, v)
+    r, h, w = plane.shape
     n = u.shape[0]
     out = torch.empty((n, r), dtype=torch.float32, device=plane.device)
-    key_out = (torch.empty(4 * n, dtype=torch.int32, device=plane.device)
-               if keys else None)
-    fn = _kernel(FWD_KERNEL, (_P, _P, _L, _P, _L, _L, _I, _I, _I, _P, _P,
-                              _P))
+    fn = _kernel(FWD_KERNEL, (_P, _P, _L, _P, _L, _L, _I, _I, _I, _P, _P))
     with torch.cuda.device(plane.device):
         err = fn(plane.data_ptr(), u.data_ptr(), u.stride(0), v.data_ptr(),
-                 v.stride(0), n, r, h, w, out.data_ptr(), _ptr(key_out),
+                 v.stride(0), n, r, h, w, out.data_ptr(),
                  _stream(plane.device))
     if err != 0:
         raise RuntimeError(f"{FWD_KERNEL} launch failed: CUDA error {err}")
     cuda_lib.count_launch(FWD_KERNEL)
-    return out, key_out
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _scratch_sizes_fn():
+    fn = cuda_lib.load(BWD_KERNEL).plane_sample_bwd_scratch
+    fn.argtypes = [_L, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong)]
+    fn.restype = None
+    return fn
 
 
 def plane_sample_bwd(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
-                     plane: torch.Tensor, table: Optional[Table],
+                     plane: torch.Tensor, plane_grad: bool = True,
                      coords: bool = True):
-    """(d_plane [R, H, W] or None without a table, d_u, d_v [N] or None
-    without `coords`) for the output cotangent g [N, R]."""
+    """(d_plane [R, H, W] or None without `plane_grad`, d_u, d_v [N] or
+    None without `coords`) for the output cotangent g [N, R]."""
     _check(plane, u, v)
     r, h, w = plane.shape
     n = u.shape[0]
@@ -281,32 +237,26 @@ def plane_sample_bwd(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"g must be [{n}, {r}] {plane.dtype} on "
                          f"{plane.device}, got {g.dtype} {tuple(g.shape)}")
     if plane.device.type == "cpu":
-        return plane_sample_bwd_plain(g, u, v, plane, table, coords)
+        return plane_sample_bwd_plain(g, u, v, plane, plane_grad, coords)
     if g.stride(1) != 1:
         g = g.contiguous()
     dev = plane.device
-    d_plane = keys = order = head = tail = None
-    total = 0
-    if table is not None:
-        keys, order = table
-        total = keys.numel()
-        if keys.dtype != torch.int32 or order.dtype != torch.int64 \
-                or order.shape != keys.shape or total != 4 * n:
-            raise ValueError("the key table must be int32 keys and int64 "
-                             f"order, [{4 * n}] each")
-        chunks = -(-total // CHUNK)
+    d_plane = ints = wide = None
+    if plane_grad:
+        sizes = (ctypes.c_longlong * 2)()
+        _scratch_sizes_fn()(n, r, h, w, sizes)
         d_plane = torch.empty_like(plane)
-        head = torch.empty((chunks, r), dtype=torch.float32, device=dev)
-        tail = torch.empty((chunks, r), dtype=torch.float32, device=dev)
+        ints = torch.empty(sizes[0], dtype=torch.int32, device=dev)
+        wide = torch.empty(sizes[1], dtype=torch.int64, device=dev)
     d_u = torch.empty(n, dtype=torch.float32, device=dev) if coords else None
     d_v = torch.empty(n, dtype=torch.float32, device=dev) if coords else None
     fn = _kernel(BWD_KERNEL, (_P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I, _P,
-                              _P, _L, _P, _P, _P, _P, _P, _P))
+                              _P, _P, _P, _P, _P))
     with torch.cuda.device(dev):
         err = fn(g.data_ptr(), g.stride(0), u.data_ptr(), u.stride(0),
                  v.data_ptr(), v.stride(0), plane.data_ptr(), n, r, h, w,
-                 _ptr(keys), _ptr(order), total, _ptr(head), _ptr(tail),
-                 _ptr(d_plane), _ptr(d_u), _ptr(d_v), _stream(dev))
+                 _ptr(ints), _ptr(wide), _ptr(d_plane), _ptr(d_u),
+                 _ptr(d_v), _stream(dev))
     if err != 0:
         raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err}")
     cuda_lib.count_launch(BWD_KERNEL)
@@ -314,25 +264,22 @@ def plane_sample_bwd(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
 
 
 class _PlaneSample(torch.autograd.Function):
-    """The sampler with its hand-written gradient.  The key table is
-    built only when the plane needs a gradient."""
+    """The sampler with its hand-written gradient."""
 
     @staticmethod
     def forward(ctx, plane, u, v):
-        need_plane = ctx.needs_input_grad[0]
         with torch.profiler.record_function("plane_sample"):
-            out, keys = plane_sample_fwd(plane, u, v, keys=need_plane)
-            table = key_table(keys) if need_plane else (None, None)
-        ctx.save_for_backward(plane, u, v, *table)
+            out = plane_sample_fwd(plane, u, v)
+        ctx.save_for_backward(plane, u, v)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        plane, u, v, keys, order = ctx.saved_tensors
+        plane, u, v = ctx.saved_tensors
         need_plane, need_u, need_v = ctx.needs_input_grad
         with torch.profiler.record_function("plane_sample"):
             d_plane, d_u, d_v = plane_sample_bwd(
-                g, u, v, plane, (keys, order) if need_plane else None,
+                g, u, v, plane, plane_grad=need_plane,
                 coords=need_u or need_v)
         return (d_plane, d_u if need_u else None, d_v if need_v else None)
 
@@ -346,4 +293,4 @@ def sample_plane(plane: torch.Tensor, u: torch.Tensor,
                                     or v.requires_grad):
         return _PlaneSample.apply(plane, u, v)
     with torch.profiler.record_function("plane_sample"):
-        return plane_sample_fwd(plane, u, v)[0]
+        return plane_sample_fwd(plane, u, v)

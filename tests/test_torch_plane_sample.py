@@ -1,14 +1,19 @@
 """The tri-plane sampler (splatco_torch/ops/plane_sample.py) on the CPU:
 its plain forward and backward against JAX's `_sample_plane` and
-`jax.vjp` of it, the key table, and `sample_plane` against autograd
-through the plain forward.  The CUDA kernels against their plain versions
-are card tests, in tests/test_torch_gpu.py.
+`jax.vjp` of it, the backward's exact integer sums (independent of the
+rows' order, free of overflow at the scale's edges, within the stated
+bound of a float64 sum), and `sample_plane` against autograd through the
+plain forward.  The CUDA kernels against their plain versions are card
+tests, in tests/test_torch_gpu.py.
 
 Tolerances: the forward to 1e-6 (the same float32 operations as JAX's);
 each gradient (d_plane, d_u, d_v) to 1e-5 of its max |value|, since JAX's
-scatter-add and the key table's fixed order sum each texel's entries in
-different orders.  Planes have H != W, so a swapped axis shows.
+scatter-add sums each texel's float entries in its own order and the
+backward rounds each entry to its scale's resolution.  Planes have
+H != W, so a swapped axis shows.
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -57,7 +62,7 @@ CASES = {"in_range": 600, "out_of_range": 600, "corners_edges": 600,
 def test_plain_versions_match_jax(case):
     """Plain forward and backward against `_sample_plane` and its
     `jax.vjp`; with 90 % of 40,000 rows at one point, each of its four
-    texels sums 36,000 entries across 141 chunks (5 butterfly rounds)."""
+    texels sums 36,000 entries."""
     n = CASES[case]
     rng = np.random.default_rng(1)
     plane = rng.normal(size=(R, H, W)).astype(np.float32)
@@ -71,45 +76,12 @@ def test_plain_versions_match_jax(case):
     assert got.shape == (n, R)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-    table = ps.key_table(ps.corner_keys_plain(tu, tv, H, W))
-    grads = ps.plane_sample_bwd_plain(torch.tensor(g), tu, tv, tp, table)
+    grads = ps.plane_sample_bwd_plain(torch.tensor(g), tu, tv, tp)
     for name, a, b in zip(("d_plane", "d_u", "d_v"), grads, want_grads):
         assert a.shape == b.shape, name
         assert rel(a.numpy(), b) <= GRAD_TOL, (name, rel(a.numpy(), b))
     if case == "out_of_range":
         assert (got.abs().sum(1) == 0).any()  # some rows fully outside
-
-
-def test_key_table_is_stable_and_drops_off_plane_corners():
-    u, v = coords("out_of_range", 500, 3)
-    u[100:140], v[100:140] = 0.25, 0.5  # 40 rows sharing four cells
-    tu, tv = torch.tensor(u), torch.tensor(v)
-    keys = ps.corner_keys_plain(tu, tv, H, W)
-    assert keys.dtype == torch.int32 and keys.shape == (4 * 500,)
-    # the keys the plain forward's corners read: in-bounds corners only
-    x = (tu + 1.0) * 0.5 * (H - 1)
-    y = (tv + 1.0) * 0.5 * (W - 1)
-    for k, (dx, dy) in enumerate([(0, 0), (1, 0), (0, 1), (1, 1)]):
-        cx, cy = torch.floor(x) + dx, torch.floor(y) + dy
-        inb = (cx >= 0) & (cx <= H - 1) & (cy >= 0) & (cy <= W - 1)
-        want = torch.where(inb, (cx * W + cy).to(torch.int32), H * W)
-        assert torch.equal(keys[k::4], want)
-    sorted_keys, order = ps.key_table(keys)
-    assert torch.equal(keys[order], sorted_keys)
-    on_plane = sorted_keys < H * W
-    off = int((keys == H * W).sum())
-    assert off > 0 and int((~on_plane).sum()) == off
-    assert bool(on_plane[:on_plane.sum()].all())  # off-plane corners last
-    # equal cells keep row (and corner) order
-    same = sorted_keys[1:] == sorted_keys[:-1]
-    assert bool((order[1:][same] > order[:-1][same]).all())
-    # a cell the 40 shared rows reach lists them (and any other row
-    # there) in row order
-    cell = keys[4 * 100]
-    rows = order[sorted_keys == cell] // 4
-    assert bool((rows[1:] > rows[:-1]).all())
-    assert torch.equal(rows[(rows >= 100) & (rows < 140)],
-                       torch.arange(100, 140))
 
 
 def test_off_plane_corners_get_no_gradient():
@@ -122,10 +94,130 @@ def test_off_plane_corners_get_no_gradient():
     g = torch.zeros(3, R)
     g[:2] = 1.0
     tu, tv = torch.tensor(u), torch.tensor(v)
-    table = ps.key_table(ps.corner_keys_plain(tu, tv, H, W))
-    d_plane, d_u, d_v = ps.plane_sample_bwd_plain(g, tu, tv, plane, table)
+    d_plane, d_u, d_v = ps.plane_sample_bwd_plain(g, tu, tv, plane)
     assert not d_plane.any()
     assert not d_u[:2].any() and not d_v[:2].any()
+    # the third row (g = 0 there) alone reaches the plane: still nothing
+    g[2] = 1.0
+    d_plane = ps.plane_sample_bwd_plain(g, tu, tv, plane, coords=False)[0]
+    assert int((d_plane != 0).sum()) == 4 * R
+
+
+def test_row_order_does_not_change_d_plane():
+    """A seeded permutation of the rows (and of g with them) gives
+    d_plane bit for bit: the integer sums have no order."""
+    n = 5000
+    u, v = coords("one_point", n, 9)
+    rng = np.random.default_rng(10)
+    plane = torch.tensor(rng.normal(size=(R, H, W)).astype(np.float32))
+    g = torch.tensor(rng.normal(size=(n, R)).astype(np.float32))
+    tu, tv = torch.tensor(u), torch.tensor(v)
+    want = ps.plane_sample_bwd_plain(g, tu, tv, plane, coords=False)[0]
+    for seed in (0, 1):
+        perm = torch.as_tensor(np.random.default_rng(seed).permutation(n))
+        got = ps.plane_sample_bwd_plain(g[perm], tu[perm], tv[perm], plane,
+                                        coords=False)[0]
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+# |g| at a binade's two edges: a power of two, and the float32 just below
+# the next one (the same exponent e, the largest sum it allows)
+EDGES = {"power": 1.0, "below_next": float(np.nextafter(np.float32(2.0),
+                                                        np.float32(0.0)))}
+
+
+@pytest.mark.parametrize("n", [2 ** 29 - 1, 2 ** 20, 2 ** 20 + 1, 1])
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_scale_leaves_int64_room(n, edge):
+    """For every row count up to the largest the int32 guards allow and
+    |g| at either edge of a binade (and at the float32 range's ends), the
+    worst sum, every row's whole weight at one texel with max|g| and n / 2
+    of rounding, stays inside int64, while four times the scale would not
+    keep n * max|g| * 2**k under 2**62 (k is within 2 of the largest k
+    that does)."""
+    for m in (EDGES[edge], EDGES[edge] * 2.0 ** 100,
+              EDGES[edge] * 2.0 ** -100, float(np.finfo(np.float32).max),
+              float(np.finfo(np.float32).smallest_subnormal)):
+        k = ps.grad_exponent(m, n)
+        assert -126 <= k <= 126
+        worst = math.ceil(n * m * 2.0 ** k) + n // 2 + 1  # exact: m, 2**k
+        assert worst < 2 ** 63
+        if -126 < k < 126:
+            assert n * m * 2.0 ** k <= 2.0 ** 62 < n * m * 2.0 ** (k + 2)
+
+
+@pytest.mark.parametrize("edge", sorted(EDGES))
+def test_worst_case_sum_does_not_overflow(edge):
+    """2**20 rows, R 1, all at one texel centre (weight 1 on one corner)
+    with every g at max|g|: the texel's sum is n * max|g| exactly, at the
+    top of the int64 range the scale allows."""
+    n, m = 2 ** 20, EDGES[edge]
+    u = v = torch.zeros(n)  # the centre texel (1, 1) of a 3 x 3 plane
+    plane = torch.zeros((1, 3, 3))
+    for sign in (1.0, -1.0):
+        g = torch.full((n, 1), sign * m)
+        d_plane = ps.plane_sample_bwd_plain(g, u, v, plane, coords=False)[0]
+        want = torch.zeros_like(d_plane)
+        want[0, 1, 1] = sign * n * m  # exact in float32
+        assert torch.equal(d_plane, want)
+        k = ps.grad_exponent(m, n)
+        assert n * m * 2.0 ** k >= 2.0 ** 61  # the scale is at its edge
+
+
+def test_zero_and_tiny_cotangents():
+    """g = 0 gives zeros; a tiny g (subnormal) gives finite values within
+    the bound; a NaN in g gives NaN."""
+    u, v = coords("in_range", 300, 11)
+    tu, tv = torch.tensor(u), torch.tensor(v)
+    plane = torch.zeros((R, H, W))
+    zero = ps.plane_sample_bwd_plain(torch.zeros(300, R), tu, tv, plane)
+    assert not zero[0].any() and not zero[1].any() and not zero[2].any()
+    tiny = torch.full((300, R), float(np.finfo(np.float32).smallest_subnormal))
+    tiny[::2] *= -7
+    d_plane = ps.plane_sample_bwd_plain(tiny, tu, tv, plane)[0]
+    assert bool(torch.isfinite(d_plane).all())
+    k = ps.grad_exponent(float(tiny.abs().max()), 300)
+    assert k == 126
+    assert float(d_plane.abs().max()) <= 300 * (7 * 1.5e-45 + 2.0 ** -127)
+    bad = torch.ones(300, R)
+    bad[5, 1] = float("nan")
+    assert bool(torch.isnan(ps.plane_sample_bwd_plain(
+        bad, tu, tv, plane)[0]).all())
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_d_plane_within_bound_of_float64_sum(case):
+    """Each d_plane value lies within entries * 2**-(k + 1) (the rounding
+    of each entry to the scale) plus half a float32 ulp of the float64
+    sum of its entries' float32 products (whose own error, ~entries *
+    2**-53 of the sum of |products|, is counted too)."""
+    n = CASES[case]
+    rng = np.random.default_rng(12)
+    g = torch.tensor((rng.normal(size=(n, R))
+                      * 10.0 ** rng.uniform(-3, 3, (n, 1))).astype(
+                          np.float32))
+    u, v = coords(case, n, 13)
+    tu, tv = torch.tensor(u), torch.tensor(v)
+    plane = torch.zeros((R, H, W))
+    got = ps.plane_sample_bwd_plain(g, tu, tv, plane, coords=False)[0]
+    k = ps.grad_exponent(float(g.abs().max()), n)
+    exact = torch.zeros((R, H * W), dtype=torch.float64)
+    mag = torch.zeros((R, H * W), dtype=torch.float64)
+    entries = torch.zeros(H * W, dtype=torch.float64)
+    cell = ps._cell(tu, tv, H, W)
+    for c in range(4):
+        wgt, inb, idx = ps._corner(cell, c, H, W)
+        val = (g[inb] * wgt[inb][:, None]).to(torch.float64).T
+        exact.index_add_(1, idx[inb], val)
+        mag.index_add_(1, idx[inb], val.abs())
+        entries.index_add_(0, idx[inb], torch.ones(int(inb.sum()),
+                                                   dtype=torch.float64))
+    exact = exact.view(R, H, W)
+    rounding = entries.view(1, H, W) * 2.0 ** -(k + 1)
+    bound = (rounding + (exact.abs() + rounding) * 2.0 ** -24
+             + entries.view(1, H, W) * mag.view(R, H, W) * 2.0 ** -53)
+    err = (got.to(torch.float64) - exact).abs()
+    assert bool((err <= bound).all()), float((err - bound).max())
 
 
 @pytest.mark.parametrize("case", ["in_range", "one_point"])

@@ -48,9 +48,9 @@ COMBINED = frozenset({"ssim", "consistency", "tv", "sreg", "stats"})
 # sha256 of one step's params, moments, statistics and losses, computed
 # by `step_digest` with the step of the commit before `disable` existed,
 # with the tri-plane sampler of ops/plane_sample.py in it (whose backward
-# sums each texel's entries in its key table's order)
+# sums each texel's entries exactly, as int64 under a power-of-two scale)
 DEFAULT_STEP_DIGEST = \
-    "27cc33fa6624b7f7df37f6d0c651d033e6767b0cacbd18d8a814029e58bb1145"
+    "d539a37888c673ab93f3069fe85bc10add669e2296e7f26b956a97e2f109af3b"
 
 
 @pytest.fixture(autouse=True)

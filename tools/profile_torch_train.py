@@ -171,8 +171,8 @@ def device_time_us(events, skip=()) -> float:
 
 def sampler_device_us(events) -> float:
     """Device time of the kernels launched inside the tri-plane sampler's
-    `plane_sample` ranges (ops/plane_sample.py: its two kernels and the
-    key table's sort), forward and backward."""
+    `plane_sample` ranges (ops/plane_sample.py: its forward kernel, and
+    its backward's memset and three kernels), forward and backward."""
     return sum(e.device_time_total for e in events
                if e.key == "plane_sample"
                and e.device_type == torch.autograd.DeviceType.CPU)
