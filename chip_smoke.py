@@ -178,8 +178,26 @@ Run from the repository root.  Phases, each of which fails loudly:
      through the plain version with autograd (`index_put_`, the path
      before these kernels) and through the kernels, over all rows and
      over the active ones alone.
+ 21. the tile binning (ops/binning.py: bin_count, bin_place,
+     bin_sort_tiles) and the backward's slot reduce (ops/rasterize.py:
+     slot_reduce), whose kernels every rasterize above launched (each
+     binning kernel once a blend forward, the reduce once a blend
+     backward: `check_binning` in every phase, 21d's table at the end).
+     21a: each kernel launched twice against its plain version, bit for
+     bit (bin_place as each segment's keys: its atomics choose their
+     order, which the sort undoes), and the composed binning against the
+     plain one, on the inputs the main path gave `bin_frame` at frame 0
+     of the quick-start model (v2 at kmax 12, v3 at kmax 32), at phase
+     16's iteration-45 state (capacity 131,072, padding rows included,
+     kmax 32) and on a crafted tile of HOT_N gaussians (longer than a
+     sorting block's shared memory), in v2 and v3.  21b: each timed
+     beside its bound (bytes, or the reach test's fp32 operations), its
+     plain version and the one library call of the same function
+     (`torch.argsort(stable=True)` for the sort, `index_add_` for the
+     reduce; timed, never used).  21c: frame 0's binning stage with the
+     kernels and with the plain versions, in turns.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
-Prints a `kernels` JSON line (all eleven kernels), then, as the last line,
+Prints a `kernels` JSON line (all fifteen kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
 there is no CUDA card.
 """
@@ -224,14 +242,16 @@ from splatco_torch.models.renderer import (anchor_plane_coords,
                                            prefilter_voxel, render)
 from splatco_torch.models.splatco import decode_kwargs, init_model
 from splatco_torch.models.triplane import _split_coords, apply_tpa
-from splatco_torch.ops import (cuda_lib, lpips, plane_sample, probes,
-                               raster_ablate, raster_v3)
+from splatco_torch.ops import (binning, cuda_lib, lpips, plane_sample,
+                               probes, raster_ablate, raster_v3)
 from splatco_torch.ops import rasterize as rasterize_ops
 from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.flip import ldr_flip
 from splatco_torch.ops.losses import l1_loss, psnr, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
-from splatco_torch.ops.rasterize import TILE16_DEFAULT, bin_frame, tile_grid
+from splatco_torch.ops.rasterize import (REDUCE_KERNEL, TILE16_DEFAULT,
+                                         bin_frame, reduce_slots,
+                                         reduce_slots_plain, tile_grid)
 from splatco_torch.ops.rasterize_cuda import (BWD_KERNEL, BWD_KERNELS,
                                               FWD_KERNELS, KERNEL,
                                               bwd_cull_mask, fwd_cull_mask,
@@ -288,8 +308,16 @@ REPLACES = {
     # the backward is its jax.grad scatter-add), not a Pallas kernel
     plane_sample.FWD_KERNEL: "splatco_tpu/models/triplane.py:51",
     plane_sample.BWD_KERNEL: "splatco_tpu/models/triplane.py:51",
+    # the tile binning and the backward's reduce: XLA stages (sorts,
+    # gathers, a segment sum), not Pallas kernels
+    binning.COUNT_KERNEL: "splatco_tpu/ops/binning.py:210",
+    binning.PLACE_KERNEL: "splatco_tpu/ops/binning.py:277",
+    binning.SORT_KERNEL: "splatco_tpu/ops/binning.py:300",
+    REDUCE_KERNEL: "splatco_tpu/ops/rasterize.py:140",
 }
 SAMPLER = (plane_sample.FWD_KERNEL, plane_sample.BWD_KERNEL)
+BINNING = (*binning.KERNELS, REDUCE_KERNEL)
+XLA_STAGES = (*SAMPLER, *BINNING)
 # phase 14: the tools time each probe mode and ablation variant over this
 # many launches, after one checked launch and a warm-up
 PROBE_ITERS = 20
@@ -376,6 +404,19 @@ HARD_ITERS, ABLATION_ITERS = 600, 200
 # backward launches to each other
 SAMPLER_ROWS, SAMPLER_R, SAMPLER_SIZES = 131072, 5, (700, 1400)
 SAMPLER_ITERS = 20
+# phase 21: the binning kernels and the slot reduce, each held to its plain
+# version bit for bit (bin_place up to the order within a segment, which
+# its atomics choose and bin_sort_tiles undoes) and timed over BIN_ITERS
+# launches; the crafted scene's HOT_N gaussians all lie in one tile, a
+# segment longer than the 4,096 keys a sorting block holds.  The bounds
+# count the reach test's fp32 operations: a gaussian's rect and conic
+# terms (two divisions, a log) and each slot of its clipped rect tested
+# (four edges of clamps, products and sums, the minima, the compares)
+BIN_ITERS, HOT_N = 20, 30000
+# frame 0 at sizes whose tile grids pass binning.SHARED_TILES (32,400 and
+# 32,640 tiles): bin_count and bin_place count in global memory there
+WIDE_FRAMES = ((7680, 4320, False), (3840, 2160, True))
+OPS_PER_GAUSSIAN, OPS_PER_SLOT = 40, 60
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -405,9 +446,9 @@ def random_projected_scene(n: int, seed: int, dev: torch.device):
             opac.to(dev))
 
 
-def grid(tile16: bool):
-    """(tiles_x, tiles_y) of the configuration at WIDTH x HEIGHT."""
-    return (raster_v3.tile_grid if tile16 else tile_grid)(HEIGHT, WIDTH)
+def grid(tile16: bool, height: int = HEIGHT, width: int = WIDTH):
+    """(tiles_x, tiles_y) of the configuration at width x height."""
+    return (raster_v3.tile_grid if tile16 else tile_grid)(height, width)
 
 
 def tile_of(tile16: bool) -> int:
@@ -416,8 +457,23 @@ def tile_of(tile16: bool) -> int:
 
 def blend_launches(launches: dict) -> dict:
     """The blend kernels' part of a run's launches (the tri-plane
-    sampler's part is held by `check_sampler`)."""
-    return {k: v for k, v in launches.items() if k not in SAMPLER}
+    sampler's part is held by `check_sampler`, the binning's by
+    `check_binning`)."""
+    return {k: v for k, v in launches.items() if k not in XLA_STAGES}
+
+
+def check_binning(launches: dict, what: str):
+    """Every rasterize bins once before its blend forward and reduces
+    once after its blend backward: each binning kernel launched as often
+    as the forward blend kernels, the slot reduce as often as the
+    backward ones, and the forward at least once."""
+    fwd = sum(launches.get(k, 0) for k in FWD_KERNELS.values())
+    bwd = sum(launches.get(k, 0) for k in BWD_KERNELS.values())
+    want = {**{k: fwd for k in binning.KERNELS}, REDUCE_KERNEL: bwd}
+    got = {k: launches.get(k, 0) for k in BINNING}
+    if got != want or not fwd:
+        raise AssertionError(f"{what} launched the binning kernels {got} "
+                             f"times, not {want}")
 
 
 def planes_sampled(level: int) -> int:
@@ -474,18 +530,21 @@ def quickstart_config() -> ModelConfig:
                        scene_length=[4.0, 4.0, 4.0], white_background=False)
 
 
-def orbit_cameras(n: int, dev: torch.device):
+def orbit_cameras(n: int, dev: torch.device, width: int = WIDTH,
+                  height: int = HEIGHT):
     return [look_at_camera([3.5 * math.sin(2 * math.pi * i / n), 0.4,
                             -3.5 * math.cos(2 * math.pi * i / n)],
-                           [0, 0, 0], [0, -1, 0], 1.2, 1.2 * HEIGHT / WIDTH,
-                           WIDTH, HEIGHT, uid=i, device=dev)
+                           [0, 0, 0], [0, -1, 0], 1.2, 1.2 * height / width,
+                           width, height, uid=i, device=dev)
             for i in range(n)]
 
 
-def frame_stages(params, state, cam, cfg, level, tile16=False):
+def frame_stages(params, state, cam, cfg, level, tile16=False,
+                 plain_binning=False):
     """One frame's stages as render() runs them in the configuration, each
     timed with CUDA events (and named for torch.profiler); returns (binned
-    records, {stage: ms})."""
+    records, {stage: ms}).  `plain_binning` bins through the binning
+    kernels' plain versions instead of the kernels."""
     tiles_x, tiles_y = grid(tile16)
     marks = []
 
@@ -510,8 +569,13 @@ def frame_stages(params, state, cam, cfg, level, tile16=False):
         proj = proj._replace(radius=torch.where(g["opacity"] > 0.0,
                                                 proj.radius, 0.0))
     with stage("binning"):
-        binned = bin_frame(proj, g["color"], g["opacity"], tile_of(tile16),
-                           HEIGHT, WIDTH, cfg.kmax)[0]
+        if plain_binning:
+            binned = binning.bin_gaussians_plain(
+                proj, g["color"], g["opacity"], tile_of(tile16), tiles_x,
+                tiles_y, cfg.kmax, tile16)
+        else:
+            binned = bin_frame(proj, g["color"], g["opacity"],
+                               tile_of(tile16), HEIGHT, WIDTH, cfg.kmax)[0]
     with stage("blend"):
         raster_fwd(binned.records, binned.tile_start, binned.tile_end,
                    tiles_x, tiles_y, cam.image_height, cam.image_width,
@@ -756,6 +820,7 @@ def train_phase(params, state, cfg, args, dev, tile16=False):
     # one sampling of the planes a step, shared by its views
     planes = planes_sampled(0) * (n_steps - 2) + planes_sampled(2) * 2
     check_sampler(launches, "training", planes, planes)
+    check_binning(launches, "training")
     return trainer, launches, step_ms
 
 
@@ -896,6 +961,7 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
         raise AssertionError(f"render_set launched {launches} for {frames} "
                              "frames")
     check_sampler(launches, "render_set", frames * planes_sampled(level), 0)
+    check_binning(launches, "render_set")
 
     tiles_x, tiles_y = grid(tile16)
     with torch.inference_mode():
@@ -1197,6 +1263,8 @@ def probe_phase(dev):
                  for e in probes.BLEND_MODES})
     want.update({f"{raster_ablate.KERNEL}[{v}]": each
                  for v in raster_ablate.VARIANTS})
+    # the ablation tool bins its scene once, through the binning kernels
+    want.update({k: 1 for k in binning.KERNELS})
     if launches != want:
         raise AssertionError(f"the tools launched {launches}, not {want}")
     failed = [k for k, r in micro.items() if not r["ok"]]
@@ -1326,6 +1394,7 @@ def disk_phase(args, dev, card: str, scene_dir: str):
             raise AssertionError(f"render_sets launched {launches} for "
                                  f"{frames} frames")
         check_sampler(launches, "render_sets", bwd=0)
+        check_binning(launches, "render_sets")
 
         loaded, l_active, contractor, level, _ = load_trained(cfg,
                                                               device=dev)
@@ -1649,6 +1718,7 @@ def train_disk_phase(args, dev, card: str, scene_dir: str, model1: str):
         if blend_launches(launches) != want:
             raise AssertionError(f"training launched {launches}, not {want}")
         check_sampler(launches, "training from disk")
+        check_binning(launches, "training from disk")
         staged_view_checks(probe, tile)
         probe.raster.clear()
 
@@ -1765,6 +1835,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
         raise AssertionError(f"render_torch.py launched {launches} for "
                              f"{DISK_VIEWS} views")
     check_sampler(launches, "render_torch.py", bwd=0)
+    check_binning(launches, "render_torch.py")
 
     # 2. the metrics CLI with seeded LPIPS weights at VGG16's widths, each
     # test view recomputed on the CPU from the same PNG pixels
@@ -1846,6 +1917,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
                              f"{ORBIT_FRAMES} frames")
     check_sampler(orbit_launches, "the orbit",
                   ORBIT_FRAMES * planes_sampled(level), 0)
+    check_binning(orbit_launches, "the orbit")
 
     # 4. the popping CLI with RAFT: seeded weights in the official layout
     pth = os.path.join(model_dir, "raft_random.pth")
@@ -2049,6 +2121,7 @@ def one_rank_phase(params, state, cfg, args, dev):
             and not over_lr):
         raise AssertionError("the 1x1 sharded step disagrees with the "
                              "single-device step")
+    check_binning(launches, "18a's sharded steps")
     return launches, ms
 
 
@@ -2358,6 +2431,8 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
         raise AssertionError("each rank must launch each 16 px kernel once "
                              "in its 16 px step")
     check_sampler(launches_b, "18b's sharded steps")
+    check_binning(launches_b, "18b's sharded steps")
+    check_binning(launches_b16, "18b's 16 px sharded step")
     check_sampler(launches_b16, "18b's 16 px sharded step")
 
     loop = r0["loop"]
@@ -2398,6 +2473,7 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
     if blend_launches(launches_c) != want_c:
         raise AssertionError(f"18c's sharded steps must launch {want_c}")
     check_sampler(launches_c, "18c's sharded steps")
+    check_binning(launches_c, "18c's sharded steps")
     if not (delta < LOOP_TOL and sum(d[1][0] for d in loop["densify"]) > 0
             and loop["capacity"][0] == 2 * r0["small_capacity"]):
         raise AssertionError("the sharded loop left the single-device "
@@ -2641,8 +2717,10 @@ def viewer_phase(args, dev, card: str, tmp: str, scene_dir: str,
         raise AssertionError(f"the viewer run launched {launches}, not "
                              f"{want}")
     check_sampler(launches, "the viewer run")
+    check_binning(launches, "the viewer run")
     print(f"  phase 19a wall {time.perf_counter() - t_phase:.1f} s")
-    launches[kernels[0]] -= out["references"]
+    for name in (kernels[0], *binning.KERNELS):
+        launches[name] -= out["references"]
     return launches
 
 
@@ -2689,6 +2767,11 @@ def profile_cli_phase(args, card: str, tmp: str, scene_dir: str,
     if blend_launches(launches) != want:
         raise AssertionError(f"--profile launched {launches}, not {want}")
     check_sampler(launches, "--profile")
+    check_binning(launches, "--profile")
+    for rng in ("binning", "slot_reduce"):
+        if not any(e.get("name") == rng for e in events):
+            raise AssertionError(f"the trace does not name the {rng} "
+                                 "ranges")
     if set(device_us) != {"fwd_kernel", "bwd_kernel"}:
         raise AssertionError("the trace does not name both blend kernels")
     if not sampler_named:
@@ -2726,6 +2809,7 @@ def step_recon_phase(params, state, cfg, args, dev, card: str):
         raise AssertionError(f"the attribution launched {launches}, not "
                              f"{want}")
     check_sampler(launches, "the attribution")
+    check_binning(launches, "the attribution")
     return launches
 
 
@@ -2809,6 +2893,7 @@ def hard_phase(dev, card: str, tmp: str):
         raise AssertionError(f"test PSNR did not rise: {evals}")
     if launches.get(BWD_KERNELS[tile]) != run["config"]["mv"] * HARD_ITERS:
         raise AssertionError(f"the quality run launched {launches}")
+    check_binning(launches, "the quality run")
 
     cuda_lib.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -3161,6 +3246,314 @@ def sampler_phase(dev, card: str, seed: int, model_dir: str):
     return numbers
 
 
+# ---------------------------------------------------------------------
+# phase 21: the tile binning's kernels and the slot reduce
+
+
+def binning_inputs(fn):
+    """Runs fn() with rasterize's `bin_frame` wrapped: the arguments of
+    its first binning, (proj, colors, opacities, tile, h, w, kmax),
+    copied."""
+    seen = []
+    bin_frame0 = rasterize_ops.bin_frame
+
+    def capture(proj, colors, opacities, *rest, **kw):
+        if not seen:
+            seen.append((ProjectedCols(*(t.clone() for t in proj)),
+                         colors.clone(), opacities.clone(), *rest))
+        return bin_frame0(proj, colors, opacities, *rest, **kw)
+
+    rasterize_ops.bin_frame = capture
+    try:
+        fn()
+    finally:
+        rasterize_ops.bin_frame = bin_frame0
+    return seen[0]
+
+
+def rendered_inputs(params, active, contractor, cam, cfg, level: int,
+                    kmax: int, tile16: bool):
+    """The binning's inputs of a `render` of this state and camera."""
+    dev = active.device
+
+    def run():
+        with torch.inference_mode():
+            vis = prefilter_voxel(params["anchors"], active, cam)
+            render(params, active, contractor, cam, torch.zeros(3, device=dev),
+                   visible_mask=vis, activate_level=level, kmax=kmax,
+                   tile16=tile16, **decode_kwargs(cfg))
+    return binning_inputs(run)
+
+
+def hot_tile_inputs(seed: int, dev, tile16: bool, kmax: int):
+    """HOT_N gaussians inside 16 px tile (2, 2) (so 32 px tile (1, 1)),
+    radius 3, depths on a grid of 0.01 (ties): one segment of HOT_N
+    records."""
+    g = torch.Generator().manual_seed(seed)
+    n = HOT_N
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g)
+
+    proj = ProjectedCols(mx=u(36.0, 44.0), my=u(36.0, 44.0),
+                         depth=torch.round(u(1.0, 3.0) * 100) / 100,
+                         ca=torch.full((n,), 0.4), cb=u(-0.05, 0.05),
+                         cc=torch.full((n,), 0.4),
+                         radius=torch.full((n,), 3.0))
+    return (ProjectedCols(*(t.to(dev) for t in proj)),
+            torch.rand((n, 3), generator=g).to(dev), u(0.2, 0.99).to(dev),
+            tile_of(tile16), HEIGHT, WIDTH, kmax)
+
+
+def same_tensors(a, b) -> bool:
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def binning_bounds(inputs, counts, slot_pos, pairs: int):
+    """Each kernel's bound on these inputs (bytes: each input read once,
+    each output written once; fp32 operations of the reach tests the
+    clipped rects need), and the work counted.  A gaussian of radius 0
+    (padding, or culled) needs only its radius read: 4 B, where one
+    with a rect reads its 6 other columns (7a) and its depth (7b) too.
+    7c reads the keys, the tile ranges and 9 columns of each gaussian
+    with pairs, and writes 36 B of record and 8 B of gauss_id a pair and
+    the int32 slot map once."""
+    proj, _, _, tile, h, w, kmax = inputs
+    tiles_x, tiles_y = grid(tile == raster_v3.TILE, h, w)
+    n, t = proj.mx.shape[0], tiles_x * tiles_y
+    slots = int(binning._rects(proj.mx, proj.my, proj.radius, tile, tiles_x,
+                               tiles_y, kmax)[3].clamp_max(kmax).sum())
+    live = int((proj.radius > 0).sum())
+    used = int((slot_pos >= 0).any(dim=0).sum())
+    ops = OPS_PER_GAUSSIAN * live + OPS_PER_SLOT * slots
+    return {
+        binning.COUNT_KERNEL: bound(4 * n + 24 * live + 8 * t + 32, ops),
+        binning.PLACE_KERNEL: bound(4 * n + 28 * live + 4 * t + 8 * pairs,
+                                    ops),
+        binning.SORT_KERNEL: bound(8 * pairs + 8 * t + 36 * used
+                                   + 44 * pairs + 4 * kmax * n, 0),
+        REDUCE_KERNEL: bound(4 * kmax * n + 36 * pairs + 36 * n,
+                             9 * kmax * n),
+    }, {"slots_tested": slots, "gaussians_with_rects": live,
+        "gaussians_with_pairs": used}
+
+
+def binning_case(what: str, inputs, seed: int, timed: bool):
+    """21a-b on one case: each kernel twice against its plain version,
+    bit for bit (bin_place as the keys of each segment), the composed
+    binning against the plain one, and, when `timed`, each kernel, its
+    plain version and the library call beside its bound.  Returns
+    {kernel: numbers}."""
+    proj, colors, op, tile, h, w, kmax = inputs
+    tiles_x, tiles_y = grid(tile == raster_v3.TILE, h, w)
+    geo = (tile, tiles_x, tiles_y, kmax, tile == raster_v3.TILE)
+    dev = proj.mx.device
+    n = proj.mx.shape[0]
+
+    counts = [binning.bin_count(proj, op, *geo) for _ in range(2)]
+    want_counts = binning.bin_count_plain(proj, op, *geo)
+    start, end, stats = want_counts
+    pairs, longest = stats[2:].tolist()
+    keys = [binning.bin_place(proj, op, start, pairs, *geo)
+            for _ in range(2)]
+    want_keys = binning.bin_place_plain(proj, op, start, pairs, *geo)
+    sorted_want = binning.sort_segments_plain(want_keys, start, end)
+    outs = [binning.bin_sort_tiles(k.clone(), start, end, longest, proj,
+                                   colors, op, kmax)
+            for k in (keys[0], keys[1], want_keys)]
+    want_out = binning.bin_sort_tiles_plain(want_keys, start, end, proj,
+                                            colors, op, kmax)
+    slot_pos = want_out[2]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    per_rec = torch.randn((binning.NUM_REC, pairs), generator=g, device=dev)
+    per_rec[:, ::5] = -0.0  # the reduce adds +0.0 for an empty slot
+    sums = [reduce_slots(per_rec, slot_pos) for _ in range(2)]
+    want_sums = reduce_slots_plain(per_rec, slot_pos)
+    got = bin_frame(proj, colors, op, tile, h, w, kmax)[0]
+    plain = binning.bin_gaussians_plain(proj, colors, op, *geo)
+    torch.cuda.synchronize()
+    exact = {
+        binning.COUNT_KERNEL: all(same_tensors(c, want_counts)
+                                  for c in counts),
+        binning.PLACE_KERNEL: all(same_tensors(
+            [binning.sort_segments_plain(k, start, end)], [sorted_want])
+            for k in keys),
+        binning.SORT_KERNEL: all(same_tensors(o, want_out) for o in outs),
+        REDUCE_KERNEL: all(same_tensors([x], [want_sums]) for x in sums),
+        "bin_frame": same_tensors(got, plain),
+    }
+    in_order = same_tensors([keys[0]], [want_keys])
+    err = {binning.COUNT_KERNEL: max(
+               float((c - p).abs().max()) if c.numel() else 0.0
+               for c, p in zip(counts[0], want_counts)),
+           binning.PLACE_KERNEL: 0.0 if exact[binning.PLACE_KERNEL]
+           else float("inf"),
+           binning.SORT_KERNEL: max(
+               float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+               if a.numel() else 0.0 for a, b in zip(outs[0], want_out)),
+           REDUCE_KERNEL: float((sums[0] - want_sums).abs().max())
+           if want_sums.numel() else 0.0}
+    print(f"21a. {what}: N {n}, kmax {kmax}, {tile} px tiles, {pairs} "
+          f"pairs, longest segment {longest}, num_clipped "
+          f"{int(stats[0])}, max_slots {int(stats[1])}; bit for bit with "
+          f"the plain versions (two launches each; bin_place as each "
+          f"segment's keys, its own order equal {in_order}): "
+          f"{json.dumps(exact)}")
+    if not all(exact.values()):
+        raise AssertionError(f"a binning kernel disagrees with its plain "
+                             f"version on {what}: {exact}")
+    if not timed:
+        return {}
+    bnds, work = binning_bounds(inputs, want_counts, slot_pos, pairs)
+    sort_keys = keys[0].clone()
+    seg = torch.repeat_interleave(torch.arange(tiles_x * tiles_y, device=dev),
+                                  (end - start).to(torch.int64))
+    lib_key = (seg << 32) | (want_keys >> 32)  # tile << 32 | depth bits
+    gid = want_out[1]
+    ms = {
+        binning.COUNT_KERNEL: (
+            cuda_time_ms(lambda: binning.bin_count(proj, op, *geo),
+                         BIN_ITERS),
+            cuda_time_ms(lambda: binning.bin_count_plain(proj, op, *geo), 3),
+            None),
+        binning.PLACE_KERNEL: (
+            cuda_time_ms(lambda: binning.bin_place(proj, op, start, pairs,
+                                                   *geo), BIN_ITERS),
+            cuda_time_ms(lambda: binning.bin_place_plain(
+                proj, op, start, pairs, *geo), 3),
+            None),
+        # the network sorts the (then sorted) keys in place: the same work
+        binning.SORT_KERNEL: (
+            cuda_time_ms(lambda: binning.bin_sort_tiles(
+                sort_keys, start, end, longest, proj, colors, op, kmax),
+                BIN_ITERS),
+            cuda_time_ms(lambda: binning.bin_sort_tiles_plain(
+                want_keys, start, end, proj, colors, op, kmax), 3),
+            cuda_time_ms(lambda: torch.argsort(lib_key, stable=True),
+                         BIN_ITERS)),
+        REDUCE_KERNEL: (
+            cuda_time_ms(lambda: reduce_slots(per_rec, slot_pos), BIN_ITERS),
+            cuda_time_ms(lambda: reduce_slots_plain(per_rec, slot_pos), 3),
+            cuda_time_ms(lambda: torch.zeros(
+                (binning.NUM_REC, n), device=dev).index_add_(1, gid, per_rec),
+                BIN_ITERS)),
+    }
+    whole = (cuda_time_ms(lambda: bin_frame(proj, colors, op, tile, h, w,
+                                            kmax), BIN_ITERS),
+             cuda_time_ms(lambda: binning.bin_gaussians_plain(
+                 proj, colors, op, *geo), 3))
+    print(f"21b. {what} (CUDA events, ms): " + "; ".join(
+        f"{k} {m[0]:.5f} (bound {bnds[k][0]:.5f}, {bnds[k][1]}; plain "
+        f"{m[1]:.4f}; library {'none' if m[2] is None else f'{m[2]:.5f}'})"
+        for k, m in ms.items())
+        + f"; the binning through bin_frame {whole[0]:.5f} (its read-back "
+        f"of P included), plain {whole[1]:.4f}; work {json.dumps(work)}")
+    return {k: {"max_abs_err": err[k], "ms": m[0], "plain_ms": m[1],
+                "bound_ms": bnds[k][0], "bound_by": bnds[k][1],
+                "library_ms": m[2], "pairs": pairs, "longest": longest,
+                "n": n, "kmax": kmax}
+            for k, m in ms.items()}
+
+
+def binning_stage_turns(params, state, cfg, cam, tile16: bool):
+    """21c: frame 0's binning stage (frame_stages, CUDA events) with the
+    kernels and with the plain versions, in turns plain, kernels,
+    kernels, plain after a warm-up of each."""
+    level = 2
+    ms = {True: [], False: []}
+    with torch.inference_mode():
+        for plain in (True, False):
+            frame_stages(params, state, cam, cfg, level, tile16, plain)
+        for plain in (True, False, False, True):
+            ms[plain].append(frame_stages(params, state, cam, cfg, level,
+                                          tile16, plain)[1]["binning"])
+    print(f"21c. frame 0's binning stage ({tile_of(tile16)} px tiles, kmax "
+          f"{cfg.kmax}; turns plain, kernels, kernels, plain): kernels "
+          f"{ms[False]} ms, plain {ms[True]} ms")
+    return ms
+
+
+def binning_phase(dev, card: str, seed: int, params, state, cfg, cams,
+                  model_dir: str):
+    """Phase 21a-c.  21a-b: the binning kernels and the slot reduce
+    against their plain versions at frame 0 of the quick-start model (v2,
+    kmax 12; v3, kmax 32), at phase 16's iteration-45 state (capacity
+    131,072, its padding rows included; kmax 32), on the crafted hot
+    tile (v2 and v3) and, untimed, at frame 0 on grids of more than
+    binning.SHARED_TILES tiles (WIDE_FRAMES); 21c: frame 0's binning
+    stage with the kernels and with the plain versions.  Returns each
+    kernel's numbers (frame 0 in v2 first, every timed case in
+    `modes`)."""
+    t_phase = time.perf_counter()
+    cfg3 = dataclasses.replace(cfg, kmax=KMAX_V3)
+    tree, meta = load_train_state(model_dir, TRAIN_CKPT, device=dev)
+    trained_cfg = load_run_config(model_dir)[0]
+    contractor = Contractor(
+        xyz_min=torch.tensor(meta["contractor_min"], device=dev),
+        xyz_max=torch.tensor(meta["contractor_max"], device=dev),
+        enabled=bool(meta["contractor_enabled"]))
+    cam16 = orbit_camera(0, DISK_VIEWS, width=WIDTH, height_px=HEIGHT,
+                         device=dev)
+    cases = [
+        ("frame 0, v2", rendered_inputs(params, state.active,
+                                        state.contractor, cams[0], cfg, 2,
+                                        cfg.kmax, False), True),
+        ("frame 0, v3", rendered_inputs(params, state.active,
+                                        state.contractor, cams[0], cfg3, 2,
+                                        KMAX_V3, True), True),
+        (f"phase 16's iteration-{TRAIN_CKPT} state",
+         rendered_inputs(tree["params"], tree["active"].bool(), contractor,
+                         cam16, trained_cfg, 0, KMAX_V3, TILE16_DEFAULT),
+         True),
+        ("hot tile, v2", hot_tile_inputs(seed, dev, False, cfg.kmax), True),
+        ("hot tile, v3", hot_tile_inputs(seed, dev, True, KMAX_V3), True),
+    ]
+    for w, h, tile16 in WIDE_FRAMES:
+        tiles_x, tiles_y = grid(tile16, h, w)
+        if tiles_x * tiles_y <= binning.SHARED_TILES:
+            raise AssertionError(f"{w}x{h} has only {tiles_x * tiles_y} "
+                                 f"tiles")
+        c = cfg3 if tile16 else cfg
+        cases.append((f"frame 0 at {w}x{h}, v{3 if tile16 else 2} "
+                      f"({tiles_x * tiles_y} tiles)",
+                      rendered_inputs(params, state.active, state.contractor,
+                                      orbit_cameras(1, dev, w, h)[0], c, 2,
+                                      c.kmax, tile16), False))
+    del tree
+    numbers = {name: {"modes": {}} for name in BINNING}
+    for what, inputs, timed in cases:
+        for name, rec in binning_case(what, inputs, seed, timed).items():
+            numbers[name]["modes"][what] = rec
+    for what in ("hot tile, v2", "hot tile, v3"):
+        if not numbers[REDUCE_KERNEL]["modes"][what]["longest"] == HOT_N:
+            raise AssertionError(f"the {what} scene is not one segment of "
+                                 f"{HOT_N} records")
+    for name in BINNING:
+        first = numbers[name]["modes"]["frame 0, v2"]
+        numbers[name].update(err=first["max_abs_err"], ms=first["ms"],
+                             plain_ms=first["plain_ms"],
+                             bound=(first["bound_ms"], first["bound_by"]),
+                             library_ms=first["library_ms"])
+    for tile16, c in ((False, cfg), (True, cfg3)):
+        binning_stage_turns(params, state, c, cams[0], tile16)
+    print(f"  phase 21a-c wall {time.perf_counter() - t_phase:.1f} s")
+    return numbers
+
+
+def binning_launch_table(phase_launches: dict):
+    """21d: the binning kernels' and the slot reduce's launches on each
+    phase's main path (each phase's own check held them to its blend
+    launches); every phase binned through the kernels."""
+    table = {phase: {k: launches.get(k, 0) for k in BINNING}
+             for phase, launches in phase_launches.items()}
+    print(f"21d. the binning kernels' launches on each phase's main path: "
+          f"{json.dumps(table)}")
+    for phase, got in table.items():
+        if not all(got[k] for k in binning.KERNELS):
+            raise AssertionError(f"{phase} did not bin through the kernels")
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -3172,7 +3565,7 @@ def entry(name, launches, numbers):
            "bound_ms": numbers["bound"][0],
            "bound_by": numbers["bound"][1],
            "library_ms": numbers.get("library_ms")}
-    if name in SAMPLER:
+    if name in XLA_STAGES:
         out["replaces_kind"] = "XLA stage (no Pallas kernel)"
     if "modes" in numbers:
         out["modes"] = numbers["modes"]
@@ -3194,6 +3587,7 @@ def main() -> int:
     if args.sharded_rank:
         return sharded_rank(args.sharded_rank)
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. the card
     smi = subprocess.run(
@@ -3278,6 +3672,10 @@ def main() -> int:
         # 20. the tri-plane sampler's kernels at full width, and phase 16's
         # trained state with and without its padding rows
         sampler_numbers = sampler_phase(dev, smi, args.seed, model_dir)
+        # 21. the binning kernels and the slot reduce on the main paths'
+        # inputs, phase 16's trained state and a hot tile
+        binning_numbers = binning_phase(dev, smi, args.seed, params, state,
+                                        cfg, cams, model_dir)
 
     # 18. the sharded step: a 1x1 mesh over NCCL, four ranks on the card
     sharded_launches = sharded_phase(params, state, cfg, args, dev, smi)
@@ -3285,6 +3683,12 @@ def main() -> int:
     phases = (fwd["launches"], train_launches, fwd3["launches"],
               train3_launches, disk_launches, train_disk_launches,
               eval_launches, last_launches, sharded_launches)
+    binning_launch_table(dict(zip(
+        ("4 render_set v2", "7 training v2", "12 render_set v3",
+         "13 training v3", "15 render_sets and render_torch.py",
+         "16 train_torch.py", "17 evaluation renders",
+         "19 viewer, --profile, attribution, hard protocol",
+         "18 sharded steps"), phases)))
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
               + train_launches.get(KERNEL, 0)
@@ -3312,7 +3716,10 @@ def main() -> int:
           for name, nums in probe_numbers.items()),
         *(entry(name, sum(p.get(name, 0) for p in phases),
                 sampler_numbers[name]) for name in SAMPLER),
+        *(entry(name, sum(p.get(name, 0) for p in phases),
+                binning_numbers[name]) for name in BINNING),
     ]}))
+    print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

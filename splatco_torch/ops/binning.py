@@ -1,6 +1,7 @@
 """Tile binning (counterpart of splatco_tpu/ops/binning.py) on the 32 px
-grid of the v2 configuration, or at any tile size: ops/raster_v3.py bins
-the v3 configuration's 16 px grid with the same steps.
+grid of the v2 configuration, or at any power-of-two tile size:
+ops/raster_v3.py bins the v3 configuration's 16 px grid with the same
+kernels, its slots ranked in parent-major tile order.
 
   1. per-gaussian tile rects, clipped to `kmax` tiles around the centre
      (`_rects`, identical to the JAX package's, with the `num_clipped`
@@ -9,33 +10,70 @@ the v3 configuration's 16 px grid with the same steps.
      (`_slot_grid`, identical to the JAX package's): a dropped slot has
      max alpha < 1/255 over its tile, which the blend skips anyway,
   3. only the valid (tile, gaussian) pairs are emitted — a dynamic count,
-     no static slot budget — and sorted stably by one 64-bit key
-     `tile << 32 | float_bits(depth)` (depth is positive past the near
-     clip, so its bits order like the value).  Emission is j-major, as
-     the JAX slot array is, so depth ties break the same way,
-  4. the 9 record columns are gathered into SoA [9, P] float32 and the
-     per-tile [start, end) ranges come from a count per tile,
-  5. the slot map `slot_pos` [kmax, N] gives, for each (slot j, gaussian),
-     the position of its record in the sorted record array, or -1 (the
-     inverse of the sort's permutation over the j-major emission).  The
-     backward gathers the per-record gradients through it and sums over
-     j: a deterministic per-gaussian reduce with no scatter-add.
+     no static slot budget — in depth order within each tile; among pairs
+     of one tile at equal depth, the lower slot rank, then the lower
+     gaussian index, comes first (the order of the JAX package's stable
+     sort over its j-major slot array),
+  4. the 9 record columns are gathered into SoA [9, P] float32, with the
+     per-tile [start, end) ranges,
+  5. the slot map `slot_pos` [kmax, N] gives, for each (slot rank j,
+     gaussian), the position of its record, or -1.  The backward gathers
+     the per-record gradients through it and sums over j in order
+     (`reduce_slots` of ops/rasterize.py): a deterministic per-gaussian
+     reduce with no scatter-add.
+
+Three CUDA kernels run steps 1-5 on the card (csrc/binning.cuh holds
+their per-gaussian arithmetic):
+
+  bin_count       (csrc/bin_count.cu)  the pairs per tile, their offsets
+                  tile_start / tile_end, and the counters num_clipped,
+                  max_slots, the pair count P and the longest segment,
+  bin_place       (csrc/bin_place.cu)  each pair's key
+                  float_bits(depth) << 32 | (j * N + n) in its tile's
+                  segment, in an order the atomics choose,
+  bin_sort_tiles  (csrc/bin_sort_tiles.cu)  each segment's keys sorted
+                  (unique keys: the order bin_place left does not
+                  matter), then records, gauss_id and slot_pos.
+
+The low word of a key is the pair's flat index in the slot map, so
+kmax * N must stay below 2^31: the wrappers raise above that (and the
+positions in the slot map fit its int32).  P and the
+longest segment are read back once a call, after bin_count (the
+binning's one host sync).  For CUDA tensors each wrapper launches its
+kernel (adding one to `cuda_lib.LAUNCHES`) or raises; for CPU tensors it
+runs the plain version beside it, the torch code of the same function.
+The plain versions composed (`bin_gaussians_plain`, any device) give the same BinnedGaussians as the kernels, bit for bit.
 
 The JAX package's static budgets (`kmax_pack`, `class_spec`, chunk maps)
 exist only to give XLA static shapes; they have no counterpart here.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
 
+from splatco_torch.ops import cuda_lib
 from splatco_torch.ops.projection import ProjectedCols, rect_bounds
 
 TILE = 32
 # record rows
 C_MX, C_MY, C_CA, C_CB, C_CC, C_OP, C_R, C_G, C_B = range(9)
 NUM_REC = 9
+
+COUNT_KERNEL, PLACE_KERNEL, SORT_KERNEL = ("bin_count", "bin_place",
+                                           "bin_sort_tiles")
+KERNELS = (COUNT_KERNEL, PLACE_KERNEL, SORT_KERNEL)
+# a key's low word, the pair's flat slot-map index j * N + n, is int32
+MAX_SLOTS = 2 ** 31
+# the most tiles bin_count and bin_place count per block in shared memory
+# (csrc/binning.cuh's kSharedTiles); on a larger grid (v3 at 3840x2160:
+# 32,640 tiles) they count with global atomics
+SHARED_TILES = 12288
+# flips a key's sign bit: int64 order of the flipped keys is their uint64
+# order
+_SIGN = -2 ** 63
 
 
 class BinnedGaussians(NamedTuple):
@@ -46,8 +84,15 @@ class BinnedGaussians(NamedTuple):
     num_clipped: torch.Tensor  # [] i64: gaussians whose rect was clipped
     max_slots: torch.Tensor    # [] i64: most reach-valid tiles of one
                                #   gaussian
-    slot_pos: torch.Tensor     # [kmax, N] i64: record position of each
-                               #   (slot, gaussian), -1 where none
+    slot_pos: torch.Tensor     # [kmax, N] i32: record position of each
+                               #   (slot rank, gaussian), -1 where none
+
+
+class TileCounts(NamedTuple):
+    tile_start: torch.Tensor  # [num_tiles] i32
+    tile_end: torch.Tensor    # [num_tiles] i32
+    stats: torch.Tensor       # [4] i64: num_clipped, max_slots, pairs,
+                              #   longest segment
 
 
 def _rects(mx, my, rad, tile_size: int, tiles_x: int, tiles_y: int,
@@ -121,67 +166,275 @@ def _slot_grid(mx, my, ca, cb, cc, op, x0, y0, sx_c, counts,
 
 
 def slot_tiles(proj: ProjectedCols, opacities: torch.Tensor,
-               tile_size: int, tiles_x: int, tiles_y: int, kmax: int):
+               tile_size: int, tiles_x: int, tiles_y: int, kmax: int,
+               parent_major: bool = False):
     """(tile_of_slot [kmax, N] int32 with `num_tiles` for an invalid slot,
-    clipped [N] bool): steps 1-2 above."""
+    clipped [N] bool): steps 1-2 above, each gaussian's slots in rank
+    order (with `parent_major`, v3's parent-major tile order, invalid
+    slots last)."""
     x0, y0, sx_c, counts, clipped = _rects(
         proj.mx, proj.my, proj.radius.to(torch.float32), tile_size,
         tiles_x, tiles_y, kmax)
+    num_tiles = tiles_x * tiles_y
     tile_of_slot = _slot_grid(proj.mx, proj.my, proj.ca, proj.cb, proj.cc,
                               opacities.to(torch.float32), x0, y0, sx_c,
-                              counts, tile_size, tiles_x, kmax,
-                              tiles_x * tiles_y)
+                              counts, tile_size, tiles_x, kmax, num_tiles)
+    if parent_major:
+        from splatco_torch.ops.raster_v3 import parent_major_slots
+        tile_of_slot = parent_major_slots(tile_of_slot, tiles_x, num_tiles)
     return tile_of_slot, clipped
+
+
+# ---------------------------------------------------------------------
+# plain versions of the kernels
+
+
+def bin_count_plain(proj: ProjectedCols, opacities: torch.Tensor,
+                    tile_size: int, tiles_x: int, tiles_y: int, kmax: int,
+                    parent_major: bool = False) -> TileCounts:
+    """What `bin_count` computes: the pairs per tile as segment offsets,
+    and the counters (no count depends on `parent_major`)."""
+    num_tiles = tiles_x * tiles_y
+    tile_of_slot, clipped = slot_tiles(proj, opacities, tile_size, tiles_x,
+                                       tiles_y, kmax)
+    valid = tile_of_slot < num_tiles
+    per_tile = torch.bincount(tile_of_slot[valid].to(torch.int64),
+                              minlength=num_tiles)
+    tile_end = torch.cumsum(per_tile, 0)
+    dev = proj.mx.device
+    max_slots = (valid.sum(dim=0).max() if proj.mx.shape[0]
+                 else torch.zeros((), dtype=torch.int64, device=dev))
+    stats = torch.stack([clipped.sum(), max_slots, tile_end[-1],
+                         per_tile.max()]).to(torch.int64)
+    return TileCounts((tile_end - per_tile).to(torch.int32),
+                      tile_end.to(torch.int32), stats)
+
+
+def bin_place_plain(proj: ProjectedCols, opacities: torch.Tensor,
+                    tile_start: torch.Tensor, num_pairs: int,
+                    tile_size: int, tiles_x: int, tiles_y: int, kmax: int,
+                    parent_major: bool = False) -> torch.Tensor:
+    """What `bin_place` computes: keys [P] int64 (uint64 bits) in tile
+    segments, here in emission order (j-major) within a segment."""
+    num_tiles = tiles_x * tiles_y
+    tile_of_slot, _ = slot_tiles(proj, opacities, tile_size, tiles_x,
+                                 tiles_y, kmax, parent_major)
+    flat = tile_of_slot.reshape(-1)
+    slot = torch.nonzero(flat < num_tiles).squeeze(1)  # j * N + n
+    tile = flat[slot].to(torch.int64)
+    n = proj.mx.shape[0]
+    bits = proj.depth[slot % max(n, 1)].contiguous().view(torch.int32)
+    key = ((bits.to(torch.int64) & 0xFFFFFFFF) << 32) | slot
+    keys = key[torch.argsort(tile, stable=True)]
+    if keys.shape[0] != num_pairs:
+        raise ValueError(f"{num_pairs} pairs counted, {keys.shape[0]} "
+                         "placed")
+    return keys
+
+
+def sort_segments_plain(keys: torch.Tensor, tile_start: torch.Tensor,
+                        tile_end: torch.Tensor) -> torch.Tensor:
+    """The keys of each segment [tile_start, tile_end) in ascending
+    uint64 order (the keys bin_sort_tiles works from)."""
+    seg = torch.repeat_interleave(
+        torch.arange(tile_start.shape[0], device=keys.device),
+        (tile_end - tile_start).to(torch.int64))
+    order = torch.argsort(keys ^ _SIGN, stable=True)
+    return keys[order[torch.argsort(seg[order], stable=True)]]
+
+
+def bin_sort_tiles_plain(keys: torch.Tensor, tile_start: torch.Tensor,
+                         tile_end: torch.Tensor, proj: ProjectedCols,
+                         colors: torch.Tensor, opacities: torch.Tensor,
+                         kmax: int):
+    """What `bin_sort_tiles` computes: (records [9, P], gauss_id [P],
+    slot_pos [kmax, N]) from each segment's keys in ascending uint64
+    order."""
+    n = proj.mx.shape[0]
+    dev = keys.device
+    slot = sort_segments_plain(keys, tile_start, tile_end) & 0xFFFFFFFF
+    gid = slot % max(n, 1)  # slot = j * N + n
+    slot_pos = torch.full((kmax * n,), -1, dtype=torch.int32, device=dev)
+    slot_pos[slot] = torch.arange(slot.shape[0], dtype=torch.int32,
+                                  device=dev)
+    op = opacities.to(torch.float32)
+    cols = torch.stack([proj.mx, proj.my, proj.ca, proj.cb, proj.cc, op,
+                        colors[:, 0], colors[:, 1],
+                        colors[:, 2]]).to(torch.float32)
+    records = cols.index_select(1, gid).contiguous()
+    return records, gid, slot_pos.reshape(kmax, n)
+
+
+# ---------------------------------------------------------------------
+# the kernels' wrappers
+
+
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+def _columns(proj: ProjectedCols, opacities: torch.Tensor):
+    """(mx, my, ca, cb, cc, op, radius, depth) as contiguous float32."""
+    return tuple(t.to(torch.float32).contiguous() for t in (
+        proj.mx, proj.my, proj.ca, proj.cb, proj.cc, opacities,
+        proj.radius, proj.depth))
+
+
+def _check(name: str, proj: ProjectedCols, tile_size: int, tiles_x: int,
+           kmax: int, parent_major: bool) -> bool:
+    """Whether the call runs on the card (else on the CPU); raises on
+    what the kernels do not take."""
+    dev = proj.mx.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    n = proj.mx.shape[0]
+    if kmax < 1 or kmax * n >= MAX_SLOTS:
+        raise ValueError(f"{name}: kmax * N = {kmax} * {n} must be in "
+                         f"[1, 2^31): a key's low word is the int32 slot "
+                         "index j * N + n")
+    if tile_size & (tile_size - 1) or tile_size < 1:
+        raise ValueError(f"{name}: the tile size must be a power of two, "
+                         f"got {tile_size}")
+    if parent_major and tiles_x % 2:
+        raise ValueError(f"{name}: parent-major ranks need an even "
+                         f"tiles_x, got {tiles_x}")
+    return dev.type == "cuda"
+
+
+def bin_count(proj: ProjectedCols, opacities: torch.Tensor, tile_size: int,
+              tiles_x: int, tiles_y: int, kmax: int,
+              parent_major: bool = False) -> TileCounts:
+    """The pairs per tile as segment offsets (tile_start, tile_end) and
+    the counters (num_clipped, max_slots, pairs, longest segment)."""
+    if not _check(COUNT_KERNEL, proj, tile_size, tiles_x, kmax,
+                  parent_major):
+        return bin_count_plain(proj, opacities, tile_size, tiles_x, tiles_y,
+                               kmax, parent_major)
+    dev = proj.mx.device
+    cols = _columns(proj, opacities)
+    num_tiles = tiles_x * tiles_y
+    scratch = torch.zeros(4 + num_tiles, dtype=torch.int32, device=dev)
+    start = torch.empty(num_tiles, dtype=torch.int32, device=dev)
+    end = torch.empty(num_tiles, dtype=torch.int32, device=dev)
+    stats = torch.empty(4, dtype=torch.int64, device=dev)
+    fn = cuda_lib.function(COUNT_KERNEL, (_P,) * 7 + (_L, _I, _I, _I, _I, _I)
+                 + (_P,) * 5)
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in cols[:7]), proj.mx.shape[0],
+                 tile_size, tiles_x, tiles_y, kmax, int(parent_major),
+                 scratch.data_ptr(), start.data_ptr(), end.data_ptr(),
+                 stats.data_ptr(), cuda_lib.stream(dev))
+    cuda_lib.launched(COUNT_KERNEL, err)
+    return TileCounts(start, end, stats)
+
+
+def bin_place(proj: ProjectedCols, opacities: torch.Tensor,
+              tile_start: torch.Tensor, num_pairs: int, tile_size: int,
+              tiles_x: int, tiles_y: int, kmax: int,
+              parent_major: bool = False) -> torch.Tensor:
+    """Keys [num_pairs] int64 (uint64 bits) in the segments `tile_start`
+    begins."""
+    if not _check(PLACE_KERNEL, proj, tile_size, tiles_x, kmax,
+                  parent_major):
+        return bin_place_plain(proj, opacities, tile_start, num_pairs,
+                               tile_size, tiles_x, tiles_y, kmax,
+                               parent_major)
+    dev = proj.mx.device
+    cols = _columns(proj, opacities)
+    num_tiles = tiles_x * tiles_y
+    if tile_start.shape != (num_tiles,) or tile_start.dtype != torch.int32:
+        raise ValueError(f"tile_start must be [{num_tiles}] int32")
+    cursor = torch.zeros(num_tiles, dtype=torch.int32, device=dev)
+    keys = torch.empty(num_pairs, dtype=torch.int64, device=dev)
+    fn = cuda_lib.function(PLACE_KERNEL, (_P,) * 8 + (_L, _I, _I, _I, _I, _I)
+                 + (_P,) * 4)
+    with torch.cuda.device(dev):
+        err = fn(*(t.data_ptr() for t in cols), proj.mx.shape[0], tile_size,
+                 tiles_x, tiles_y, kmax, int(parent_major),
+                 tile_start.contiguous().data_ptr(), cursor.data_ptr(),
+                 keys.data_ptr(), cuda_lib.stream(dev))
+    cuda_lib.launched(PLACE_KERNEL, err)
+    return keys
+
+
+def bin_sort_tiles(keys: torch.Tensor, tile_start: torch.Tensor,
+                   tile_end: torch.Tensor, longest: int,
+                   proj: ProjectedCols, colors: torch.Tensor,
+                   opacities: torch.Tensor, kmax: int):
+    """(records [9, P], gauss_id [P], slot_pos [kmax, N]) from the keys
+    of each segment in ascending order.  On the card the keys are sorted
+    in place; `longest` is the longest segment (bin_count's)."""
+    dev = keys.device
+    if dev.type == "cpu":
+        return bin_sort_tiles_plain(keys, tile_start, tile_end, proj,
+                                    colors, opacities, kmax)
+    if dev.type != "cuda":
+        raise ValueError(f"{SORT_KERNEL}: unsupported device {dev}")
+    n, pairs = proj.mx.shape[0], keys.shape[0]
+    if kmax * n >= MAX_SLOTS:
+        raise ValueError(f"{SORT_KERNEL}: kmax * N = {kmax} * {n} >= 2^31")
+    if keys.dtype != torch.int64 or not keys.is_contiguous() or any(
+            t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev
+            for t in (tile_start, tile_end)):
+        raise ValueError(f"{SORT_KERNEL} takes contiguous int64 keys and "
+                         "int32 tile ranges on one card")
+    cols = _columns(proj, opacities)[:6]
+    rgb = colors.to(torch.float32).contiguous()
+    records = torch.empty((NUM_REC, pairs), dtype=torch.float32, device=dev)
+    gid = torch.empty(pairs, dtype=torch.int64, device=dev)
+    slot_pos = torch.full((kmax, n), -1, dtype=torch.int32, device=dev)
+    num_tiles = tile_start.shape[0]
+    chunk = cuda_lib.function(SORT_KERNEL, (), "bin_sort_tiles_chunk")()
+    # the tiles longer than a sorting block's chunk, listed by the kernel
+    max_long = min(num_tiles, pairs // (chunk + 1)) if longest > chunk else 0
+    listed = (torch.zeros(1 + max_long, dtype=torch.int32, device=dev)
+              if max_long else None)
+    fn = cuda_lib.function(SORT_KERNEL, (_P, _P, _P, _I, _L) + (_P,) * 7
+                 + (_L, _L, _P, _P, _P, _P, _I, _P))
+    with torch.cuda.device(dev):
+        err = fn(keys.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
+                 num_tiles, longest, *(t.data_ptr() for t in cols),
+                 rgb.data_ptr(), n, pairs, records.data_ptr(), gid.data_ptr(),
+                 slot_pos.data_ptr(),
+                 None if listed is None else listed.data_ptr(), max_long,
+                 cuda_lib.stream(dev))
+    cuda_lib.launched(SORT_KERNEL, err)
+    return records, gid, slot_pos
+
+
+def _binned(counts: TileCounts, records, gid, slot_pos) -> BinnedGaussians:
+    return BinnedGaussians(
+        records=records, gauss_id=gid, tile_start=counts.tile_start,
+        tile_end=counts.tile_end, num_clipped=counts.stats[0],
+        max_slots=counts.stats[1], slot_pos=slot_pos)
 
 
 def bin_gaussians(proj: ProjectedCols, colors: torch.Tensor,
                   opacities: torch.Tensor, tile_size: int, tiles_x: int,
-                  tiles_y: int, kmax: int = 12) -> BinnedGaussians:
+                  tiles_y: int, kmax: int = 12,
+                  parent_major: bool = False) -> BinnedGaussians:
     """Bin projected gaussians into depth-ordered per-tile segments.
-    colors [N,3], opacities [N]; gaussians with radius 0 emit nothing."""
-    tile_of_slot, clipped = slot_tiles(proj, opacities, tile_size, tiles_x,
-                                       tiles_y, kmax)
-    return bin_slots(proj, colors, opacities, tile_of_slot, clipped,
-                     tiles_x * tiles_y)
+    colors [N,3], opacities [N]; gaussians with radius 0 emit nothing.
+    `parent_major` ranks each gaussian's slots in v3's parent-major tile
+    order."""
+    geo = (tile_size, tiles_x, tiles_y, kmax, parent_major)
+    counts = bin_count(proj, opacities, *geo)
+    num_pairs, longest = counts.stats[2:].tolist()  # the one read-back
+    keys = bin_place(proj, opacities, counts.tile_start, num_pairs, *geo)
+    return _binned(counts, *bin_sort_tiles(
+        keys, counts.tile_start, counts.tile_end, longest, proj, colors,
+        opacities, kmax))
 
 
-def bin_slots(proj: ProjectedCols, colors: torch.Tensor,
-              opacities: torch.Tensor, tile_of_slot: torch.Tensor,
-              clipped: torch.Tensor, num_tiles: int) -> BinnedGaussians:
-    """Steps 3-5 above for a slot grid [kmax, N]: slot j of a gaussian is
-    emitted j-major, so among gaussians at equal depth in one tile the
-    lower slot rank, then the lower gaussian index, comes first."""
-    n = proj.mx.shape[0]
-    kmax = tile_of_slot.shape[0]
-    mx, my = proj.mx, proj.my
-    ca, cb, cc = proj.ca, proj.cb, proj.cc
-    op = opacities.to(torch.float32)
-    valid = tile_of_slot < num_tiles
-    max_slots = valid.sum(dim=0).max() if n else torch.zeros(
-        (), dtype=torch.int64, device=mx.device)
-
-    # valid pairs in j-major slot order (slot = j * n + gaussian)
-    slot = torch.nonzero(valid.reshape(-1)).squeeze(1)
-    tile = tile_of_slot.reshape(-1)[slot].to(torch.int64)
-    gid = slot % max(n, 1)
-    depth_bits = proj.depth[gid].contiguous().view(torch.int32)
-    key = (tile << 32) | depth_bits.to(torch.int64)
-    order = torch.argsort(key, stable=True)
-    gid = gid[order]
-    tile = tile[order]
-    slot_pos = torch.full((kmax * n,), -1, dtype=torch.int64,
-                          device=mx.device)
-    slot_pos[slot[order]] = torch.arange(order.shape[0], device=mx.device)
-
-    cols = torch.stack([mx, my, ca, cb, cc, op, colors[:, 0], colors[:, 1],
-                        colors[:, 2]]).to(torch.float32)
-    records = cols.index_select(1, gid).contiguous()
-    per_tile = torch.bincount(tile, minlength=num_tiles)
-    tile_end = torch.cumsum(per_tile, 0)
-    tile_start = tile_end - per_tile
-    return BinnedGaussians(
-        records=records, gauss_id=gid,
-        tile_start=tile_start.to(torch.int32),
-        tile_end=tile_end.to(torch.int32),
-        num_clipped=clipped.sum(), max_slots=max_slots,
-        slot_pos=slot_pos.reshape(kmax, n))
+def bin_gaussians_plain(proj: ProjectedCols, colors: torch.Tensor,
+                        opacities: torch.Tensor, tile_size: int,
+                        tiles_x: int, tiles_y: int, kmax: int = 12,
+                        parent_major: bool = False) -> BinnedGaussians:
+    """`bin_gaussians` through the plain versions on any device: the
+    kernels' reference, equal to their BinnedGaussians bit for bit."""
+    geo = (tile_size, tiles_x, tiles_y, kmax, parent_major)
+    counts = bin_count_plain(proj, opacities, *geo)
+    keys = bin_place_plain(proj, opacities, counts.tile_start,
+                           int(counts.stats[2]), *geo)
+    return _binned(counts, *bin_sort_tiles_plain(
+        keys, counts.tile_start, counts.tile_end, proj, colors, opacities,
+        kmax))

@@ -10,12 +10,15 @@ together) when a script calls it.
 
 `LAUNCHES` counts kernel launches by name: each wrapper adds one
 (`count_launch`, under a lock, since a viewer thread launches too) where
-it launches its kernel, and nowhere else.
+it launches its kernel, and nowhere else.  `function`, `stream` and
+`launched` are the wrappers' shared steps: the C entry point, the stream
+to launch on, and the check of a launch's CUDA error before it counts.
 """
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -23,6 +26,8 @@ import subprocess
 import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -106,3 +111,27 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             _libs[name] = ctypes.CDLL(str(library_path(name)))
         return _libs[name]
+
+
+@functools.lru_cache(maxsize=None)
+def function(name: str, argtypes: tuple, symbol: Optional[str] = None):
+    """The C function `symbol` (default: `name`) of `csrc/<name>.cu`'s
+    library, with its argument types set and an int result (a launch's
+    CUDA error)."""
+    fn = getattr(load(name), symbol or name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of PyTorch's current stream on `dev`."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def launched(name: str, err: int) -> None:
+    """Raises if a launch of `name` returned CUDA error `err`, else counts
+    it."""
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    count_launch(name)

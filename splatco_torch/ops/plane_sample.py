@@ -177,23 +177,11 @@ def _check(plane, u, v):
                          f"{r}")
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(name: str, argtypes: tuple):
-    fn = getattr(cuda_lib.load(name), name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 _P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def plane_sample_fwd(plane: torch.Tensor, u: torch.Tensor,
@@ -205,14 +193,13 @@ def plane_sample_fwd(plane: torch.Tensor, u: torch.Tensor,
     r, h, w = plane.shape
     n = u.shape[0]
     out = torch.empty((n, r), dtype=torch.float32, device=plane.device)
-    fn = _kernel(FWD_KERNEL, (_P, _P, _L, _P, _L, _L, _I, _I, _I, _P, _P))
+    fn = cuda_lib.function(FWD_KERNEL,
+                           (_P, _P, _L, _P, _L, _L, _I, _I, _I, _P, _P))
     with torch.cuda.device(plane.device):
         err = fn(plane.data_ptr(), u.data_ptr(), u.stride(0), v.data_ptr(),
                  v.stride(0), n, r, h, w, out.data_ptr(),
-                 _stream(plane.device))
-    if err != 0:
-        raise RuntimeError(f"{FWD_KERNEL} launch failed: CUDA error {err}")
-    cuda_lib.count_launch(FWD_KERNEL)
+                 cuda_lib.stream(plane.device))
+    cuda_lib.launched(FWD_KERNEL, err)
     return out
 
 
@@ -250,16 +237,14 @@ def plane_sample_bwd(g: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
         wide = torch.empty(sizes[1], dtype=torch.int64, device=dev)
     d_u = torch.empty(n, dtype=torch.float32, device=dev) if coords else None
     d_v = torch.empty(n, dtype=torch.float32, device=dev) if coords else None
-    fn = _kernel(BWD_KERNEL, (_P, _L, _P, _L, _P, _L, _P, _L, _I, _I, _I, _P,
-                              _P, _P, _P, _P, _P))
+    fn = cuda_lib.function(BWD_KERNEL, (_P, _L, _P, _L, _P, _L, _P, _L, _I,
+                                        _I, _I, _P, _P, _P, _P, _P, _P))
     with torch.cuda.device(dev):
         err = fn(g.data_ptr(), g.stride(0), u.data_ptr(), u.stride(0),
                  v.data_ptr(), v.stride(0), plane.data_ptr(), n, r, h, w,
                  _ptr(ints), _ptr(wide), _ptr(d_plane), _ptr(d_u),
-                 _ptr(d_v), _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{BWD_KERNEL} launch failed: CUDA error {err}")
-    cuda_lib.count_launch(BWD_KERNEL)
+                 _ptr(d_v), cuda_lib.stream(dev))
+    cuda_lib.launched(BWD_KERNEL, err)
     return d_plane, d_u, d_v
 
 

@@ -9,13 +9,15 @@ so tiles_x = 2 * ceil(W / 32), not ceil(W / 16).  That wider grid also
 moves the rect clamp, and with it which tiles a clipped gaussian keeps
 and `num_clipped`.
 
-  bin_gaussians_v3: the port's binning (ops/binning.py) at tile size 16
-      on that grid: depth-ordered per-tile segments, `num_clipped` and
-      `max_slots` as JAX defines them, the slot map for the backward.
-      Tile ids are row-major.  Each gaussian's slots are ranked in the
-      JAX package's parent-major tile order, as its binning ranks them,
-      so gaussians at equal depth in one tile (the offsets of one anchor
-      start at one point) come in the JAX order.  Its parent-major ids
+  bin_gaussians_v3: the port's binning (ops/binning.py, its CUDA
+      kernels on the card) at tile size 16 on that grid: depth-ordered
+      per-tile segments, `num_clipped` and `max_slots` as JAX defines
+      them, the slot map for the backward.  Tile ids are row-major.  Each
+      gaussian's slots are ranked in the JAX package's parent-major tile
+      order, as its binning ranks them (`parent_major_slots`, the rank's
+      plain version; the kernels rank in csrc/binning.cuh), so gaussians
+      at equal depth in one tile (the offsets of one anchor start at one
+      point) come in the JAX order.  Its parent-major ids
       themselves, the pad subtiles, class packing, K-aligned tail,
       slot-key record row and step maps exist for its TPU kernels' static
       shapes and block walks; they have no counterpart here.
@@ -32,7 +34,7 @@ from typing import Tuple
 
 import torch
 
-from splatco_torch.ops.binning import BinnedGaussians, bin_slots, slot_tiles
+from splatco_torch.ops.binning import BinnedGaussians, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 
 TILE = 16
@@ -53,13 +55,11 @@ def bin_gaussians_v3(proj: ProjectedCols, colors: torch.Tensor,
                      opacities: torch.Tensor, tiles_x: int, tiles_y: int,
                      kmax: int = 24) -> BinnedGaussians:
     """Bin projected gaussians into depth-ordered segments of the 16 px
-    tiles (`tiles_x`, `tiles_y` from `tile_grid`)."""
-    tile_of_slot, clipped = slot_tiles(proj, opacities, TILE, tiles_x,
-                                       tiles_y, kmax)
-    num_tiles = tiles_x * tiles_y
-    return bin_slots(proj, colors, opacities,
-                     parent_major_slots(tile_of_slot, tiles_x, num_tiles),
-                     clipped, num_tiles)
+    tiles (`tiles_x`, `tiles_y` from `tile_grid`), each gaussian's slots
+    ranked in parent-major tile order: the binning kernels of
+    ops/binning.py."""
+    return bin_gaussians(proj, colors, opacities, TILE, tiles_x, tiles_y,
+                         kmax=kmax, parent_major=True)
 
 
 def parent_major_slots(tile_of_slot: torch.Tensor, tiles_x: int,

@@ -6,15 +6,17 @@ default) and the 16 px tiles of v3 (ops/raster_v3.py), chosen per call by
 `tile16` or, when that is None, by SPLATCO_RASTER=v3 at import
 (`TILE16_DEFAULT`).  Both run the same steps at their tile size:
 
-  forward : tile binning (ops/binning.py) + the blend kernel
+  forward : tile binning (ops/binning.py: its three kernels, inside
+            `record_function("binning")`) + the blend kernel
             (`raster_fwd` / `raster_fwd16`), then image = rgb + bg *
             T_final cropped to H x W,
   backward: the blend's backward kernel (`raster_bwd` / `raster_bwd16`)
-            -> per-record gradients [9, P] -> gathered into [9, kmax, N]
-            through the binning's slot map (zeros where a slot has no
-            record) and summed over the slots: a deterministic
-            per-gaussian reduce with no index_add_, scatter or float
-            atomic.
+            -> per-record gradients [9, P] -> summed per gaussian through
+            the binning's slot map, over its slots j = 0 .. kmax-1 in
+            order (`reduce_slots`: the `slot_reduce` kernel of
+            csrc/slot_reduce.cu, inside `record_function("slot_reduce")`):
+            a deterministic per-gaussian reduce with no index_add_,
+            scatter or float atomic.
 
 Gradients flow to the means (mx, my), conics, colours, opacities and bg.
 The binning (tile assignment, depth order) is not differentiated, and
@@ -24,16 +26,19 @@ proxy" the caller adds to the means.
 """
 from __future__ import annotations
 
+import ctypes
 import os
 from typing import Dict, Optional
 
 import torch
 
-from splatco_torch.ops import raster_v3
-from splatco_torch.ops.binning import TILE, bin_gaussians
+from splatco_torch.ops import cuda_lib, raster_v3
+from splatco_torch.ops.binning import NUM_REC, TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize_cuda import raster_bwd, raster_fwd
 
+REDUCE_KERNEL = "slot_reduce"
+_P, _L, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
 # the configuration a call takes when it passes tile16=None:
 # SPLATCO_RASTER=v3 -> 16 px tiles, anything else -> 32 px
 TILE16_DEFAULT = os.environ.get("SPLATCO_RASTER", "v2") == "v3"
@@ -58,14 +63,49 @@ def bin_frame(proj: ProjectedCols, colors, opacities, tile: int,
                           kmax=kmax), tiles_x, tiles_y)
 
 
+def reduce_slots_plain(per_record: torch.Tensor, slot_pos: torch.Tensor
+                       ) -> torch.Tensor:
+    """Per-gaussian sums [9, N] of per-record rows [9, P]: for each slot
+    j = 0 .. kmax-1 in turn, the rows gathered through the slot map
+    [kmax, N] (+0.0 where a slot has no record, -1) added to the running
+    sums, which start at +0.0.  The fixed order is what `slot_reduce`
+    repeats bit for bit."""
+    out = per_record.new_zeros((per_record.shape[0], slot_pos.shape[1]))
+    if per_record.shape[1] == 0:
+        return out
+    for pos in slot_pos:
+        out = out + torch.where(pos >= 0,
+                                per_record[:, pos.clamp_min(0).long()], 0.0)
+    return out
+
+
 def reduce_slots(per_record: torch.Tensor, slot_pos: torch.Tensor
                  ) -> torch.Tensor:
-    """Per-gaussian sums [9, N] of per-record rows [9, P]: gather through
-    the slot map [kmax, N] (-1 = no record) and sum over the slots."""
-    if per_record.shape[1] == 0:
-        return per_record.new_zeros((per_record.shape[0], slot_pos.shape[1]))
-    gathered = per_record[:, slot_pos.clamp_min(0)]      # [9, kmax, N]
-    return torch.where(slot_pos[None] >= 0, gathered, 0.0).sum(dim=1)
+    """Per-gaussian sums [9, N] of per-record rows [9, P] through the slot
+    map [kmax, N] (-1 = no record), summed over the slots in order:
+    `csrc/slot_reduce.cu` for CUDA tensors, `reduce_slots_plain` for CPU
+    ones."""
+    dev = per_record.device
+    if dev.type == "cpu":
+        return reduce_slots_plain(per_record, slot_pos)
+    if dev.type != "cuda" or per_record.dtype != torch.float32 \
+            or per_record.shape[0] != NUM_REC \
+            or slot_pos.dtype != torch.int32 or slot_pos.device != dev:
+        raise ValueError(f"{REDUCE_KERNEL} takes [9, P] float32 and an int32 "
+                         f"slot map on one card, got {per_record.dtype} "
+                         f"{tuple(per_record.shape)} on {dev} and "
+                         f"{slot_pos.dtype} on {slot_pos.device}")
+    rec = per_record.contiguous()
+    pos = slot_pos.contiguous()
+    kmax, n = pos.shape
+    packed = torch.empty((rec.shape[1], 12), dtype=torch.float32, device=dev)
+    out = torch.empty((NUM_REC, n), dtype=torch.float32, device=dev)
+    fn = cuda_lib.function(REDUCE_KERNEL, (_P, _L, _P, _I, _L, _P, _P, _P))
+    with torch.cuda.device(dev):
+        err = fn(rec.data_ptr(), rec.shape[1], pos.data_ptr(), kmax, n,
+                 packed.data_ptr(), out.data_ptr(), cuda_lib.stream(dev))
+    cuda_lib.launched(REDUCE_KERNEL, err)
+    return out
 
 
 class _Rasterize(torch.autograd.Function):
@@ -79,8 +119,10 @@ class _Rasterize(torch.autograd.Function):
                 tile: int, aux: Dict):
         proj = ProjectedCols(mx=mx, my=my, depth=depth, ca=ca, cb=cb, cc=cc,
                              radius=radius)
-        binned, tiles_x, tiles_y = bin_frame(proj, colors, opacities, tile,
-                                             image_height, image_width, kmax)
+        with torch.profiler.record_function("binning"):
+            binned, tiles_x, tiles_y = bin_frame(proj, colors, opacities,
+                                                 tile, image_height,
+                                                 image_width, kmax)
         rgb, t_fin = raster_fwd(binned.records, binned.tile_start,
                                 binned.tile_end, tiles_x, tiles_y,
                                 image_height, image_width, tile=tile)
@@ -105,7 +147,8 @@ class _Rasterize(torch.autograd.Function):
         per_rec = raster_bwd(records, tile_start, tile_end, tiles_x,
                              tiles_y, h, w, gpad, rgb, t_fin,
                              bg.detach().contiguous(), tile=tile)
-        per_g = reduce_slots(per_rec, slot_pos)
+        with torch.profiler.record_function("slot_reduce"):
+            per_g = reduce_slots(per_rec, slot_pos)
         d_bg = (g_img * t_fin[None, :h, :w]).sum(dim=(1, 2))
         d_colors = per_g[6:9].T.contiguous()
         return (per_g[0], per_g[1], per_g[2], per_g[3], per_g[4], d_colors,

@@ -26,7 +26,11 @@ repeats bit for bit.  The evaluation metrics (FLIP, LPIPS) and RAFT agree
 with the CPU on a small seeded pair.  The tri-plane sampler's kernels
 (ops/plane_sample.py) equal their plain versions bit for bit, the
 forward and all three gradients (the plain version sums the same
-integers), and two backward launches agree bit for bit.
+integers), and two backward launches agree bit for bit.  The binning
+kernels (ops/binning.py) and the slot reduce (ops/rasterize.py) equal
+their plain versions bit for bit, bin_place as each segment's keys (its
+atomics choose their order), on a random scene, a tile longer than a
+sorting block's 4,096 keys and an empty scene, in both configurations.
 """
 import collections
 import dataclasses
@@ -46,11 +50,13 @@ from splatco_torch.eval import raft
 from splatco_torch.eval.render_driver import render_sets
 from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import decode_kwargs, init_model
-from splatco_torch.ops import (cuda_lib, flip, lpips, plane_sample, probes,
-                               raster_ablate, raster_v3)
+from splatco_torch.ops import (binning, cuda_lib, flip, lpips, plane_sample,
+                               probes, raster_ablate, raster_v3)
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
-from splatco_torch.ops.rasterize import bin_frame, tile_grid
+from splatco_torch.ops.rasterize import (REDUCE_KERNEL, bin_frame,
+                                         reduce_slots, reduce_slots_plain,
+                                         tile_grid)
 from splatco_torch.ops.rasterize_cuda import (BWD_KERNELS, BWD_WARP_RECT,
                                               FWD_KERNELS, FWD_WARP_RECT,
                                               raster_bwd,
@@ -67,6 +73,7 @@ from splatco_torch.utils.synthetic import (write_blender_dataset,
                                            write_colmap_dataset)
 
 pytestmark = pytest.mark.gpu
+BINNING = (*binning.KERNELS, REDUCE_KERNEL)
 BWD_TOL = 1e-5  # of each row's max |value|: pixel sums in another order
 
 
@@ -334,7 +341,8 @@ def check_step(dev, tile16):
     first = toy_step(dev, tile16)
     assert dict(cuda_lib.LAUNCHES) == {**{name: 2 for name in kernels},
                                        plane_sample.FWD_KERNEL: 6,
-                                       plane_sample.BWD_KERNEL: 6}
+                                       plane_sample.BWD_KERNEL: 6,
+                                       **{name: 2 for name in BINNING}}
     second = toy_step(dev, tile16)
     for a, b in zip(leaves(first[:3]), leaves(second[:3])):
         assert torch.equal(a, b)
@@ -451,7 +459,9 @@ def test_render_sets_from_disk_matches_in_memory(card, tmp_path):
     assert n == int(active.sum())
     # 9 frames, each sampling 12 planes (every level, TPA)
     assert dict(cuda_lib.LAUNCHES) == {FWD_KERNELS[TILE]: 9,
-                                       plane_sample.FWD_KERNEL: 9 * 12}
+                                       plane_sample.FWD_KERNEL: 9 * 12,
+                                       **{name: 9 for name in
+                                          binning.KERNELS}}
     cam = sc.test_cameras()[0]
     with torch.inference_mode():
         vis = prefilter_voxel(params["anchors"], active, cam)
@@ -509,7 +519,9 @@ def test_trainer_on_the_card_resumes_bit_for_bit(card, tmp_path):
     assert dict(cuda_lib.LAUNCHES) == {
         FWD_KERNELS[TILE]: 2 * 20 + frames, BWD_KERNELS[TILE]: 2 * 20,
         plane_sample.FWD_KERNEL: planes + frames // 2 * (6 + 9),
-        plane_sample.BWD_KERNEL: planes}
+        plane_sample.BWD_KERNEL: planes,
+        **{name: 2 * 20 + frames for name in binning.KERNELS},
+        REDUCE_KERNEL: 2 * 20}
     assert any("densify_grown" in m for m in log)
     psnr = [m["test_psnr"] for m in log if "test_psnr" in m]
     assert psnr[1] > psnr[0]
@@ -606,3 +618,76 @@ def test_plane_sample_bwd_nonfinite_cotangent(card):
     for a, b in zip(got[1:], want[1:]):
         assert torch.equal(a.isnan(), b.isnan())
         assert torch.equal(a[~a.isnan()], b[~b.isnan()])
+
+
+def binning_scene(case, dev):
+    """(proj, colors, opacities, h, w): a random scene, HOT gaussians in
+    one tile (depth ties; longer than a sorting block's 4,096 keys), none,
+    or a random scene on a grid of more tiles than bin_count and
+    bin_place count in shared memory (13,056 32 px tiles, 52,224 16 px
+    ones)."""
+    g = torch.Generator().manual_seed(21)
+    n = {"random": 20000, "hot": 6000, "empty": 0, "wide": 200000}[case]
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g)
+
+    h, w = (3072, 4352) if case == "wide" else (200, 328)
+    if case == "hot":
+        mx, my, rad = u(36.0, 44.0), u(36.0, 44.0), torch.full((n,), 3.0)
+        ca, cb, cc = torch.full((n,), 0.4), u(-0.05, 0.05), torch.full(
+            (n,), 0.4)
+    else:
+        sig = u(0.5, 9.0)
+        mx, my, rad = u(-20.0, w + 20.0), u(-20.0, h + 20.0), torch.ceil(
+            3 * sig)
+        ca, cb, cc = 1 / sig ** 2, torch.zeros(n), 1 / sig ** 2
+    proj = ProjectedCols(mx=mx, my=my, depth=torch.round(u(1, 3) * 20) / 20,
+                         ca=ca, cb=cb, cc=cc, radius=rad)
+    return (ProjectedCols(*(t.to(dev) for t in proj)),
+            torch.rand((n, 3), generator=g).to(dev), u(0.05, 0.99).to(dev),
+            h, w)
+
+
+@pytest.mark.parametrize("tile16", [False, True], ids=["v2", "v3"])
+@pytest.mark.parametrize("case", ["random", "hot", "empty", "wide"])
+def test_binning_kernels_match_plain(card, case, tile16):
+    """bin_count, bin_place, bin_sort_tiles and slot_reduce against their
+    plain versions bit for bit, each launched twice, once a call."""
+    proj, colors, opac, h, w = binning_scene(case, card)
+    tile = raster_v3.TILE if tile16 else TILE
+    kmax = 32 if tile16 else 12
+    tiles_x, tiles_y = (raster_v3.tile_grid if tile16 else tile_grid)(h, w)
+    geo = (tile, tiles_x, tiles_y, kmax, tile16)
+    assert (tiles_x * tiles_y > binning.SHARED_TILES) == (case == "wide")
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    want = binning.bin_count_plain(proj, opac, *geo)
+    start, end, stats = want
+    pairs, longest = stats[2:].tolist()
+    want_keys = binning.bin_place_plain(proj, opac, start, pairs, *geo)
+    want_out = binning.bin_sort_tiles_plain(want_keys, start, end, proj,
+                                            colors, opac, kmax)
+    per_rec = torch.randn((9, pairs), generator=torch.Generator(
+        device=card).manual_seed(3), device=card)
+    per_rec[:, ::4] = -0.0
+    want_sums = reduce_slots_plain(per_rec, want_out[2])
+    for _ in range(2):
+        for a, b in zip(binning.bin_count(proj, opac, *geo), want):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        keys = binning.bin_place(proj, opac, start, pairs, *geo)
+        assert torch.equal(binning.sort_segments_plain(keys, start, end),
+                           binning.sort_segments_plain(want_keys, start, end))
+        out = binning.bin_sort_tiles(keys, start, end, longest, proj, colors,
+                                     opac, kmax)
+        for a, b in zip(out, want_out):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        sums = reduce_slots(per_rec, want_out[2])
+        assert torch.equal(sums.view(torch.int32),
+                           want_sums.view(torch.int32))
+    assert cuda_lib.LAUNCHES - before == {name: 2 for name in BINNING}
+    if case == "hot":
+        assert longest == 6000
+    got = bin_frame(proj, colors, opac, tile, h, w, kmax)[0]
+    plain = binning.bin_gaussians_plain(proj, colors, opac, *geo)
+    for a, b in zip(got, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)

@@ -9,8 +9,10 @@ Prints the summary and the kernel table; with --out it also writes them
 and the host-time table to PATH.  --v3 renders in the v3 configuration
 (16 px tiles, kmax 32, as chip_smoke.py's phase 12).
 
-Frames are rendered stage by stage (chip_smoke.frame_stages) after one
-warm-up pass over the cameras: once timed with the host clock (wall) and
+Frames are rendered stage by stage (chip_smoke.frame_stages: prefilter,
+decode, projection, binning (ops/binning.py's three kernels), blend),
+each in a `record_function` range of its name, after one warm-up pass
+over the cameras: once timed with the host clock (wall) and
 CUDA events (stages), then once more under torch.profiler.  The busy
 share is the profiled device time of all kernels, memcpys and memsets
 over the unprofiled wall time (one stream, so kernels do not overlap).

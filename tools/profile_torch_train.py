@@ -27,9 +27,14 @@ operators by their device time, children included: each autograd
 node's `evaluate_function` row holds its backward's kernels.
 
 The tri-plane sampler's forward and backward run inside
-`record_function("plane_sample")` ranges: their kernels' device time is
-the summary's `plane_sample_device_ms_per_step` and the `plane_sample`
-row of the tables.
+`record_function("plane_sample")` ranges, the tile binning's three
+kernels inside `record_function("binning")` and the backward's slot
+reduce inside `record_function("slot_reduce")` (ops/rasterize.py): the
+summary's `<range>_device_ms_per_step` is the device time of the
+kernels, memsets and memcpys inside the range's spans on the device,
+`<range>_device_span_ms_per_step` those spans themselves (first kernel's
+start to last one's end, the gaps between them included), which is also
+the range's row of the tables.
 """
 from __future__ import annotations
 
@@ -109,8 +114,7 @@ def main() -> None:
         "wall_ms_per_step": 1e3 * wall_s / args.steps,
         "device_busy_ms_per_step": device_us / 1e3 / args.steps,
         "device_busy_share": device_us / 1e6 / wall_s,
-        "plane_sample_device_ms_per_step":
-            sampler_device_us(events) / 1e3 / args.steps,
+        **range_device_ms(prof.events(), args.steps),
         "stage_ms_mean": {k: float(np.mean([s[k] for s in stage_ms]))
                           for k in stage_ms[0]},
         "card": card,
@@ -151,8 +155,7 @@ def profile_disk(args, dev):
         "device_busy_ms_per_step": device_us / 1e3 / len(profiled),
         "device_busy_share": device_us / 1e3 / len(profiled)
         / float(np.mean(later)),
-        "plane_sample_device_ms_per_step":
-            sampler_device_us(events) / 1e3 / len(profiled),
+        **range_device_ms(probe.profiler.events(), len(profiled)),
         "staged_step": cs.TRAIN_STAGED,
         "stage_ms": probe.stages.ms(),
     }
@@ -169,13 +172,31 @@ def device_time_us(events, skip=()) -> float:
                and not e.is_user_annotation and e.key not in skip)
 
 
-def sampler_device_us(events) -> float:
-    """Device time of the kernels launched inside the tri-plane sampler's
-    `plane_sample` ranges (ops/plane_sample.py: its forward kernel, and
-    its backward's memset and three kernels), forward and backward."""
-    return sum(e.device_time_total for e in events
-               if e.key == "plane_sample"
-               and e.device_type == torch.autograd.DeviceType.CPU)
+RANGES = ("plane_sample", "binning", "slot_reduce")
+
+
+def range_device_ms(raw, steps: int) -> dict:
+    """Device ms a step of each of RANGES, from the profiler's raw events:
+    the tri-plane sampler (ops/plane_sample.py: its forward kernel, and
+    its backward's memset and three kernels), the binning
+    (ops/binning.py: bin_count, bin_place, bin_sort_tiles, their memsets
+    and the read-back of the pair count) and the slot reduce
+    (ops/rasterize.py).  `_device_ms`: the device time of the work inside
+    the range's device-side spans; `_device_span_ms`: the spans."""
+    cuda = torch.autograd.DeviceType.CUDA
+    on_device = [e for e in raw if e.device_type == cuda]
+    work = [(e.time_range.start, e.time_range.end) for e in on_device
+            if not e.is_user_annotation]
+    out = {}
+    for name in RANGES:
+        spans = [(e.time_range.start, e.time_range.end) for e in on_device
+                 if e.is_user_annotation and e.name == name]
+        busy = sum(min(b, hi) - max(a, lo) for lo, hi in spans
+                   for a, b in work if a < hi and b > lo)
+        out[f"{name}_device_ms_per_step"] = busy / 1e3 / steps
+        out[f"{name}_device_span_ms_per_step"] = sum(
+            hi - lo for lo, hi in spans) / 1e3 / steps
+    return out
 
 
 def report(summary, events, out, by_op=False) -> None:
