@@ -190,12 +190,19 @@ Run from the repository root.  Phases, each of which fails loudly:
      of the quick-start model (v2 at kmax 12, v3 at kmax 32), at phase
      16's iteration-45 state (capacity 131,072, padding rows included,
      kmax 32) and on a crafted tile of HOT_N gaussians (longer than a
-     sorting block's shared memory), in v2 and v3.  21b: each timed
-     beside its bound (bytes, or the reach test's fp32 operations), its
-     plain version and the one library call of the same function
-     (`torch.argsort(stable=True)` for the sort, `index_add_` for the
-     reduce; timed, never used).  21c: frame 0's binning stage with the
-     kernels and with the plain versions, in turns.
+     sorting block's shared memory), in v2 and v3; untimed, on a crafted
+     tile of LONG_N gaussians (merged in more than one round) and at
+     frame 0 on grids past binning.SHARED_TILES.  The sort's outputs are
+     compared by `binning.binning_diff`: the slot mask bit for bit, the
+     slot map only under it (the card leaves it unfilled elsewhere).
+     21b: each timed beside its bound (bytes, or the reach test's fp32
+     operations; the sort's and the reduce's also beside the bound they
+     had when the slot map was dense), its plain version and the one
+     library call of the same function (`torch.argsort(stable=True)` for
+     the sort, `index_add_` for the reduce; timed, never used), and the
+     sort's and the reduce's device operations by torch.profiler.  21c:
+     frame 0's binning stage with the kernels and with the plain
+     versions, in turns.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all fifteen kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -408,11 +415,12 @@ SAMPLER_ITERS = 20
 # version bit for bit (bin_place up to the order within a segment, which
 # its atomics choose and bin_sort_tiles undoes) and timed over BIN_ITERS
 # launches; the crafted scene's HOT_N gaussians all lie in one tile, a
-# segment longer than the 4,096 keys a sorting block holds.  The bounds
+# segment longer than the 4,096 keys a sorting block holds, and LONG_N
+# (untimed) make 18 such chunks, merged in five rounds.  The bounds
 # count the reach test's fp32 operations: a gaussian's rect and conic
 # terms (two divisions, a log) and each slot of its clipped rect tested
 # (four edges of clamps, products and sums, the minima, the compares)
-BIN_ITERS, HOT_N = 20, 30000
+BIN_ITERS, HOT_N, LONG_N = 20, 30000, 70000
 # frame 0 at sizes whose tile grids pass binning.SHARED_TILES (32,400 and
 # 32,640 tiles): bin_count and bin_place count in global memory there
 WIDE_FRAMES = ((7680, 4320, False), (3840, 2160, True))
@@ -3285,12 +3293,11 @@ def rendered_inputs(params, active, contractor, cam, cfg, level: int,
     return binning_inputs(run)
 
 
-def hot_tile_inputs(seed: int, dev, tile16: bool, kmax: int):
-    """HOT_N gaussians inside 16 px tile (2, 2) (so 32 px tile (1, 1)),
-    radius 3, depths on a grid of 0.01 (ties): one segment of HOT_N
+def hot_tile_inputs(seed: int, dev, tile16: bool, kmax: int, n: int):
+    """n gaussians inside 16 px tile (2, 2) (so 32 px tile (1, 1)),
+    radius 3, depths on a grid of 0.01 (ties): one segment of n
     records."""
     g = torch.Generator().manual_seed(seed)
-    n = HOT_N
 
     def u(lo, hi):
         return lo + (hi - lo) * torch.rand(n, generator=g)
@@ -3310,29 +3317,37 @@ def same_tensors(a, b) -> bool:
                and torch.equal(x, y) for x, y in zip(a, b))
 
 
-def binning_bounds(inputs, counts, slot_pos, pairs: int):
+def binning_bounds(inputs, counts, slot_mask, pairs: int):
     """Each kernel's bound on these inputs (bytes: each input read once,
     each output written once; fp32 operations of the reach tests the
-    clipped rects need), and the work counted.  A gaussian of radius 0
-    (padding, or culled) needs only its radius read: 4 B, where one
-    with a rect reads its 6 other columns (7a) and its depth (7b) too.
-    7c reads the keys, the tile ranges and 9 columns of each gaussian
-    with pairs, and writes 36 B of record and 8 B of gauss_id a pair and
-    the int32 slot map once."""
+    clipped rects need), the bounds of the sort and the reduce as they
+    were counted when the slot map was dense, and the work counted.  A
+    gaussian of radius 0 (padding, or culled) needs only its radius
+    read: 4 B, where one with a rect reads its 6 other columns (7a) and
+    its depth (7b) too.  7c reads the keys, the tile ranges and 9 columns
+    of each gaussian with pairs, and writes 36 B of record, 8 B of
+    gauss_id and 4 B of slot map a pair and the slot mask (4 B a word of
+    a gaussian); 7d reads the mask, 4 B of map and 36 B of record a pair
+    and writes 36 B a gaussian, 9 adds a pair.  Before, both charged the
+    whole int32 map, 4 * kmax * N B, and 7d 9 * kmax * N adds."""
     proj, _, _, tile, h, w, kmax = inputs
     tiles_x, tiles_y = grid(tile == raster_v3.TILE, h, w)
     n, t = proj.mx.shape[0], tiles_x * tiles_y
     slots = int(binning._rects(proj.mx, proj.my, proj.radius, tile, tiles_x,
                                tiles_y, kmax)[3].clamp_max(kmax).sum())
     live = int((proj.radius > 0).sum())
-    used = int((slot_pos >= 0).any(dim=0).sum())
+    used = int((slot_mask != 0).any(dim=0).sum())
+    mask_bytes = 4 * slot_mask.numel()
     ops = OPS_PER_GAUSSIAN * live + OPS_PER_SLOT * slots
+    sort_io = 8 * pairs + 8 * t + 36 * used + 44 * pairs
     return {
         binning.COUNT_KERNEL: bound(4 * n + 24 * live + 8 * t + 32, ops),
         binning.PLACE_KERNEL: bound(4 * n + 28 * live + 4 * t + 8 * pairs,
                                     ops),
-        binning.SORT_KERNEL: bound(8 * pairs + 8 * t + 36 * used
-                                   + 44 * pairs + 4 * kmax * n, 0),
+        binning.SORT_KERNEL: bound(sort_io + 4 * pairs + mask_bytes, 0),
+        REDUCE_KERNEL: bound(mask_bytes + 40 * pairs + 36 * n, 9 * pairs),
+    }, {
+        binning.SORT_KERNEL: bound(sort_io + 4 * kmax * n, 0),
         REDUCE_KERNEL: bound(4 * kmax * n + 36 * pairs + 36 * n,
                              9 * kmax * n),
     }, {"slots_tested": slots, "gaussians_with_rects": live,
@@ -3341,10 +3356,11 @@ def binning_bounds(inputs, counts, slot_pos, pairs: int):
 
 def binning_case(what: str, inputs, seed: int, timed: bool):
     """21a-b on one case: each kernel twice against its plain version,
-    bit for bit (bin_place as the keys of each segment), the composed
-    binning against the plain one, and, when `timed`, each kernel, its
-    plain version and the library call beside its bound.  Returns
-    {kernel: numbers}."""
+    bit for bit (bin_place as the keys of each segment, the sort's map
+    under the mask), the composed binning against the plain one, and,
+    when `timed`, each kernel, its plain version and the library call
+    beside its bound, and the sort's and the reduce's device operations.
+    Returns ({kernel: numbers}, the longest segment)."""
     proj, colors, op, tile, h, w, kmax = inputs
     tiles_x, tiles_y = grid(tile == raster_v3.TILE, h, w)
     geo = (tile, tiles_x, tiles_y, kmax, tile == raster_v3.TILE)
@@ -3364,12 +3380,13 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
             for k in (keys[0], keys[1], want_keys)]
     want_out = binning.bin_sort_tiles_plain(want_keys, start, end, proj,
                                             colors, op, kmax)
-    slot_pos = want_out[2]
+    slot_pos, slot_mask = outs[0].slot_pos, outs[0].slot_mask  # the card's
     g = torch.Generator(device=dev).manual_seed(seed)
     per_rec = torch.randn((binning.NUM_REC, pairs), generator=g, device=dev)
-    per_rec[:, ::5] = -0.0  # the reduce adds +0.0 for an empty slot
-    sums = [reduce_slots(per_rec, slot_pos) for _ in range(2)]
-    want_sums = reduce_slots_plain(per_rec, slot_pos)
+    per_rec[:, ::5] = -0.0  # an empty slot adds +0.0 (the kernel skips it)
+    sums = [reduce_slots(per_rec, slot_pos, slot_mask) for _ in range(2)]
+    want_sums = reduce_slots_plain(per_rec, want_out.slot_pos,
+                                   want_out.slot_mask)
     got = bin_frame(proj, colors, op, tile, h, w, kmax)[0]
     plain = binning.bin_gaussians_plain(proj, colors, op, *geo)
     torch.cuda.synchronize()
@@ -3379,9 +3396,10 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
         binning.PLACE_KERNEL: all(same_tensors(
             [binning.sort_segments_plain(k, start, end)], [sorted_want])
             for k in keys),
-        binning.SORT_KERNEL: all(same_tensors(o, want_out) for o in outs),
+        binning.SORT_KERNEL: all(not binning.binning_diff(o, want_out)
+                                 for o in outs),
         REDUCE_KERNEL: all(same_tensors([x], [want_sums]) for x in sums),
-        "bin_frame": same_tensors(got, plain),
+        "bin_frame": not binning.binning_diff(got, plain),
     }
     in_order = same_tensors([keys[0]], [want_keys])
     err = {binning.COUNT_KERNEL: max(
@@ -3391,7 +3409,10 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
            else float("inf"),
            binning.SORT_KERNEL: max(
                float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
-               if a.numel() else 0.0 for a, b in zip(outs[0], want_out)),
+               if a.numel() else 0.0 for a, b in zip(
+                   outs[0]._replace(
+                       slot_pos=binning.defined_slot_pos(outs[0])),
+                   want_out)),
            REDUCE_KERNEL: float((sums[0] - want_sums).abs().max())
            if want_sums.numel() else 0.0}
     print(f"21a. {what}: N {n}, kmax {kmax}, {tile} px tiles, {pairs} "
@@ -3404,8 +3425,9 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
         raise AssertionError(f"a binning kernel disagrees with its plain "
                              f"version on {what}: {exact}")
     if not timed:
-        return {}
-    bnds, work = binning_bounds(inputs, want_counts, slot_pos, pairs)
+        return {}, longest
+    bnds, before, work = binning_bounds(inputs, want_counts, slot_mask,
+                                        pairs)
     sort_keys = keys[0].clone()
     seg = torch.repeat_interleave(torch.arange(tiles_x * tiles_y, device=dev),
                                   (end - start).to(torch.int64))
@@ -3423,7 +3445,8 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
             cuda_time_ms(lambda: binning.bin_place_plain(
                 proj, op, start, pairs, *geo), 3),
             None),
-        # the network sorts the (then sorted) keys in place: the same work
+        # each run overwrites the keys (a long segment's chunks sorted in
+        # place, then merged): the network and the merge do the same work
         binning.SORT_KERNEL: (
             cuda_time_ms(lambda: binning.bin_sort_tiles(
                 sort_keys, start, end, longest, proj, colors, op, kmax),
@@ -3433,8 +3456,10 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
             cuda_time_ms(lambda: torch.argsort(lib_key, stable=True),
                          BIN_ITERS)),
         REDUCE_KERNEL: (
-            cuda_time_ms(lambda: reduce_slots(per_rec, slot_pos), BIN_ITERS),
-            cuda_time_ms(lambda: reduce_slots_plain(per_rec, slot_pos), 3),
+            cuda_time_ms(lambda: reduce_slots(per_rec, slot_pos, slot_mask),
+                         BIN_ITERS),
+            cuda_time_ms(lambda: reduce_slots_plain(per_rec, slot_pos,
+                                                    slot_mask), 3),
             cuda_time_ms(lambda: torch.zeros(
                 (binning.NUM_REC, n), device=dev).index_add_(1, gid, per_rec),
                 BIN_ITERS)),
@@ -3443,17 +3468,33 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
                                             kmax), BIN_ITERS),
              cuda_time_ms(lambda: binning.bin_gaussians_plain(
                  proj, colors, op, *geo), 3))
+    split = {
+        binning.SORT_KERNEL: device_split(lambda: binning.bin_sort_tiles(
+            sort_keys, start, end, longest, proj, colors, op, kmax),
+            BIN_ITERS),
+        REDUCE_KERNEL: device_split(
+            lambda: reduce_slots(per_rec, slot_pos, slot_mask), BIN_ITERS)}
+
+    def was(k):
+        return (f", dense-map bound {before[k][0]:.5f}" if k in before
+                else "")
     print(f"21b. {what} (CUDA events, ms): " + "; ".join(
-        f"{k} {m[0]:.5f} (bound {bnds[k][0]:.5f}, {bnds[k][1]}; plain "
-        f"{m[1]:.4f}; library {'none' if m[2] is None else f'{m[2]:.5f}'})"
+        f"{k} {m[0]:.5f} (bound {bnds[k][0]:.5f}, {bnds[k][1]}{was(k)}; "
+        f"plain {m[1]:.4f}; library "
+        f"{'none' if m[2] is None else f'{m[2]:.5f}'})"
         for k, m in ms.items())
         + f"; the binning through bin_frame {whole[0]:.5f} (its read-back "
         f"of P included), plain {whole[1]:.4f}; work {json.dumps(work)}")
+    for k, ops in split.items():
+        print(f"  {k}'s device operations (torch.profiler): "
+              f"{split_text(ops)}")
     return {k: {"max_abs_err": err[k], "ms": m[0], "plain_ms": m[1],
                 "bound_ms": bnds[k][0], "bound_by": bnds[k][1],
                 "library_ms": m[2], "pairs": pairs, "longest": longest,
-                "n": n, "kmax": kmax}
-            for k, m in ms.items()}
+                "n": n, "kmax": kmax,
+                **({"bound_ms_dense_map": before[k][0]} if k in before
+                   else {})}
+            for k, m in ms.items()}, longest
 
 
 def binning_stage_turns(params, state, cfg, cam, tile16: bool):
@@ -3481,10 +3522,10 @@ def binning_phase(dev, card: str, seed: int, params, state, cfg, cams,
     kmax 12; v3, kmax 32), at phase 16's iteration-45 state (capacity
     131,072, its padding rows included; kmax 32), on the crafted hot
     tile (v2 and v3) and, untimed, at frame 0 on grids of more than
-    binning.SHARED_TILES tiles (WIDE_FRAMES); 21c: frame 0's binning
-    stage with the kernels and with the plain versions.  Returns each
-    kernel's numbers (frame 0 in v2 first, every timed case in
-    `modes`)."""
+    binning.SHARED_TILES tiles (WIDE_FRAMES) and on a crafted tile of
+    LONG_N gaussians (v3); 21c: frame 0's binning stage with the kernels
+    and with the plain versions.  Returns each kernel's numbers (frame 0
+    in v2 first, every timed case in `modes`)."""
     t_phase = time.perf_counter()
     cfg3 = dataclasses.replace(cfg, kmax=KMAX_V3)
     tree, meta = load_train_state(model_dir, TRAIN_CKPT, device=dev)
@@ -3506,8 +3547,12 @@ def binning_phase(dev, card: str, seed: int, params, state, cfg, cams,
          rendered_inputs(tree["params"], tree["active"].bool(), contractor,
                          cam16, trained_cfg, 0, KMAX_V3, TILE16_DEFAULT),
          True),
-        ("hot tile, v2", hot_tile_inputs(seed, dev, False, cfg.kmax), True),
-        ("hot tile, v3", hot_tile_inputs(seed, dev, True, KMAX_V3), True),
+        ("hot tile, v2", hot_tile_inputs(seed, dev, False, cfg.kmax, HOT_N),
+         True),
+        ("hot tile, v3", hot_tile_inputs(seed, dev, True, KMAX_V3, HOT_N),
+         True),
+        (f"a tile of {LONG_N} records, v3",
+         hot_tile_inputs(seed, dev, True, KMAX_V3, LONG_N), False),
     ]
     for w, h, tile16 in WIDE_FRAMES:
         tiles_x, tiles_y = grid(tile16, h, w)
@@ -3522,13 +3567,16 @@ def binning_phase(dev, card: str, seed: int, params, state, cfg, cams,
                                       c.kmax, tile16), False))
     del tree
     numbers = {name: {"modes": {}} for name in BINNING}
+    longest = {}
     for what, inputs, timed in cases:
-        for name, rec in binning_case(what, inputs, seed, timed).items():
+        recs, longest[what] = binning_case(what, inputs, seed, timed)
+        for name, rec in recs.items():
             numbers[name]["modes"][what] = rec
-    for what in ("hot tile, v2", "hot tile, v3"):
-        if not numbers[REDUCE_KERNEL]["modes"][what]["longest"] == HOT_N:
+    for what, n in (("hot tile, v2", HOT_N), ("hot tile, v3", HOT_N),
+                    (f"a tile of {LONG_N} records, v3", LONG_N)):
+        if longest[what] != n:
             raise AssertionError(f"the {what} scene is not one segment of "
-                                 f"{HOT_N} records")
+                                 f"{n} records")
     for name in BINNING:
         first = numbers[name]["modes"]["frame 0, v2"]
         numbers[name].update(err=first["max_abs_err"], ms=first["ms"],

@@ -16,11 +16,14 @@ kernels, its slots ranked in parent-major tile order.
      sort over its j-major slot array),
   4. the 9 record columns are gathered into SoA [9, P] float32, with the
      per-tile [start, end) ranges,
-  5. the slot map `slot_pos` [kmax, N] gives, for each (slot rank j,
-     gaussian), the position of its record, or -1.  The backward gathers
-     the per-record gradients through it and sums over j in order
-     (`reduce_slots` of ops/rasterize.py): a deterministic per-gaussian
-     reduce with no scatter-add.
+  5. the slot mask `slot_mask` [ceil(kmax / 32), N] int32 has bit j % 32
+     of word j // 32 of gaussian n set where slot rank j of n holds a
+     record, and the slot map `slot_pos` [N, kmax] (gaussian-major) gives
+     that record's position; outside the mask the map is undefined (the
+     card never fills it; the plain version writes -1 there).  The
+     backward gathers the per-record gradients through the set slots and
+     sums over j in order (`reduce_slots` of ops/rasterize.py): a
+     deterministic per-gaussian reduce with no scatter-add.
 
 Three CUDA kernels run steps 1-5 on the card (csrc/binning.cuh holds
 their per-gaussian arithmetic):
@@ -33,11 +36,14 @@ their per-gaussian arithmetic):
                   segment, in an order the atomics choose,
   bin_sort_tiles  (csrc/bin_sort_tiles.cu)  each segment's keys sorted
                   (unique keys: the order bin_place left does not
-                  matter), then records, gauss_id and slot_pos.
+                  matter), then records, gauss_id, slot_pos and
+                  slot_mask.
 
-The low word of a key is the pair's flat index in the slot map, so
-kmax * N must stay below 2^31: the wrappers raise above that (and the
-positions in the slot map fit its int32).  P and the
+The low word of a key is j * N + n, the pair's flat index in a j-major
+[kmax, N] grid, so kmax * N must stay below 2^31: the wrappers raise
+above that (and the positions in the slot map fit its int32).  No
+tensor of kmax * N elements is filled or read: the map is allocated
+unfilled, and only the mask (4 B a gaussian a word) is zeroed.  P and the
 longest segment are read back once a call, after bin_count (the
 binning's one host sync).  For CUDA tensors each wrapper launches its
 kernel (adding one to `cuda_lib.LAUNCHES`) or raises; for CPU tensors it
@@ -71,6 +77,8 @@ MAX_SLOTS = 2 ** 31
 # (csrc/binning.cuh's kSharedTiles); on a larger grid (v3 at 3840x2160:
 # 32,640 tiles) they count with global atomics
 SHARED_TILES = 12288
+# slot ranks a word of the slot mask holds
+MASK_BITS = 32
 # flips a key's sign bit: int64 order of the flipped keys is their uint64
 # order
 _SIGN = -2 ** 63
@@ -84,8 +92,17 @@ class BinnedGaussians(NamedTuple):
     num_clipped: torch.Tensor  # [] i64: gaussians whose rect was clipped
     max_slots: torch.Tensor    # [] i64: most reach-valid tiles of one
                                #   gaussian
-    slot_pos: torch.Tensor     # [kmax, N] i32: record position of each
-                               #   (slot rank, gaussian), -1 where none
+    slot_pos: torch.Tensor     # [N, kmax] i32: record position of each
+                               #   (gaussian, slot rank) under the mask
+    slot_mask: torch.Tensor    # [ceil(kmax / 32), N] i32: bit j % 32 of
+                               #   word j // 32 set where rank j holds one
+
+
+class SortedTiles(NamedTuple):
+    records: torch.Tensor     # [9, P] f32
+    gauss_id: torch.Tensor    # [P] i64
+    slot_pos: torch.Tensor    # [N, kmax] i32, defined under the mask
+    slot_mask: torch.Tensor   # [ceil(kmax / 32), N] i32
 
 
 class TileCounts(NamedTuple):
@@ -243,26 +260,76 @@ def sort_segments_plain(keys: torch.Tensor, tile_start: torch.Tensor,
     return keys[order[torch.argsort(seg[order], stable=True)]]
 
 
+def mask_words(kmax: int) -> int:
+    """Words of the slot mask a gaussian has at `kmax` slot ranks."""
+    return -(-kmax // MASK_BITS)
+
+
+def pack_slot_bits(bits: torch.Tensor) -> torch.Tensor:
+    """[N, kmax] bool -> the slot mask [ceil(kmax / 32), N] int32 (bit
+    j % 32 of word j // 32)."""
+    n, kmax = bits.shape
+    words = mask_words(kmax)
+    padded = bits.new_zeros((n, words * MASK_BITS))
+    padded[:, :kmax] = bits
+    weight = 2 ** torch.arange(MASK_BITS, dtype=torch.int64,
+                               device=bits.device)
+    packed = (padded.view(n, words, MASK_BITS).to(torch.int64)
+              * weight).sum(dim=2)  # < 2^32: the word's bits, unsigned
+    return torch.where(packed >= 2 ** 31, packed - 2 ** 32,
+                       packed).to(torch.int32).T.contiguous()
+
+
+def slot_bits(slot_mask: torch.Tensor, kmax: int) -> torch.Tensor:
+    """The slot mask [ceil(kmax / 32), N] as [N, kmax] bool: whether slot
+    rank j of gaussian n holds a record."""
+    j = torch.arange(kmax, device=slot_mask.device)
+    words = slot_mask[j // MASK_BITS].T  # [N, kmax]
+    return (words >> (j % MASK_BITS).to(torch.int32)) & 1 != 0
+
+
+def defined_slot_pos(binned) -> torch.Tensor:
+    """A binning's slot map with -1 outside its mask: the part of the map
+    that is defined."""
+    return torch.where(slot_bits(binned.slot_mask, binned.slot_pos.shape[1]),
+                       binned.slot_pos, -1)
+
+
+def binning_diff(got, want) -> list:
+    """The fields in which two binnings (BinnedGaussians, or
+    bin_sort_tiles' SortedTiles) differ: every field compared bit for bit
+    with its dtype and shape, the slot map only under the mask (the mask
+    itself bit for bit).  Empty when they agree."""
+    diff = []
+    for name, a, b in zip(want._fields, got, want):
+        if name == "slot_pos":
+            a, b = defined_slot_pos(got), defined_slot_pos(want)
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            diff.append(name)
+    return diff
+
+
 def bin_sort_tiles_plain(keys: torch.Tensor, tile_start: torch.Tensor,
                          tile_end: torch.Tensor, proj: ProjectedCols,
                          colors: torch.Tensor, opacities: torch.Tensor,
-                         kmax: int):
-    """What `bin_sort_tiles` computes: (records [9, P], gauss_id [P],
-    slot_pos [kmax, N]) from each segment's keys in ascending uint64
-    order."""
+                         kmax: int) -> SortedTiles:
+    """What `bin_sort_tiles` computes: records [9, P], gauss_id [P],
+    slot_pos [N, kmax] (-1 outside the mask here) and slot_mask from each
+    segment's keys in ascending uint64 order."""
     n = proj.mx.shape[0]
     dev = keys.device
     slot = sort_segments_plain(keys, tile_start, tile_end) & 0xFFFFFFFF
     gid = slot % max(n, 1)  # slot = j * N + n
-    slot_pos = torch.full((kmax * n,), -1, dtype=torch.int32, device=dev)
-    slot_pos[slot] = torch.arange(slot.shape[0], dtype=torch.int32,
-                                  device=dev)
+    rank = slot // max(n, 1)
+    slot_pos = torch.full((n, kmax), -1, dtype=torch.int32, device=dev)
+    slot_pos[gid, rank] = torch.arange(slot.shape[0], dtype=torch.int32,
+                                       device=dev)
     op = opacities.to(torch.float32)
     cols = torch.stack([proj.mx, proj.my, proj.ca, proj.cb, proj.cc, op,
                         colors[:, 0], colors[:, 1],
                         colors[:, 2]]).to(torch.float32)
     records = cols.index_select(1, gid).contiguous()
-    return records, gid, slot_pos.reshape(kmax, n)
+    return SortedTiles(records, gid, slot_pos, pack_slot_bits(slot_pos >= 0))
 
 
 # ---------------------------------------------------------------------
@@ -359,10 +426,11 @@ def bin_place(proj: ProjectedCols, opacities: torch.Tensor,
 def bin_sort_tiles(keys: torch.Tensor, tile_start: torch.Tensor,
                    tile_end: torch.Tensor, longest: int,
                    proj: ProjectedCols, colors: torch.Tensor,
-                   opacities: torch.Tensor, kmax: int):
-    """(records [9, P], gauss_id [P], slot_pos [kmax, N]) from the keys
-    of each segment in ascending order.  On the card the keys are sorted
-    in place; `longest` is the longest segment (bin_count's)."""
+                   opacities: torch.Tensor, kmax: int) -> SortedTiles:
+    """Records [9, P], gauss_id [P], slot_pos [N, kmax] and slot_mask
+    from the keys of each segment in ascending order.  On the card the
+    keys are overwritten, the map is left undefined outside the mask;
+    `longest` is the longest segment (bin_count's)."""
     dev = keys.device
     if dev.type == "cpu":
         return bin_sort_tiles_plain(keys, tile_start, tile_end, proj,
@@ -370,8 +438,9 @@ def bin_sort_tiles(keys: torch.Tensor, tile_start: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"{SORT_KERNEL}: unsupported device {dev}")
     n, pairs = proj.mx.shape[0], keys.shape[0]
-    if kmax * n >= MAX_SLOTS:
-        raise ValueError(f"{SORT_KERNEL}: kmax * N = {kmax} * {n} >= 2^31")
+    if kmax < 1 or kmax * n >= MAX_SLOTS:
+        raise ValueError(f"{SORT_KERNEL}: kmax * N = {kmax} * {n} must be in "
+                         "[1, 2^31)")
     if keys.dtype != torch.int64 or not keys.is_contiguous() or any(
             t.dtype != torch.int32 or not t.is_contiguous() or t.device != dev
             for t in (tile_start, tile_end)):
@@ -381,31 +450,38 @@ def bin_sort_tiles(keys: torch.Tensor, tile_start: torch.Tensor,
     rgb = colors.to(torch.float32).contiguous()
     records = torch.empty((NUM_REC, pairs), dtype=torch.float32, device=dev)
     gid = torch.empty(pairs, dtype=torch.int64, device=dev)
-    slot_pos = torch.full((kmax, n), -1, dtype=torch.int32, device=dev)
+    slot_pos = torch.empty((n, kmax), dtype=torch.int32, device=dev)
+    slot_mask = torch.empty((mask_words(kmax), n), dtype=torch.int32,
+                            device=dev)  # zeroed by the C function
     num_tiles = tile_start.shape[0]
     chunk = cuda_lib.function(SORT_KERNEL, (), "bin_sort_tiles_chunk")()
     # the tiles longer than a sorting block's chunk, listed by the kernel
+    # (a count, then the tiles), and the merge's second key buffer
     max_long = min(num_tiles, pairs // (chunk + 1)) if longest > chunk else 0
-    listed = (torch.zeros(1 + max_long, dtype=torch.int32, device=dev)
-              if max_long else None)
+    listed, merged = ((torch.empty(1 + max_long, dtype=torch.int32,
+                                   device=dev),
+                       torch.empty(pairs, dtype=torch.int64, device=dev))
+                      if max_long else (None, None))
     fn = cuda_lib.function(SORT_KERNEL, (_P, _P, _P, _I, _L) + (_P,) * 7
-                 + (_L, _L, _P, _P, _P, _P, _I, _P))
+                           + (_L, _I, _L) + (_P,) * 5 + (_I, _P, _P))
     with torch.cuda.device(dev):
         err = fn(keys.data_ptr(), tile_start.data_ptr(), tile_end.data_ptr(),
                  num_tiles, longest, *(t.data_ptr() for t in cols),
-                 rgb.data_ptr(), n, pairs, records.data_ptr(), gid.data_ptr(),
-                 slot_pos.data_ptr(),
+                 rgb.data_ptr(), n, kmax, pairs, records.data_ptr(),
+                 gid.data_ptr(), slot_pos.data_ptr(), slot_mask.data_ptr(),
                  None if listed is None else listed.data_ptr(), max_long,
+                 None if merged is None else merged.data_ptr(),
                  cuda_lib.stream(dev))
     cuda_lib.launched(SORT_KERNEL, err)
-    return records, gid, slot_pos
+    return SortedTiles(records, gid, slot_pos, slot_mask)
 
 
-def _binned(counts: TileCounts, records, gid, slot_pos) -> BinnedGaussians:
+def _binned(counts: TileCounts, out: SortedTiles) -> BinnedGaussians:
     return BinnedGaussians(
-        records=records, gauss_id=gid, tile_start=counts.tile_start,
-        tile_end=counts.tile_end, num_clipped=counts.stats[0],
-        max_slots=counts.stats[1], slot_pos=slot_pos)
+        records=out.records, gauss_id=out.gauss_id,
+        tile_start=counts.tile_start, tile_end=counts.tile_end,
+        num_clipped=counts.stats[0], max_slots=counts.stats[1],
+        slot_pos=out.slot_pos, slot_mask=out.slot_mask)
 
 
 def bin_gaussians(proj: ProjectedCols, colors: torch.Tensor,
@@ -420,7 +496,7 @@ def bin_gaussians(proj: ProjectedCols, colors: torch.Tensor,
     counts = bin_count(proj, opacities, *geo)
     num_pairs, longest = counts.stats[2:].tolist()  # the one read-back
     keys = bin_place(proj, opacities, counts.tile_start, num_pairs, *geo)
-    return _binned(counts, *bin_sort_tiles(
+    return _binned(counts, bin_sort_tiles(
         keys, counts.tile_start, counts.tile_end, longest, proj, colors,
         opacities, kmax))
 
@@ -435,6 +511,6 @@ def bin_gaussians_plain(proj: ProjectedCols, colors: torch.Tensor,
     counts = bin_count_plain(proj, opacities, *geo)
     keys = bin_place_plain(proj, opacities, counts.tile_start,
                            int(counts.stats[2]), *geo)
-    return _binned(counts, *bin_sort_tiles_plain(
+    return _binned(counts, bin_sort_tiles_plain(
         keys, counts.tile_start, counts.tile_end, proj, colors, opacities,
         kmax))

@@ -12,11 +12,12 @@ default) and the 16 px tiles of v3 (ops/raster_v3.py), chosen per call by
             T_final cropped to H x W,
   backward: the blend's backward kernel (`raster_bwd` / `raster_bwd16`)
             -> per-record gradients [9, P] -> summed per gaussian through
-            the binning's slot map, over its slots j = 0 .. kmax-1 in
-            order (`reduce_slots`: the `slot_reduce` kernel of
-            csrc/slot_reduce.cu, inside `record_function("slot_reduce")`):
-            a deterministic per-gaussian reduce with no index_add_,
-            scatter or float atomic.
+            the binning's slot map, over the slots its slot mask holds,
+            j = 0 .. kmax-1 in order (`reduce_slots`: the `slot_reduce`
+            kernel of csrc/slot_reduce.cu, inside
+            `record_function("slot_reduce")`): a deterministic
+            per-gaussian reduce with no index_add_, scatter or float
+            atomic.
 
 Gradients flow to the means (mx, my), conics, colours, opacities and bg.
 The binning (tile assignment, depth order) is not differentiated, and
@@ -32,7 +33,7 @@ from typing import Dict, Optional
 
 import torch
 
-from splatco_torch.ops import cuda_lib, raster_v3
+from splatco_torch.ops import binning, cuda_lib, raster_v3
 from splatco_torch.ops.binning import NUM_REC, TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize_cuda import raster_bwd, raster_fwd
@@ -63,47 +64,57 @@ def bin_frame(proj: ProjectedCols, colors, opacities, tile: int,
                           kmax=kmax), tiles_x, tiles_y)
 
 
-def reduce_slots_plain(per_record: torch.Tensor, slot_pos: torch.Tensor
-                       ) -> torch.Tensor:
+def reduce_slots_plain(per_record: torch.Tensor, slot_pos: torch.Tensor,
+                       slot_mask: torch.Tensor) -> torch.Tensor:
     """Per-gaussian sums [9, N] of per-record rows [9, P]: for each slot
-    j = 0 .. kmax-1 in turn, the rows gathered through the slot map
-    [kmax, N] (+0.0 where a slot has no record, -1) added to the running
-    sums, which start at +0.0.  The fixed order is what `slot_reduce`
-    repeats bit for bit."""
-    out = per_record.new_zeros((per_record.shape[0], slot_pos.shape[1]))
+    rank j = 0 .. kmax-1 in turn, the rows gathered through the slot map
+    [N, kmax] where the slot mask has j's bit (+0.0 where it has not)
+    added to the running sums, which start at +0.0.  The fixed order is
+    what `slot_reduce` repeats bit for bit."""
+    n, kmax = slot_pos.shape
+    out = per_record.new_zeros((per_record.shape[0], n))
     if per_record.shape[1] == 0:
         return out
-    for pos in slot_pos:
-        out = out + torch.where(pos >= 0,
-                                per_record[:, pos.clamp_min(0).long()], 0.0)
+    held = binning.slot_bits(slot_mask, kmax)
+    for j in range(kmax):
+        pos = torch.where(held[:, j], slot_pos[:, j], 0).long()
+        out = out + torch.where(held[:, j], per_record[:, pos], 0.0)
     return out
 
 
-def reduce_slots(per_record: torch.Tensor, slot_pos: torch.Tensor
-                 ) -> torch.Tensor:
+def reduce_slots(per_record: torch.Tensor, slot_pos: torch.Tensor,
+                 slot_mask: torch.Tensor) -> torch.Tensor:
     """Per-gaussian sums [9, N] of per-record rows [9, P] through the slot
-    map [kmax, N] (-1 = no record), summed over the slots in order:
-    `csrc/slot_reduce.cu` for CUDA tensors, `reduce_slots_plain` for CPU
-    ones."""
+    map [N, kmax] under the slot mask [ceil(kmax / 32), N], summed over
+    the slots in order: `csrc/slot_reduce.cu` for CUDA tensors,
+    `reduce_slots_plain` for CPU ones."""
     dev = per_record.device
     if dev.type == "cpu":
-        return reduce_slots_plain(per_record, slot_pos)
+        return reduce_slots_plain(per_record, slot_pos, slot_mask)
+    n, kmax = slot_pos.shape
     if dev.type != "cuda" or per_record.dtype != torch.float32 \
             or per_record.shape[0] != NUM_REC \
-            or slot_pos.dtype != torch.int32 or slot_pos.device != dev:
-        raise ValueError(f"{REDUCE_KERNEL} takes [9, P] float32 and an int32 "
-                         f"slot map on one card, got {per_record.dtype} "
-                         f"{tuple(per_record.shape)} on {dev} and "
-                         f"{slot_pos.dtype} on {slot_pos.device}")
+            or slot_pos.dtype != torch.int32 or slot_pos.device != dev \
+            or slot_mask.dtype != torch.int32 or slot_mask.device != dev \
+            or slot_mask.shape != (binning.mask_words(kmax), n):
+        raise ValueError(f"{REDUCE_KERNEL} takes [9, P] float32, an int32 "
+                         f"slot map [N, kmax] and its int32 mask [ceil(kmax "
+                         f"/ 32), N] on one card, got {per_record.dtype} "
+                         f"{tuple(per_record.shape)} on {dev}, "
+                         f"{slot_pos.dtype} {tuple(slot_pos.shape)} on "
+                         f"{slot_pos.device} and {slot_mask.dtype} "
+                         f"{tuple(slot_mask.shape)} on {slot_mask.device}")
     rec = per_record.contiguous()
     pos = slot_pos.contiguous()
-    kmax, n = pos.shape
+    mask = slot_mask.contiguous()
     packed = torch.empty((rec.shape[1], 12), dtype=torch.float32, device=dev)
     out = torch.empty((NUM_REC, n), dtype=torch.float32, device=dev)
-    fn = cuda_lib.function(REDUCE_KERNEL, (_P, _L, _P, _I, _L, _P, _P, _P))
+    fn = cuda_lib.function(REDUCE_KERNEL, (_P, _L, _P, _P, _I, _L, _P, _P,
+                                           _P))
     with torch.cuda.device(dev):
-        err = fn(rec.data_ptr(), rec.shape[1], pos.data_ptr(), kmax, n,
-                 packed.data_ptr(), out.data_ptr(), cuda_lib.stream(dev))
+        err = fn(rec.data_ptr(), rec.shape[1], pos.data_ptr(),
+                 mask.data_ptr(), kmax, n, packed.data_ptr(), out.data_ptr(),
+                 cuda_lib.stream(dev))
     cuda_lib.launched(REDUCE_KERNEL, err)
     return out
 
@@ -132,15 +143,15 @@ class _Rasterize(torch.autograd.Function):
                    num_pairs=binned.records.shape[1],
                    max_slots=binned.max_slots, num_overflow=0)
         ctx.save_for_backward(binned.records, binned.tile_start,
-                              binned.tile_end, binned.slot_pos, rgb, t_fin,
-                              bg)
+                              binned.tile_end, binned.slot_pos,
+                              binned.slot_mask, rgb, t_fin, bg)
         ctx.shape = (image_height, image_width, tiles_x, tiles_y, tile)
         return image
 
     @staticmethod
     def backward(ctx, g_img):
-        records, tile_start, tile_end, slot_pos, rgb, t_fin, bg = \
-            ctx.saved_tensors
+        (records, tile_start, tile_end, slot_pos, slot_mask, rgb, t_fin,
+         bg) = ctx.saved_tensors
         h, w, tiles_x, tiles_y, tile = ctx.shape
         gpad = torch.zeros_like(rgb)
         gpad[:, :h, :w] = g_img
@@ -148,7 +159,7 @@ class _Rasterize(torch.autograd.Function):
                              tiles_y, h, w, gpad, rgb, t_fin,
                              bg.detach().contiguous(), tile=tile)
         with torch.profiler.record_function("slot_reduce"):
-            per_g = reduce_slots(per_rec, slot_pos)
+            per_g = reduce_slots(per_rec, slot_pos, slot_mask)
         d_bg = (g_img * t_fin[None, :h, :w]).sum(dim=(1, 2))
         d_colors = per_g[6:9].T.contiguous()
         return (per_g[0], per_g[1], per_g[2], per_g[3], per_g[4], d_colors,

@@ -14,9 +14,16 @@ N = 0; kmax 12, 32 and 40.  The card's kernels are held to these plain
 versions bit for bit in tests/test_torch_gpu.py and chip_smoke.py's
 phase 21.
 
+The slot mask (bit j % 32 of word j // 32 of gaussian n: slot rank j of n
+holds a record) is the -1 pattern of the dense [kmax, N] map the binning
+had before it, and the gaussian-major map [N, kmax] is that map
+transposed under the mask; `binning.binning_diff` compares two binnings
+so (the card leaves the map undefined outside the mask).
+
 The reduce sums each gaussian's slots j = 0 .. kmax-1 in order, from
 +0.0, adding +0.0 for an empty slot: held bit for bit to a numpy float32
-loop in that order, and to a float64 sum at the existing tolerances.
+loop in that order over the old dense map, whatever the map holds
+outside the mask, and to a float64 sum at the existing tolerances.
 """
 import re
 from pathlib import Path
@@ -47,7 +54,9 @@ def binning_before(proj, colors, opacities, tile_size, tiles_x, tiles_y,
     """The port's binning before its kernels: the slot grid (ranked
     parent-major for v3), every valid slot emitted j-major, one stable
     argsort of `tile << 32 | depth_bits`, the slot map as the inverse of
-    that permutation (int64 then, int32 now: the same values)."""
+    that permutation (int64 then, int32 now: the same values).  Returns
+    (BinnedGaussians with that map gaussian-major, -1 outside the mask,
+    and the mask built from the slot list; the dense [kmax, N] map)."""
     num_tiles = tiles_x * tiles_y
     tile_of_slot, clipped = t_bin.slot_tiles(proj, opacities, tile_size,
                                              tiles_x, tiles_y, kmax)
@@ -68,7 +77,12 @@ def binning_before(proj, colors, opacities, tile_size, tiles_x, tiles_y,
     tile = tile[order]
     slot_pos = torch.full((kmax * n,), -1, dtype=torch.int64)
     slot_pos[slot[order]] = torch.arange(order.shape[0])
-    slot_pos = slot_pos.to(torch.int32)  # the map's dtype since the kernels
+    dense = slot_pos.to(torch.int32).reshape(kmax, n)  # int32 since PR 14
+    words = -(-kmax // 32)
+    mask = np.zeros((words, n), np.uint32)
+    js, gs = slot.numpy() // max(n, 1), slot.numpy() % max(n, 1)
+    np.bitwise_or.at(mask, (js // 32, gs),
+                     np.left_shift(np.uint32(1), (js % 32).astype(np.uint32)))
     cols = torch.stack([proj.mx, proj.my, proj.ca, proj.cb, proj.cc,
                         opacities.to(torch.float32), colors[:, 0],
                         colors[:, 1], colors[:, 2]]).to(torch.float32)
@@ -78,7 +92,8 @@ def binning_before(proj, colors, opacities, tile_size, tiles_x, tiles_y,
         records=cols.index_select(1, gid).contiguous(), gauss_id=gid,
         tile_start=(tile_end - per_tile).to(torch.int32),
         tile_end=tile_end.to(torch.int32), num_clipped=clipped.sum(),
-        max_slots=max_slots, slot_pos=slot_pos.reshape(kmax, n))
+        max_slots=max_slots, slot_pos=dense.T.contiguous(),
+        slot_mask=torch.as_tensor(mask.view(np.int32))), dense
 
 
 def cols_scene(mx, my, depth, ca, cb, cc, radius, seed, h, w):
@@ -154,10 +169,10 @@ def grid(tile16, h, w):
 
 
 def assert_same(got, want):
-    for f in want._fields:
-        a, b = getattr(got, f), getattr(want, f)
-        assert a.dtype == b.dtype and a.shape == b.shape, f
-        assert torch.equal(a, b), f
+    """binning_diff finds nothing, and the plain version's map holds -1
+    outside the mask, as the reference's does."""
+    assert t_bin.binning_diff(got, want) == []
+    assert torch.equal(got.slot_pos, want.slot_pos)
 
 
 @pytest.mark.parametrize("tile16", [False, True], ids=["v2", "v3"])
@@ -170,7 +185,7 @@ def test_split_plain_equals_the_binning_before(scene, kmax, tile16):
     tile = t_v3.TILE if tile16 else t_bin.TILE
     tiles_x, tiles_y = grid(tile16, h, w)
     want = binning_before(tcols, colors, opac, tile, tiles_x, tiles_y, kmax,
-                          tile16)
+                          tile16)[0]
     got = t_ras.bin_frame(tcols, colors, opac, tile, h, w, kmax)[0]
     assert_same(got, want)
     assert_same(t_bin.bin_gaussians_plain(tcols, colors, opac, tile,
@@ -179,7 +194,8 @@ def test_split_plain_equals_the_binning_before(scene, kmax, tile16):
     if scene == "one_tile":
         assert int((got.tile_end - got.tile_start).max()) > 4096
     if scene == "empty":
-        assert got.records.shape == (9, 0) and got.slot_pos.shape == (kmax, 0)
+        assert got.records.shape == (9, 0) and got.slot_pos.shape == (0, kmax)
+        assert got.slot_mask.shape == (t_bin.mask_words(kmax), 0)
 
 
 @pytest.mark.parametrize("kmax", KMAXES)
@@ -267,11 +283,14 @@ def test_unique_key_order_is_the_stable_argsort(seed):
                                        kmax) for k in (placed, shuffled)]
     for a, b in zip(*outs):
         assert torch.equal(a, b)
-    records, gid, slot_pos = outs[0]
+    records, gid, slot_pos, slot_mask = outs[0]
     np.testing.assert_array_equal(gid.numpy(), want % n)
-    flat = slot_pos.reshape(-1).numpy()
+    flat = slot_pos.T.reshape(-1).numpy()  # j-major, as the keys count
     np.testing.assert_array_equal(flat[want], np.arange(len(want)))
     assert (flat[np.setdiff1d(np.arange(kmax * n), slot)] == -1).all()
+    np.testing.assert_array_equal(
+        t_bin.slot_bits(slot_mask, kmax).T.reshape(-1).numpy(),
+        valid.reshape(-1))
     np.testing.assert_array_equal(records[2].numpy(), proj.ca.numpy()[gid])
 
 
@@ -282,10 +301,11 @@ def test_keys_order_as_unsigned():
     start, end = torch.tensor([0], dtype=torch.int32), torch.tensor(
         [3], dtype=torch.int32)
     proj = TCols(*(torch.arange(8, dtype=torch.float32) for _ in range(7)))
-    _, gid, slot_pos = t_bin.bin_sort_tiles_plain(
+    _, gid, slot_pos, slot_mask = t_bin.bin_sort_tiles_plain(
         keys, start, end, proj, torch.zeros(8, 3), torch.ones(8), 1)
     assert gid.tolist() == [3, 7, 5]
-    assert slot_pos[0, [3, 7, 5]].tolist() == [0, 1, 2]
+    assert slot_pos[[3, 7, 5], 0].tolist() == [0, 1, 2]
+    assert slot_mask.tolist() == [[0, 0, 0, 1, 0, 1, 0, 1]]
 
 
 @pytest.mark.parametrize("tile16", [False, True], ids=["v2", "v3"])
@@ -317,7 +337,7 @@ def test_wrappers_on_cpu_take_the_plain_versions(tile16, monkeypatch):
     before = dict(cuda_lib.LAUNCHES)
     binned = t_ras.bin_frame(tcols, colors, opac, tile, h, w, 12)[0]
     t_ras.reduce_slots(torch.ones((9, binned.records.shape[1])),
-                       binned.slot_pos)
+                       binned.slot_pos, binned.slot_mask)
     assert called == ["bin_count_plain", "bin_place_plain",
                       "bin_sort_tiles_plain", "reduce_slots_plain"]
     assert dict(cuda_lib.LAUNCHES) == before
@@ -345,7 +365,9 @@ def test_wrappers_raise_where_there_is_no_kernel():
                              colors.to("meta"), opac.to("meta"), 12)
     with pytest.raises(ValueError, match="takes"):
         t_ras.reduce_slots(torch.zeros((9, 4), device="meta"),
-                           torch.zeros((12, 5), dtype=torch.int32,
+                           torch.zeros((5, 12), dtype=torch.int32,
+                                       device="meta"),
+                           torch.zeros((1, 5), dtype=torch.int32,
                                        device="meta"))
     n = tcols.mx.shape[0]
     with pytest.raises(ValueError, match="2\\^31"):
@@ -379,6 +401,87 @@ def reduce_in_order(per_record, slot_pos):
     return acc
 
 
+def clipped_binning(kmax, tile16=False):
+    """The `clipped` scene binned through the wrappers (the plain versions
+    on the CPU) and by `binning_before`: (binned, the dense map before)."""
+    _, _, _, tcols, colors, opac, h, w = torch_scene("clipped")
+    tile = t_v3.TILE if tile16 else t_bin.TILE
+    tiles_x, tiles_y = grid(tile16, h, w)
+    binned = t_ras.bin_frame(tcols, colors, opac, tile, h, w, kmax)[0]
+    dense = binning_before(tcols, colors, opac, tile, tiles_x, tiles_y, kmax,
+                           tile16)[1]
+    return binned, dense
+
+
+@pytest.mark.parametrize("tile16", [False, True], ids=["v2", "v3"])
+@pytest.mark.parametrize("kmax", KMAXES)
+def test_slot_mask_is_the_dense_maps_pattern(kmax, tile16):
+    """The slot mask has exactly the bits where the dense [kmax, N] map of
+    the binning before held a record (kmax 40: two words a gaussian), and
+    the gaussian-major map under it holds that map's positions."""
+    binned, dense = clipped_binning(kmax, tile16)
+    n = dense.shape[1]
+    assert binned.slot_mask.shape == (t_bin.mask_words(kmax), n)
+    held = t_bin.slot_bits(binned.slot_mask, kmax)
+    assert torch.equal(held, (dense >= 0).T)
+    assert torch.equal(t_bin.pack_slot_bits((dense >= 0).T),
+                       binned.slot_mask)
+    assert torch.equal(t_bin.defined_slot_pos(binned), dense.T)
+    if kmax > 32:
+        assert binned.slot_mask[1].any()  # ranks past 31 are used
+    assert int(held.sum()) == binned.records.shape[1]
+
+
+def test_mask_helpers():
+    """pack_slot_bits and slot_bits invert each other at every bit, 31
+    (the int32 sign) among them; binning_diff ignores what the map holds
+    outside the mask and finds a changed bit or a changed entry under
+    it."""
+    rng = np.random.default_rng(5)
+    bits = torch.as_tensor(rng.uniform(size=(50, 40)) < 0.5)
+    bits[0] = True
+    mask = t_bin.pack_slot_bits(bits)
+    assert mask.dtype == torch.int32 and mask.shape == (2, 50)
+    assert int(mask[0, 0]) == -1 and int(mask[1, 0]) == 2 ** 8 - 1
+    assert torch.equal(t_bin.slot_bits(mask, 40), bits)
+    binned, _ = clipped_binning(32)
+    junk = torch.where(t_bin.slot_bits(binned.slot_mask, 32),
+                       binned.slot_pos, 12345)
+    assert t_bin.binning_diff(binned._replace(slot_pos=junk), binned) == []
+    g, j = (int(i[0]) for i in torch.nonzero(binned.slot_pos >= 0)[:1].T)
+    moved = binned.slot_pos.clone()
+    moved[g, j] += 1
+    assert t_bin.binning_diff(binned._replace(slot_pos=moved),
+                              binned) == ["slot_pos"]
+    one = torch.zeros_like(binned.slot_pos, dtype=torch.bool)
+    one[g, j] = True
+    flipped = binned.slot_mask ^ t_bin.pack_slot_bits(one)
+    assert t_bin.binning_diff(binned._replace(slot_mask=flipped),
+                              binned) == ["slot_pos", "slot_mask"]
+
+
+@pytest.mark.parametrize("kmax", KMAXES)
+def test_reduce_reads_only_under_the_mask(kmax):
+    """reduce_slots_plain over the mask equals the dense map's j-order
+    loop bit for bit, -0.0 records included, whatever the map holds
+    outside the mask (there the card leaves it unfilled)."""
+    binned, dense = clipped_binning(kmax)
+    rng = np.random.default_rng(100 + kmax)
+    pairs = binned.records.shape[1]
+    per_rec = rng.normal(size=(9, pairs)).astype(np.float32)
+    per_rec[:, ::3] = -0.0
+    junk = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31 - 1,
+                                        size=binned.slot_pos.shape),
+                           dtype=torch.int32)
+    held = t_bin.slot_bits(binned.slot_mask, kmax)
+    slot_pos = torch.where(held, binned.slot_pos, junk)
+    got = t_ras.reduce_slots_plain(torch.as_tensor(per_rec), slot_pos,
+                                   binned.slot_mask)
+    want = reduce_in_order(per_rec, dense.numpy())
+    np.testing.assert_array_equal(got.numpy().view(np.int32),
+                                  want.view(np.int32))
+
+
 @pytest.mark.parametrize("kmax", KMAXES)
 def test_reduce_sums_the_slots_in_order(kmax):
     """reduce_slots (its plain version here) adds each gaussian's slots in
@@ -390,10 +493,11 @@ def test_reduce_sums_the_slots_in_order(kmax):
     rng = np.random.default_rng(kmax)
     pairs = binned.records.shape[1]
     per_rec = rng.normal(size=(9, pairs)).astype(np.float32)
-    pos = binned.slot_pos.numpy()
+    pos = t_bin.defined_slot_pos(binned).numpy().T  # the dense layout
     zero = np.flatnonzero((pos >= 0).any(axis=0))[0]
     per_rec[:, pos[:, zero][pos[:, zero] >= 0]] = -0.0
-    got = t_ras.reduce_slots(torch.as_tensor(per_rec), binned.slot_pos)
+    got = t_ras.reduce_slots(torch.as_tensor(per_rec), binned.slot_pos,
+                             binned.slot_mask)
     want = reduce_in_order(per_rec, pos)
     np.testing.assert_array_equal(got.numpy().view(np.int32),
                                   want.view(np.int32))
@@ -403,6 +507,7 @@ def test_reduce_sums_the_slots_in_order(kmax):
               per_rec.T.astype(np.float64))
     np.testing.assert_allclose(got.numpy(), exact, rtol=1e-5,
                                atol=1e-6 * np.abs(exact).max())
-    zeros = t_ras.reduce_slots(torch.zeros((9, 0)),
-                               torch.full((kmax, 6), -1, dtype=torch.int32))
+    zeros = t_ras.reduce_slots(
+        torch.zeros((9, 0)), torch.full((6, kmax), -1, dtype=torch.int32),
+        torch.zeros((t_bin.mask_words(kmax), 6), dtype=torch.int32))
     assert zeros.shape == (9, 6) and not zeros.any()

@@ -29,8 +29,11 @@ forward and all three gradients (the plain version sums the same
 integers), and two backward launches agree bit for bit.  The binning
 kernels (ops/binning.py) and the slot reduce (ops/rasterize.py) equal
 their plain versions bit for bit, bin_place as each segment's keys (its
-atomics choose their order), on a random scene, a tile longer than a
-sorting block's 4,096 keys and an empty scene, in both configurations.
+atomics choose their order), the slot map only under the slot mask (the
+card leaves it unfilled elsewhere; `binning.binning_diff`), on a random
+scene, a tile longer than a sorting block's 4,096 keys, a tile of more
+than two 16,384-key chunks (the long path's merge in more than one
+round) and an empty scene, in both configurations.
 """
 import collections
 import dataclasses
@@ -621,19 +624,20 @@ def test_plane_sample_bwd_nonfinite_cotangent(card):
 
 
 def binning_scene(case, dev):
-    """(proj, colors, opacities, h, w): a random scene, HOT gaussians in
-    one tile (depth ties; longer than a sorting block's 4,096 keys), none,
-    or a random scene on a grid of more tiles than bin_count and
-    bin_place count in shared memory (13,056 32 px tiles, 52,224 16 px
-    ones)."""
+    """(proj, colors, opacities, h, w): a random scene, gaussians in one
+    tile (depth ties; "hot": longer than a sorting block's 4,096 keys,
+    "long": than two 16,384-key chunks), none, or a random scene on a
+    grid of more tiles than bin_count and bin_place count in shared
+    memory (13,056 32 px tiles, 52,224 16 px ones)."""
     g = torch.Generator().manual_seed(21)
-    n = {"random": 20000, "hot": 6000, "empty": 0, "wide": 200000}[case]
+    n = {"random": 20000, "hot": 6000, "long": 40000, "empty": 0,
+         "wide": 200000}[case]
 
     def u(lo, hi):
         return lo + (hi - lo) * torch.rand(n, generator=g)
 
     h, w = (3072, 4352) if case == "wide" else (200, 328)
-    if case == "hot":
+    if case in ("hot", "long"):
         mx, my, rad = u(36.0, 44.0), u(36.0, 44.0), torch.full((n,), 3.0)
         ca, cb, cc = torch.full((n,), 0.4), u(-0.05, 0.05), torch.full(
             (n,), 0.4)
@@ -650,10 +654,11 @@ def binning_scene(case, dev):
 
 
 @pytest.mark.parametrize("tile16", [False, True], ids=["v2", "v3"])
-@pytest.mark.parametrize("case", ["random", "hot", "empty", "wide"])
+@pytest.mark.parametrize("case", ["random", "hot", "long", "empty", "wide"])
 def test_binning_kernels_match_plain(card, case, tile16):
     """bin_count, bin_place, bin_sort_tiles and slot_reduce against their
-    plain versions bit for bit, each launched twice, once a call."""
+    plain versions bit for bit (the slot map under the mask), each
+    launched twice, once a call."""
     proj, colors, opac, h, w = binning_scene(case, card)
     tile = raster_v3.TILE if tile16 else TILE
     kmax = 32 if tile16 else 12
@@ -670,7 +675,8 @@ def test_binning_kernels_match_plain(card, case, tile16):
     per_rec = torch.randn((9, pairs), generator=torch.Generator(
         device=card).manual_seed(3), device=card)
     per_rec[:, ::4] = -0.0
-    want_sums = reduce_slots_plain(per_rec, want_out[2])
+    want_sums = reduce_slots_plain(per_rec, want_out.slot_pos,
+                                   want_out.slot_mask)
     for _ in range(2):
         for a, b in zip(binning.bin_count(proj, opac, *geo), want):
             assert a.dtype == b.dtype and torch.equal(a, b)
@@ -679,15 +685,13 @@ def test_binning_kernels_match_plain(card, case, tile16):
                            binning.sort_segments_plain(want_keys, start, end))
         out = binning.bin_sort_tiles(keys, start, end, longest, proj, colors,
                                      opac, kmax)
-        for a, b in zip(out, want_out):
-            assert a.dtype == b.dtype and torch.equal(a, b)
-        sums = reduce_slots(per_rec, want_out[2])
+        assert binning.binning_diff(out, want_out) == []
+        sums = reduce_slots(per_rec, out.slot_pos, out.slot_mask)
         assert torch.equal(sums.view(torch.int32),
                            want_sums.view(torch.int32))
     assert cuda_lib.LAUNCHES - before == {name: 2 for name in BINNING}
-    if case == "hot":
-        assert longest == 6000
+    if case in ("hot", "long"):
+        assert longest == {"hot": 6000, "long": 40000}[case]
     got = bin_frame(proj, colors, opac, tile, h, w, kmax)[0]
     plain = binning.bin_gaussians_plain(proj, colors, opac, *geo)
-    for a, b in zip(got, plain):
-        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert binning.binning_diff(got, plain) == []

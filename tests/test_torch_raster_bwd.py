@@ -106,12 +106,15 @@ def test_slot_reduce_equals_float64_sum(scene):
     want = np.zeros((9, n))
     np.add.at(want.T, tb.gauss_id.numpy(), per_rec.numpy().T.astype(
         np.float64))
-    got = t_ras.reduce_slots(per_rec, tb.slot_pos).numpy()
+    got = t_ras.reduce_slots(per_rec, tb.slot_pos, tb.slot_mask).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-6 * np.abs(want).max())
-    # every record sits in exactly one slot
-    pos = tb.slot_pos.numpy()
+    # every record sits in exactly one slot, and only slots under the mask
+    # hold one
+    pos = t_bin.defined_slot_pos(tb).numpy()
     assert sorted(pos[pos >= 0].tolist()) == list(range(tb.records.shape[1]))
+    assert int(t_bin.slot_bits(tb.slot_mask, pos.shape[1]).sum()) == \
+        tb.records.shape[1]
 
 
 def test_proxy_grad_is_the_mean_grad():

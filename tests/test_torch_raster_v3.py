@@ -217,7 +217,7 @@ def test_v3_slot_reduce_equals_float64_sum():
     want = np.zeros((9, n))
     np.add.at(want.T, tb.gauss_id.numpy(),
               per_rec.numpy().T.astype(np.float64))
-    got = t_ras.reduce_slots(per_rec, tb.slot_pos).numpy()
+    got = t_ras.reduce_slots(per_rec, tb.slot_pos, tb.slot_mask).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5,
                                atol=1e-6 * np.abs(want).max())
 
