@@ -191,16 +191,20 @@ Run from the repository root.  Phases, each of which fails loudly:
      16's iteration-45 state (capacity 131,072, padding rows included,
      kmax 32) and on a crafted tile of HOT_N gaussians (longer than a
      sorting block's shared memory), in v2 and v3; untimed, on a crafted
-     tile of LONG_N gaussians (merged in more than one round) and at
-     frame 0 on grids past binning.SHARED_TILES.  The sort's outputs are
+     tile of LONG_N gaussians (merged in more than one round), on crafted
+     warps that mix rects clipped to kmax with radius-0 rows (MIXED_N
+     rows, not a multiple of 32; v2 at kmax 12, v3 at kmax 40, whose
+     gaussians' slots span more than one round of 32), and at frame 0 on
+     wide grids, one of them past binning.SHARED_TILES (where bin_count
+     counts in global memory).  The sort's outputs are
      compared by `binning.binning_diff`: the slot mask bit for bit, the
      slot map only under it (the card leaves it unfilled elsewhere).
      21b: each timed beside its bound (bytes, or the reach test's fp32
      operations; the sort's and the reduce's also beside the bound they
      had when the slot map was dense), its plain version and the one
      library call of the same function (`torch.argsort(stable=True)` for
-     the sort, `index_add_` for the reduce; timed, never used), and the
-     sort's and the reduce's device operations by torch.profiler.  21c:
+     the sort, `index_add_` for the reduce; timed, never used), and each
+     kernel's device operations by torch.profiler.  21c:
      frame 0's binning stage with the kernels and with the plain
      versions, in turns.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
@@ -421,9 +425,13 @@ SAMPLER_ITERS = 20
 # terms (two divisions, a log) and each slot of its clipped rect tested
 # (four edges of clamps, products and sums, the minima, the compares)
 BIN_ITERS, HOT_N, LONG_N = 20, 30000, 70000
-# frame 0 at sizes whose tile grids pass binning.SHARED_TILES (32,400 and
-# 32,640 tiles): bin_count and bin_place count in global memory there
-WIDE_FRAMES = ((7680, 4320, False), (3840, 2160, True))
+# frame 0 on wide grids: 32,400 and 32,640 tiles, which bin_count counts in
+# shared memory, and 129,600 (7680x4320 in 16 px tiles), past
+# binning.SHARED_TILES, which it counts in global memory
+WIDE_FRAMES = ((7680, 4320, False), (3840, 2160, True), (7680, 4320, True))
+# the crafted mixed warps' rows (not a multiple of 32) and v3's kmax there
+# (slots of one gaussian over more than one round of 32)
+MIXED_N, MIXED_KMAX_V3 = 4133, 40
 OPS_PER_GAUSSIAN, OPS_PER_SLOT = 40, 60
 
 
@@ -3312,6 +3320,65 @@ def hot_tile_inputs(seed: int, dev, tile16: bool, kmax: int, n: int):
             tile_of(tile16), HEIGHT, WIDTH, kmax)
 
 
+def mixed_warp_inputs(seed: int, dev, tile16: bool, kmax: int,
+                      n: int = MIXED_N):
+    """n gaussians where every warp of 32 rows mixes radius-0 rows (every
+    third), rects far wider than kmax tiles (clipped around their centre;
+    row 0's at the image centre), narrow ones and gaussians off the
+    image, at sharp and flat orientations: what the slot-parallel
+    enumeration must hand out.  Every 99th row from row 4 meets torch's
+    NaN rules in the reach test (`nonfinite_rows`).  The rows do not
+    depend on tile16 or kmax."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(lo, hi):
+        return lo + (hi - lo) * torch.rand(n, generator=g)
+
+    row = torch.arange(n)
+    sig = torch.where(row % 3 == 0, u(40.0, 160.0), u(0.5, 6.0))
+    th = u(0.0, math.pi)
+    c, s = torch.cos(th), torch.sin(th)
+    squash = u(0.05, 1.0)
+    a = c * c * sig * sig + s * s * (sig * squash) ** 2 + 0.3
+    b = c * s * (sig * sig - (sig * squash) ** 2)
+    d = s * s * sig * sig + c * c * (sig * squash) ** 2 + 0.3
+    det = a * d - b * b
+    radius = torch.where(row % 3 == 2, 0.0, torch.ceil(3.0 * sig))
+    mx, my = u(-200.0, WIDTH + 200.0), u(-200.0, HEIGHT + 200.0)
+    mx[0], my[0] = WIDTH / 2, HEIGHT / 2
+    proj = ProjectedCols(mx=mx, my=my,
+                         depth=torch.round(u(1.0, 3.0) * 20) / 20,
+                         ca=d / det, cb=-b / det, cc=a / det, radius=radius)
+    opac = u(0.05, 0.99)
+    proj, opac = nonfinite_rows(proj, opac, range(4, n, 99))
+    return (ProjectedCols(*(t.to(dev) for t in proj)),
+            torch.rand((n, 3), generator=g).to(dev), opac.to(dev),
+            tile_of(tile16), HEIGHT, WIDTH, kmax)
+
+
+def nonfinite_rows(proj, opac, rows):
+    """proj and opacities with each of `rows` (rows with a rect) made one
+    of four cases of torch's NaN rules in the reach test, in turn: conic
+    terms whose edge sums overflow to inf - inf (NaN), an infinite cross
+    term with the centre on a tile edge (inf * 0), an infinite cross term
+    of the other sign, and a NaN opacity (a NaN bound on every tile).
+    The records keep only finite or infinite values."""
+    ca, cb, cc, mx = (t.clone() for t in (proj.ca, proj.cb, proj.cc,
+                                           proj.mx))
+    opac = opac.clone()
+    for k, r in enumerate(rows):
+        kind = k % 4
+        if kind == 0:
+            ca[r], cb[r], cc[r] = 3e32, -2.9e32, 3e32
+        elif kind == 1:
+            cb[r], mx[r] = math.inf, 64.0 * round(float(mx[r]) / 64.0)
+        elif kind == 2:
+            cb[r] = -math.inf
+        else:
+            opac[r] = math.nan
+    return proj._replace(mx=mx, ca=ca, cb=cb, cc=cc), opac
+
+
 def same_tensors(a, b) -> bool:
     return all(x.dtype == y.dtype and x.shape == y.shape
                and torch.equal(x, y) for x, y in zip(a, b))
@@ -3469,6 +3536,11 @@ def binning_case(what: str, inputs, seed: int, timed: bool):
              cuda_time_ms(lambda: binning.bin_gaussians_plain(
                  proj, colors, op, *geo), 3))
     split = {
+        binning.COUNT_KERNEL: device_split(
+            lambda: binning.bin_count(proj, op, *geo), BIN_ITERS),
+        binning.PLACE_KERNEL: device_split(
+            lambda: binning.bin_place(proj, op, start, pairs, *geo),
+            BIN_ITERS),
         binning.SORT_KERNEL: device_split(lambda: binning.bin_sort_tiles(
             sort_keys, start, end, longest, proj, colors, op, kmax),
             BIN_ITERS),
@@ -3521,9 +3593,10 @@ def binning_phase(dev, card: str, seed: int, params, state, cfg, cams,
     against their plain versions at frame 0 of the quick-start model (v2,
     kmax 12; v3, kmax 32), at phase 16's iteration-45 state (capacity
     131,072, its padding rows included; kmax 32), on the crafted hot
-    tile (v2 and v3) and, untimed, at frame 0 on grids of more than
-    binning.SHARED_TILES tiles (WIDE_FRAMES) and on a crafted tile of
-    LONG_N gaussians (v3); 21c: frame 0's binning stage with the kernels
+    tile (v2 and v3) and, untimed, at frame 0 on wide grids (WIDE_FRAMES,
+    one past binning.SHARED_TILES), on a crafted tile of LONG_N gaussians
+    (v3) and on the crafted mixed warps (v2 at kmax 12, v3 at kmax
+    MIXED_KMAX_V3); 21c: frame 0's binning stage with the kernels
     and with the plain versions.  Returns each kernel's numbers (frame 0
     in v2 first, every timed case in `modes`)."""
     t_phase = time.perf_counter()
@@ -3553,15 +3626,21 @@ def binning_phase(dev, card: str, seed: int, params, state, cfg, cams,
          True),
         (f"a tile of {LONG_N} records, v3",
          hot_tile_inputs(seed, dev, True, KMAX_V3, LONG_N), False),
+        (f"mixed warps, v2, kmax {cfg.kmax}",
+         mixed_warp_inputs(seed, dev, False, cfg.kmax), False),
+        (f"mixed warps, v3, kmax {MIXED_KMAX_V3}",
+         mixed_warp_inputs(seed, dev, True, MIXED_KMAX_V3), False),
     ]
+    if all(math.prod(grid(tile16, h, w)) <= binning.SHARED_TILES
+           for w, h, tile16 in WIDE_FRAMES):
+        raise AssertionError("no wide frame passes binning.SHARED_TILES")
     for w, h, tile16 in WIDE_FRAMES:
         tiles_x, tiles_y = grid(tile16, h, w)
-        if tiles_x * tiles_y <= binning.SHARED_TILES:
-            raise AssertionError(f"{w}x{h} has only {tiles_x * tiles_y} "
-                                 f"tiles")
+        where = ("global" if tiles_x * tiles_y > binning.SHARED_TILES
+                 else "shared")
         c = cfg3 if tile16 else cfg
         cases.append((f"frame 0 at {w}x{h}, v{3 if tile16 else 2} "
-                      f"({tiles_x * tiles_y} tiles)",
+                      f"({tiles_x * tiles_y} tiles, {where} counters)",
                       rendered_inputs(params, state.active, state.contractor,
                                       orbit_cameras(1, dev, w, h)[0], c, 2,
                                       c.kmax, tile16), False))

@@ -12,50 +12,49 @@
 // unique, so nothing after it does.
 //
 // What bounds it: the keys written (8 bytes a pair) and the slots' reach
-// tests, recomputed here rather than kept from bin_count.  A hot tile's
-// cursor is one address that every SM would add to, so a block first
-// counts its slots per tile in shared memory, reserves each tile's run with
-// one global atomic, and then hands out positions from shared memory.
+// tests, recomputed here rather than kept from bin_count.  Each gaussian
+// is visited once, by slot-parallel warps (binning::warp_slots, as in
+// bin_count.cu), a warp 32 rows; in each round of 32 slots the lanes that
+// hit one tile reserve their run of the tile's cursor with one global
+// atomic made by the group's leader (__match_any_sync); a lane's key
+// takes the position of its rank in the group, so a group's keys are
+// written side by side.  With no per-block state the blocks are not
+// persistent: the hardware hands a block's 8 warps their rows as SMs
+// free up, which balances uneven rows better (PERF.md).
+#include <algorithm>
+
 #include "binning.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 
-template <bool kShared>
+template <bool kParentMajor>
 __global__ void __launch_bounds__(kThreads)
-place_keys(binning::Columns c, binning::Grid g,
+place_keys(binning::Columns c, binning::Grid g, long long chunks,
            const float* __restrict__ depth,
            const int* __restrict__ tile_start, int* __restrict__ cursor,
            unsigned long long* __restrict__ keys) {
-  extern __shared__ int s_pos[];  // [num_tiles] when kShared
-  const int tid = threadIdx.x;
-  const long long n = (long long)blockIdx.x * kThreads + tid;
-  const bool mine = n < c.n;
-  bool clipped;
-  if (kShared) {
-    for (int t = tid; t < g.num_tiles; t += kThreads) s_pos[t] = 0;
-    __syncthreads();
-    if (mine) {
-      binning::visit_gaussian(c, n, g, &clipped, [&](int tile, int) {
-        atomicAdd(&s_pos[tile], 1);
+  const long long k = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (k >= chunks) return;  // a whole warp
+  const long long row0 = k * binning::kWarpRows;
+  unsigned bits;
+  int clipped;
+  binning::warp_slots<kParentMajor>(
+      c, g, row0, depth, &bits, &clipped, [&](const binning::Slot& s) {
+        const unsigned hi = __shfl_sync(binning::kFull, bits, s.owner);
+        const binning::Group grp = binning::group_of(s.tile);
+        int pos = 0;
+        if (s.valid && grp.rank == 0)
+          pos = tile_start[s.tile] +
+                atomicAdd(&cursor[s.tile], __popc(grp.lanes));
+        pos = __shfl_sync(binning::kFull, pos, grp.leader) + grp.rank;
+        if (s.valid)
+          keys[pos] = (unsigned long long)hi << 32 |
+                      (unsigned long long)((long long)s.rank * c.n + row0 +
+                                           s.row);
       });
-    }
-    __syncthreads();
-    for (int t = tid; t < g.num_tiles; t += kThreads) {
-      const int k = s_pos[t];
-      if (k) s_pos[t] = tile_start[t] + atomicAdd(&cursor[t], k);
-    }
-    __syncthreads();
-  }
-  if (!mine) return;
-  const unsigned long long hi =
-      (unsigned long long)__float_as_uint(depth[n]) << 32;
-  binning::visit_gaussian(c, n, g, &clipped, [&](int tile, int rank) {
-    const int pos = kShared ? atomicAdd(&s_pos[tile], 1)
-                            : tile_start[tile] + atomicAdd(&cursor[tile], 1);
-    keys[pos] = hi | (unsigned long long)((long long)rank * c.n + n);
-  });
 }
 
 }  // namespace
@@ -63,7 +62,8 @@ place_keys(binning::Columns c, binning::Grid g,
 // mx, my, ca, cb, cc, op, radius, depth: [n] float32, contiguous;
 // tile_start: [num_tiles] int32 (bin_count's); cursor: [num_tiles] int32,
 // zeroed; keys: [pairs] uint64.  Launches on `stream` and returns
-// cudaGetLastError().
+// cudaGetLastError().  One path for every grid: the cursors are global
+// (no per-block histogram), so only bin_count forks on the tile count.
 extern "C" int bin_place(const float* mx, const float* my, const float* ca,
                          const float* cb, const float* cc, const float* op,
                          const float* radius, const float* depth, long long n,
@@ -73,15 +73,11 @@ extern "C" int bin_place(const float* mx, const float* my, const float* ca,
   const binning::Columns c{mx, my, ca, cb, cc, op, radius, n};
   const binning::Grid g{tile, tiles_x, tiles_y, tiles_x * tiles_y, kmax,
                         parent_major != 0};
-  const unsigned blocks =
-      n > 0 ? (unsigned)((n + kThreads - 1) / kThreads) : 1;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (g.num_tiles <= binning::kSharedTiles) {
-    place_keys<true><<<blocks, kThreads, sizeof(int) * g.num_tiles, s>>>(
-        c, g, depth, tile_start, cursor, keys);
-  } else {
-    place_keys<false><<<blocks, kThreads, 0, s>>>(c, g, depth, tile_start,
-                                                  cursor, keys);
-  }
+  const long long chunks =
+      (n + binning::kWarpRows - 1) / binning::kWarpRows;
+  const long long blocks = std::max((chunks + kWarps - 1) / kWarps, 1LL);
+  auto kernel = g.parent_major ? place_keys<true> : place_keys<false>;
+  kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      c, g, chunks, depth, tile_start, cursor, keys);
   return (int)cudaGetLastError();
 }

@@ -1,5 +1,5 @@
-// The tile binning's per-gaussian arithmetic, shared by bin_count.cu,
-// bin_place.cu and bin_sort_tiles.cu.
+// The tile binning's per-gaussian arithmetic and its warp-wide slot
+// enumeration, shared by bin_count.cu and bin_place.cu.
 //
 // Replaces the XLA stage of the JAX package's binning: `bin_gaussians`
 // (splatco_tpu/ops/binning.py:210, its `jax.lax.sort`s at :277 and :300)
@@ -13,17 +13,25 @@
 // with torch's NaN rules: `torch.clamp` and `torch.minimum` return a NaN
 // operand where fminf / fmaxf would drop it, and a float -> int32 cast
 // truncates (cvt.rzi, NaN -> 0), as torch's `.to(torch.int32)` does on the
-// card.  The tile size is a power of two, so `c / tile` is exact, as
-// torch's `c * (1 / tile)` is.
+// card.  The tile size is a power of two, so `c * (1 / tile)`, as torch
+// computes `c / tile`, is exact.
 //
-// `for_each_slot` visits a gaussian's reach-valid slots in the order of
-// their rank, the row of `slot_pos` they land in: in v2 the raw slot index
-// j (j-major over the clipped rect, gaps included); in v3 (parent_major)
-// the rank among the valid slots in parent-major tile order, the 2x2
-// 16 px tiles of a 32 px parent consecutive, as `parent_major_slots` of
-// splatco_torch/ops/raster_v3.py sorts them.  The kernels do not keep a
-// gaussian's slots between passes: each pass recomputes them (a few dozen
-// float operations a slot), so no kmax is too large to hold.
+// `warp_slots` enumerates the slots of a warp's 32 rows slot-parallel: a
+// lane computes its row's clipped rect (a row of radius 0 costs the load
+// of its radius), the rows with slots move to the low lanes, the warp
+// prefix-sums their slot counts, and the lanes then walk the warp's slots
+// 32 at a time, each finding its (gaussian, enumeration index) from the
+// owners' starts in its round and running that slot's reach test, so a
+// warp no longer waits for its largest rect.  A slot's rank, the row of
+// `slot_pos` it lands in, is in v2 the raw slot index j (j-major over the
+// clipped rect, gaps included); in v3 (parent_major) the rank among the
+// valid slots in parent-major tile order, the 2x2 16 px tiles of a 32 px
+// parent consecutive, as `parent_major_slots` of
+// splatco_torch/ops/raster_v3.py sorts them: v3 enumerates the rect in
+// that order and counts the valid slots before each by ballot, carrying a
+// gaussian's count from one round to the next.  Nothing of a gaussian is
+// kept between kernels: each recomputes its slots (a few dozen float
+// operations a slot), so no kmax is too large to hold.
 //
 // The sort key of a (tile, gaussian) pair within its tile is
 // float_bits(depth) << 32 | (rank * N + n): depth is positive past the
@@ -58,21 +66,14 @@ __device__ __forceinline__ float t_clamp(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
-// torch.minimum: NaN if either operand is NaN
-__device__ __forceinline__ float t_min(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return fminf(a, b);
-}
-
 // torch.clamp_min with a scalar bound
 __device__ __forceinline__ float t_clamp_min(float v, float lo) {
   return v != v ? v : fmaxf(v, lo);
 }
 
 // rect_bounds' span: clamp(floor or ceil(c / tile), 0, n).to(int32)
-__device__ __forceinline__ int span(float c, bool up, int tile, int n) {
-  const float q = c / (float)tile;
+__device__ __forceinline__ int span(float c, bool up, float inv_tile, int n) {
+  const float q = c * inv_tile;
   return (int)t_clamp(up ? ceilf(q) : floorf(q), 0.0f, (float)n);
 }
 
@@ -86,18 +87,19 @@ struct Rect {
 // centre.
 __device__ __forceinline__ Rect rect_of(float mx, float my, float rad,
                                         const Grid& g) {
-  int x0 = span(mx - rad, false, g.tile, g.tiles_x);
-  int y0 = span(my - rad, false, g.tile, g.tiles_y);
-  const int x1 = span(mx + rad, true, g.tile, g.tiles_x);
-  const int y1 = span(my + rad, true, g.tile, g.tiles_y);
+  const float inv = 1.0f / (float)g.tile;
+  int x0 = span(mx - rad, false, inv, g.tiles_x);
+  int y0 = span(my - rad, false, inv, g.tiles_y);
+  const int x1 = span(mx + rad, true, inv, g.tiles_x);
+  const int y1 = span(my + rad, true, inv, g.tiles_y);
   const int sx = max(x1 - x0, 0), sy = max(y1 - y0, 0);
   Rect r;
   r.clipped = sx * sy > g.kmax && rad > 0.0f;
   // saturate before the cast, as XLA's float -> int conversion does
   const float lim = 1073741824.0f;  // 2^30
-  const int cx = min(max((int)t_clamp(mx / (float)g.tile, -lim, lim), 0),
+  const int cx = min(max((int)t_clamp(mx * inv, -lim, lim), 0),
                      g.tiles_x - 1);
-  const int cy = min(max((int)t_clamp(my / (float)g.tile, -lim, lim), 0),
+  const int cy = min(max((int)t_clamp(my * inv, -lim, lim), 0),
                      g.tiles_y - 1);
   int sxc = min(sx, g.kmax);
   int syc = min(sy, max(g.kmax / max(sxc, 1), 1));
@@ -139,81 +141,219 @@ __device__ __forceinline__ Ellipse ellipse_of(float mx, float my, float ca,
 // Whether the gaussian's alpha reaches 1/255 somewhere on tile (tx, ty):
 // the conic's minimum over the tile's pixel square (0 if it holds the
 // centre, else the least over its four edges) against 2 log(255 op).
+// Branch-free, and the same boolean as torch's NaN rules give: torch's
+// minimum is NaN exactly when a clamp's value or bound or an edge is NaN
+// (then only a tile holding the centre can pass), and where none is,
+// fminf / fmaxf are torch's clamp and minimum.
 __device__ __forceinline__ bool reaches(const Ellipse& e, int tx, int ty,
                                         int tile) {
   const float u0 = (float)(tx * tile) - e.mx;
   const float u1 = u0 + (float)(tile - 1);
   const float v0 = (float)(ty * tile) - e.my;
   const float v1 = v0 + (float)(tile - 1);
-  auto edge_u = [&](float u) {
-    const float vs = t_clamp(e.r_vc * u, v0, v1);
+  const float vu0 = e.r_vc * u0, vu1 = e.r_vc * u1;
+  const float uv0 = e.r_uc * v0, uv1 = e.r_uc * v1;
+  auto edge_u = [&](float u, float vu) {
+    const float vs = fminf(fmaxf(vu, v0), v1);
     return (e.ca * u * u + e.two_cb * u * vs) + e.cc * vs * vs;
   };
-  auto edge_v = [&](float v) {
-    const float us = t_clamp(e.r_uc * v, u0, u1);
+  auto edge_v = [&](float v, float uv) {
+    const float us = fminf(fmaxf(uv, u0), u1);
     return (e.ca * us * us + e.two_cb * us * v) + e.cc * v * v;
   };
+  const float a = edge_u(u0, vu0), b = edge_u(u1, vu1);
+  const float c = edge_v(v0, uv0), d = edge_v(v1, uv1);
+  // u1, v1 are NaN only with u0, v0; `|`, not `||`: no branches
+  const bool nan = isnan(u0) | isnan(v0) | isnan(vu0) | isnan(vu1) |
+                   isnan(uv0) | isnan(uv1) | isnan(a) | isnan(b) |
+                   isnan(c) | isnan(d);
   const bool inside = u0 <= 0.0f && 0.0f <= u1 && v0 <= 0.0f && 0.0f <= v1;
-  float qmin = t_min(t_min(edge_u(u0), edge_u(u1)),
-                     t_min(edge_v(v0), edge_v(v1)));
-  if (inside) qmin = 0.0f;
-  return qmin * (float)(1.0 - 1e-3) <= e.rhs;
+  const float qmin = fminf(fminf(a, b), fminf(c, d));
+  return inside ? 0.0f <= e.rhs
+                : !nan && qmin * (float)(1.0 - 1e-3) <= e.rhs;
 }
 
-// Calls f(tile, rank) for each reach-valid slot of the gaussian, in rank
-// order; returns how many there were.
-template <class F>
-__device__ __forceinline__ int for_each_slot(const Rect& r, const Ellipse& e,
-                                             const Grid& g, F&& f) {
+constexpr unsigned kFull = 0xffffffffu;
+
+// The lanes below `k` (k in [0, 32]).
+__device__ __forceinline__ unsigned lanes_below(int k) {
+  return k >= 32 ? kFull : (1u << k) - 1u;
+}
+
+// e / w for 0 <= e and 1 <= w: below 2^22 an approximate float quotient
+// (off by at most one there) corrected by one step.
+__device__ __forceinline__ int quotient(int e, int w) {
+  if (e >= (1 << 22)) return e / w;
+  int q = (int)__fdividef((float)e, (float)w);
+  const int r = e - q * w;
+  return q + (r >= w) - (r < 0);
+}
+
+// Tile (tx, ty) of enumeration index e of a w x h rect at (x0, y0): in v2
+// row by row (e is the slot index j); in v3 parent by parent (the 2x2
+// 16 px tiles of a 32 px parent, row-major within it), parent rows top to
+// bottom and parents left to right in a row, the tiles outside the rect
+// skipped, as `parent_major_slots` orders them.
+template <bool kParentMajor>
+__device__ __forceinline__ void slot_tile(int e, int x0, int y0, int w,
+                                          int h, int* tx, int* ty) {
+  const int row = quotient(e, w);
+  if (!kParentMajor) {
+    *tx = x0 + (e - row * w);
+    *ty = y0 + row;
+    return;
+  }
+  // a parent row holds rin rect rows (1 or 2): w * rin indices
+  const int py = (y0 + row) >> 1;
+  const int rs = max(2 * py, y0);
+  const bool two_rows = min(2 * py + 2, y0 + h) - rs == 2;
+  const int e2 = e - w * (rs - y0);
+  // a parent of that row holds rin x cin tiles (cin 1 or 2)
+  const int px = (x0 + (two_rows ? e2 >> 1 : e2)) >> 1;
+  const int cs = max(2 * px, x0);
+  const bool two_cols = min(2 * px + 2, x0 + w) - cs == 2;
+  const int e3 = e2 - (two_rows ? 2 : 1) * (cs - x0);
+  *ty = rs + (two_cols ? e3 >> 1 : e3);
+  *tx = cs + (two_cols ? e3 & 1 : 0);
+}
+
+// What warp_slots hands f for each lane of a round.
+struct Slot {
+  bool valid;  // a slot of some row whose reach test passed
+  int tile;    // its tile (-1 where !valid)
+  int rank;    // its rank, the row of slot_pos it lands in
+  int owner;   // the lane holding its row's terms
+  int row;     // its row, from row0
+};
+
+// The slots of rows row0 .. row0 + 31, one row a lane: f(slot) is called
+// by every lane of the warp once a round (so f may use full-warp
+// intrinsics), 32 slots a round in enumeration order.  The rows with
+// slots are first moved to the low lanes, in row order.  Sets *clipped to
+// the warp's rows whose rect was clipped and returns the valid slots of
+// the row the lane then holds (0 on the lanes left over).  `depth_bits`
+// is that row's depth as bits when `depth` is given (else 0), for f to
+// shuffle from the slot's owner.  kParentMajor: v3's ranks
+// (g.parent_major).
+template <bool kParentMajor, class F>
+__device__ __forceinline__ int warp_slots(const Columns& c, const Grid& g,
+                                          long long row0, const float* depth,
+                                          unsigned* depth_bits, int* clipped,
+                                          F&& f) {
+  const int lane = threadIdx.x & 31;
+  const long long n = row0 + lane;
+  const float rad = n < c.n ? c.radius[n] : 0.0f;
+  Rect r{0, 0, 0, 0, 0, false};
+  Ellipse e{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  *depth_bits = 0;
+  if (rad > 0.0f) {
+    const float mx = c.mx[n], my = c.my[n];
+    r = rect_of(mx, my, rad, g);
+    if (r.count > 0) {
+      e = ellipse_of(mx, my, c.ca[n], c.cb[n], c.cc[n], c.op[n]);
+      if (depth) *depth_bits = __float_as_uint(depth[n]);
+    }
+  }
+  *clipped = __popc(__ballot_sync(kFull, r.clipped));
+  // the k-th row with slots moves to lane k, so a slot's owner is found
+  // from the owners' starts in its round
+  const unsigned has = __ballot_sync(kFull, r.count > 0);
+  const int src = __popc(has) > lane ? __fns(has, 0, lane + 1) : lane;
+  const int moved = __shfl_sync(kFull, min(r.count, g.kmax), src);
+  const int count = __popc(has) > lane ? moved : 0;
+  r.x0 = __shfl_sync(kFull, r.x0, src);
+  r.y0 = __shfl_sync(kFull, r.y0, src);
+  r.sx = __shfl_sync(kFull, r.sx, src);
+  r.sy = __shfl_sync(kFull, r.sy, src);
+  e.mx = __shfl_sync(kFull, e.mx, src);
+  e.my = __shfl_sync(kFull, e.my, src);
+  e.ca = __shfl_sync(kFull, e.ca, src);
+  e.cc = __shfl_sync(kFull, e.cc, src);
+  e.two_cb = __shfl_sync(kFull, e.two_cb, src);
+  e.r_vc = __shfl_sync(kFull, e.r_vc, src);
+  e.r_uc = __shfl_sync(kFull, e.r_uc, src);
+  e.rhs = __shfl_sync(kFull, e.rhs, src);
+  *depth_bits = __shfl_sync(kFull, *depth_bits, src);
+  int incl = count;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += v;
+  }
+  const int excl = incl - count;
+  const int total = __shfl_sync(kFull, incl, 31);
   const int w = max(r.sx, 1);
-  const int slots = min(r.count, g.kmax);
-  int valid = 0;
-  if (!g.parent_major) {
-    for (int j = 0; j < slots; ++j) {
-      const int tx = r.x0 + j % w, ty = r.y0 + j / w;
-      if (reaches(e, tx, ty, g.tile)) {
-        f(ty * g.tiles_x + tx, j);
-        ++valid;
-      }
+  int valid_here = 0;  // this lane's row's valid slots so far
+  for (int base = 0; base < total; base += 32) {
+    const int s = base + lane;
+    // the owner: the lanes wholly before the round, then one more for
+    // each owner that starts in the round at or before this lane
+    const bool meets = count > 0 && excl < base + 32 && incl > base;
+    const unsigned starts = __reduce_or_sync(
+        kFull, meets ? 1u << (max(excl, base) - base) : 0u);
+    const int o = __popc(__ballot_sync(kFull, count > 0 && incl <= base)) +
+                  __popc(starts & lanes_below(lane + 1)) - 1;
+    const int o_excl = __shfl_sync(kFull, excl, o);
+    const int ox0 = __shfl_sync(kFull, r.x0, o);
+    const int oy0 = __shfl_sync(kFull, r.y0, o);
+    const int ow = __shfl_sync(kFull, w, o);
+    const int oh = __shfl_sync(kFull, r.sy, o);
+    const int o_before = __shfl_sync(kFull, valid_here, o);
+    Ellipse oe;
+    oe.mx = __shfl_sync(kFull, e.mx, o);
+    oe.my = __shfl_sync(kFull, e.my, o);
+    oe.ca = __shfl_sync(kFull, e.ca, o);
+    oe.cc = __shfl_sync(kFull, e.cc, o);
+    oe.two_cb = __shfl_sync(kFull, e.two_cb, o);
+    oe.r_vc = __shfl_sync(kFull, e.r_vc, o);
+    oe.r_uc = __shfl_sync(kFull, e.r_uc, o);
+    oe.rhs = __shfl_sync(kFull, e.rhs, o);
+    const bool live = s < total;
+    const int j = s - o_excl;
+    // branch-free: a dead lane tests some tile of the owner's rect
+    int tx, ty;
+    slot_tile<kParentMajor>(live ? j : 0, ox0, oy0, ow, oh, &tx, &ty);
+    const bool reach = reaches(oe, tx, ty, g.tile);
+    const bool valid = live && reach;
+    const unsigned vm = __ballot_sync(kFull, valid);
+    // the owner's slots in this round are lanes [max(o_excl, base) - base,
+    // min(o_incl, base + 32) - base)
+    const int lo = max(o_excl, base) - base;
+    const int rank = kParentMajor
+        ? o_before + __popc(vm & lanes_below(lane) & ~lanes_below(lo))
+        : j;
+    if (count > 0) {
+      const int mlo = max(excl, base) - base;
+      const int mhi = min(incl, base + 32) - base;
+      if (mlo < mhi)
+        valid_here += __popc(vm & lanes_below(mhi) & ~lanes_below(mlo));
     }
-    return valid;
+    f(Slot{valid, valid ? ty * g.tiles_x + tx : -1, rank, o,
+           __shfl_sync(kFull, src, o)});
   }
-  if (slots == 0) return 0;
-  const int rows = (slots + w - 1) / w;  // the rect rows the slots reach
-  const int px1 = (r.x0 + w - 1) >> 1, py1 = (r.y0 + rows - 1) >> 1;
-  for (int py = r.y0 >> 1; py <= py1; ++py) {
-    for (int px = r.x0 >> 1; px <= px1; ++px) {
-      for (int sub = 0; sub < 4; ++sub) {
-        const int tx = 2 * px + (sub & 1), ty = 2 * py + (sub >> 1);
-        const int lx = tx - r.x0, ly = ty - r.y0;
-        if (lx < 0 || lx >= w || ly < 0 || ly * w + lx >= slots) continue;
-        if (reaches(e, tx, ty, g.tile)) {
-          f(ty * g.tiles_x + tx, valid);
-          ++valid;
-        }
-      }
-    }
-  }
-  return valid;
+  return valid_here;
 }
 
-// Visits gaussian n's valid slots (see for_each_slot); returns their count
-// and sets *clipped.
-template <class F>
-__device__ __forceinline__ int visit_gaussian(const Columns& c, long long n,
-                                              const Grid& g, bool* clipped,
-                                              F&& f) {
-  const Rect r = rect_of(c.mx[n], c.my[n], c.radius[n], g);
-  *clipped = r.clipped;
-  if (r.count == 0) return 0;
-  const Ellipse e = ellipse_of(c.mx[n], c.my[n], c.ca[n], c.cb[n], c.cc[n],
-                               c.op[n]);
-  return for_each_slot(r, e, g, f);
+// The lane's group of lanes with the same tile, its leader (the lowest
+// lane of the group) and the lane's rank in it.
+struct Group {
+  unsigned lanes;
+  int leader, rank;
+};
+
+__device__ __forceinline__ Group group_of(int tile) {
+  const unsigned lanes = __match_any_sync(kFull, tile);
+  const int lane = threadIdx.x & 31;
+  return Group{lanes, __ffs(lanes) - 1, __popc(lanes & lanes_below(lane))};
 }
 
-// Tiles whose per-block counters fit in shared memory (48 KiB of int32,
-// the most a kernel gets without asking); a larger grid counts in global
-// memory directly.
-constexpr int kSharedTiles = 12288;
+// Tiles whose per-block counters fit in shared memory: 224 KiB of int32,
+// within the 227 KiB a block may ask for (cudaFuncSetAttribute), with
+// room for the kernels' static shared memory; a larger grid counts in
+// global memory directly.
+constexpr int kSharedTiles = 57344;
+
+// Rows a warp takes at a time.
+constexpr int kWarpRows = 32;
 
 }  // namespace binning

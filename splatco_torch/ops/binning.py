@@ -26,7 +26,8 @@ kernels, its slots ranked in parent-major tile order.
      deterministic per-gaussian reduce with no scatter-add.
 
 Three CUDA kernels run steps 1-5 on the card (csrc/binning.cuh holds
-their per-gaussian arithmetic):
+the per-gaussian arithmetic and the warp-wide slot enumeration of the
+first two):
 
   bin_count       (csrc/bin_count.cu)  the pairs per tile, their offsets
                   tile_start / tile_end, and the counters num_clipped,
@@ -38,6 +39,13 @@ their per-gaussian arithmetic):
                   (unique keys: the order bin_place left does not
                   matter), then records, gauss_id, slot_pos and
                   slot_mask.
+
+In bin_count and bin_place a warp takes 32 rows and its lanes share
+those rows' slots, 32 a round.  bin_count runs persistent blocks (two an
+SM) that count into a histogram of every tile in shared memory up to
+SHARED_TILES tiles (one flush a block; the last block scans); bin_place
+visits each gaussian once, the lanes of a round that hit one tile
+reserving their run of its cursor with one atomic.
 
 The low word of a key is j * N + n, the pair's flat index in a j-major
 [kmax, N] grid, so kmax * N must stay below 2^31: the wrappers raise
@@ -73,10 +81,11 @@ COUNT_KERNEL, PLACE_KERNEL, SORT_KERNEL = ("bin_count", "bin_place",
 KERNELS = (COUNT_KERNEL, PLACE_KERNEL, SORT_KERNEL)
 # a key's low word, the pair's flat slot-map index j * N + n, is int32
 MAX_SLOTS = 2 ** 31
-# the most tiles bin_count and bin_place count per block in shared memory
-# (csrc/binning.cuh's kSharedTiles); on a larger grid (v3 at 3840x2160:
-# 32,640 tiles) they count with global atomics
-SHARED_TILES = 12288
+# the most tiles bin_count counts per block in shared memory (224 KiB of
+# int32, csrc/binning.cuh's kSharedTiles; v3 at 3840x2160 has 32,640); on
+# a larger grid (v3 at 7680x4320: 129,600) it counts with global atomics.
+# bin_place reserves from the global cursors on every grid
+SHARED_TILES = 57344
 # slot ranks a word of the slot mask holds
 MASK_BITS = 32
 # flips a key's sign bit: int64 order of the flipped keys is their uint64

@@ -382,14 +382,22 @@ def test_wrappers_raise_where_there_is_no_kernel():
 def test_shared_tiles_matches_the_kernels():
     """binning.SHARED_TILES, which the card tests and chip_smoke.py's
     wide frames pass to reach the global-atomic counting, is the kernels'
-    kSharedTiles, and both kernels fork on it."""
+    kSharedTiles; its int32 histogram fits the 227 KiB of shared memory a
+    Hopper block may ask for, with room for the kernel's static shared
+    memory; bin_count forks on it, and bin_place, which keeps no
+    histogram, has one path for every grid."""
     csrc = Path(t_bin.__file__).resolve().parent.parent / "csrc"
     header = (csrc / "binning.cuh").read_text()
     assert re.search(r"constexpr int kSharedTiles = (\d+);",
                      header).group(1) == str(t_bin.SHARED_TILES)
-    for name in ("bin_count.cu", "bin_place.cu"):
-        assert "g.num_tiles <= binning::kSharedTiles" in \
-            (csrc / name).read_text()
+    assert 4 * t_bin.SHARED_TILES <= 232448 - 1024
+    # v3 at 3840x2160 counts in shared memory, v3 at 7680x4320 does not
+    assert 240 * 136 <= t_bin.SHARED_TILES < 480 * 270
+    count = (csrc / "bin_count.cu").read_text()
+    assert "g.num_tiles <= binning::kSharedTiles" in count
+    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in count
+    place = (csrc / "bin_place.cu").read_text()
+    assert "kSharedTiles" not in place and "extern __shared__" not in place
 
 
 def reduce_in_order(per_record, slot_pos):

@@ -626,9 +626,19 @@ def test_plane_sample_bwd_nonfinite_cotangent(card):
 def binning_scene(case, dev):
     """(proj, colors, opacities, h, w): a random scene, gaussians in one
     tile (depth ties; "hot": longer than a sorting block's 4,096 keys,
-    "long": than two 16,384-key chunks), none, or a random scene on a
-    grid of more tiles than bin_count and bin_place count in shared
-    memory (13,056 32 px tiles, 52,224 16 px ones)."""
+    "long": than two 16,384-key chunks), none, a random scene on a grid
+    of more tiles than bin_count counts in shared memory (61,440 32 px
+    tiles, 245,760 16 px ones), or chip_smoke.py's crafted mixed warps
+    (`mixed_warp_inputs`: radius-0 rows beside rects far wider than kmax,
+    4,133 rows, torch's NaN rules on some; "one": its first row, a
+    clipped rect; "n33": its first 33)."""
+    if case in ("mixed", "kmax40", "one", "n33"):
+        from chip_smoke import mixed_warp_inputs
+        proj, colors, opac, _, h, w, _ = mixed_warp_inputs(21, dev, False,
+                                                           12)
+        keep = {"one": 1, "n33": 33}.get(case, proj.mx.shape[0])
+        return (ProjectedCols(*(t[:keep] for t in proj)), colors[:keep],
+                opac[:keep], h, w)
     g = torch.Generator().manual_seed(21)
     n = {"random": 20000, "hot": 6000, "long": 40000, "empty": 0,
          "wide": 200000}[case]
@@ -636,7 +646,7 @@ def binning_scene(case, dev):
     def u(lo, hi):
         return lo + (hi - lo) * torch.rand(n, generator=g)
 
-    h, w = (3072, 4352) if case == "wide" else (200, 328)
+    h, w = (7680, 8192) if case == "wide" else (200, 328)
     if case in ("hot", "long"):
         mx, my, rad = u(36.0, 44.0), u(36.0, 44.0), torch.full((n,), 3.0)
         ca, cb, cc = torch.full((n,), 0.4), u(-0.05, 0.05), torch.full(
@@ -654,14 +664,16 @@ def binning_scene(case, dev):
 
 
 @pytest.mark.parametrize("tile16", [False, True], ids=["v2", "v3"])
-@pytest.mark.parametrize("case", ["random", "hot", "long", "empty", "wide"])
+@pytest.mark.parametrize("case", ["random", "hot", "long", "empty", "wide",
+                                  "mixed", "kmax40", "one", "n33"])
 def test_binning_kernels_match_plain(card, case, tile16):
     """bin_count, bin_place, bin_sort_tiles and slot_reduce against their
     plain versions bit for bit (the slot map under the mask), each
-    launched twice, once a call."""
+    launched twice, once a call; "kmax40" at kmax 40, where one
+    gaussian's slots span more than one warp round of 32."""
     proj, colors, opac, h, w = binning_scene(case, card)
     tile = raster_v3.TILE if tile16 else TILE
-    kmax = 32 if tile16 else 12
+    kmax = 40 if case == "kmax40" else 32 if tile16 else 12
     tiles_x, tiles_y = (raster_v3.tile_grid if tile16 else tile_grid)(h, w)
     geo = (tile, tiles_x, tiles_y, kmax, tile16)
     assert (tiles_x * tiles_y > binning.SHARED_TILES) == (case == "wide")
