@@ -207,8 +207,24 @@ Run from the repository root.  Phases, each of which fails loudly:
      kernel's device operations by torch.profiler.  21c:
      frame 0's binning stage with the kernels and with the plain
      versions, in turns.
+ 22. SSIM (ops/losses.py: sep_blur, ssim_map_fwd, ssim_map_bwd), whose
+     kernels every training step, eval and metric above launched (a
+     forward blurs and maps once, a backward maps back and blurs once:
+     `check_ssim` in every phase, exactly where the count is simple, 0
+     in the render-only ones).  22a-c: on a training view's images at
+     1600x1088, an evaluation image's (8-bit pixels), sizes that are no
+     multiple of the blur's tiles (B = 2; the blur also at 1, 3 and 31
+     taps), H or W below the 11-tap window, a 1x1 image and NaN and
+     infinite pixels, each kernel launched twice against its plain
+     version bit for bit (the map's backward with a seeded cotangent and
+     with `mean`'s constant one), and `ssim` and `masked_ssim` with their
+     gradients through the kernels against the same calls through the
+     plain versions on the card, bit for bit; each kernel timed at a
+     training view's shapes beside its bound, its plain version and, for
+     the blur, a depthwise `F.conv2d` pair (timed, never used).  22d:
+     the three kernels' launches on each phase's main path.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
-Prints a `kernels` JSON line (all fifteen kernels), then, as the last line,
+Prints a `kernels` JSON line (all eighteen kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
 there is no CUDA card.
 """
@@ -255,10 +271,11 @@ from splatco_torch.models.splatco import decode_kwargs, init_model
 from splatco_torch.models.triplane import _split_coords, apply_tpa
 from splatco_torch.ops import (binning, cuda_lib, lpips, plane_sample,
                                probes, raster_ablate, raster_v3)
+from splatco_torch.ops import losses as loss_ops
 from splatco_torch.ops import rasterize as rasterize_ops
 from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.flip import ldr_flip
-from splatco_torch.ops.losses import l1_loss, psnr, ssim
+from splatco_torch.ops.losses import l1_loss, masked_ssim, psnr, ssim
 from splatco_torch.ops.projection import ProjectedCols, project_gaussians_cols
 from splatco_torch.ops.rasterize import (REDUCE_KERNEL, TILE16_DEFAULT,
                                          bin_frame, reduce_slots,
@@ -325,10 +342,16 @@ REPLACES = {
     binning.PLACE_KERNEL: "splatco_tpu/ops/binning.py:277",
     binning.SORT_KERNEL: "splatco_tpu/ops/binning.py:300",
     REDUCE_KERNEL: "splatco_tpu/ops/rasterize.py:140",
+    # SSIM: the blur of `_sep_gauss_blur` and its custom VJP, and the
+    # map's elementwise tail and its jax.grad, all XLA
+    loss_ops.BLUR_KERNEL: "splatco_tpu/ops/losses.py:55",
+    loss_ops.MAP_FWD_KERNEL: "splatco_tpu/ops/losses.py:109",
+    loss_ops.MAP_BWD_KERNEL: "splatco_tpu/ops/losses.py:109",
 }
 SAMPLER = (plane_sample.FWD_KERNEL, plane_sample.BWD_KERNEL)
 BINNING = (*binning.KERNELS, REDUCE_KERNEL)
-XLA_STAGES = (*SAMPLER, *BINNING)
+SSIM = loss_ops.KERNELS
+XLA_STAGES = (*SAMPLER, *BINNING, *SSIM)
 # phase 14: the tools time each probe mode and ablation variant over this
 # many launches, after one checked launch and a warm-up
 PROBE_ITERS = 20
@@ -433,6 +456,26 @@ WIDE_FRAMES = ((7680, 4320, False), (3840, 2160, True), (7680, 4320, True))
 # (slots of one gaussian over more than one round of 32)
 MIXED_N, MIXED_KMAX_V3 = 4133, 40
 OPS_PER_GAUSSIAN, OPS_PER_SLOT = 40, 60
+# phase 22: SSIM's kernels held to their plain versions bit for bit (the
+# same float32 operations in the same order, --fmad=false, IEEE division)
+# on a training view's moments, an evaluation image's (8-bit pixels),
+# sizes that are no multiple of the blur's 246 x 64 tiles (with B = 2,
+# and the blur at other windows too), H or W below the 11-tap window, a
+# 1x1 image and NaN and infinite pixels; each kernel timed over
+# SSIM_ITERS launches and its plain version over SSIM_PLAIN_ITERS.  The
+# bounds count the map's fp32 operations a pixel (csrc/ssim.cuh: 17 in
+# `map`, 38 in `map_vjp`, a division as one) and the blur's multiplies
+# and adds (2 (2 taps - 1) a pixel)
+SSIM_CASES = (("a training view", (1, 3, HEIGHT, WIDTH), None),
+              ("an evaluation image", (1, 3, HEIGHT, WIDTH), "png"),
+              ("odd sizes", (2, 3, 1001, 1517), None),
+              ("H < 11", (1, 3, 7, 300), None),
+              ("W < 11", (1, 3, 300, 6), None),
+              ("1x1", (1, 3, 1, 1), None),
+              ("NaN and inf pixels", (1, 3, 257, 333), "nonfinite"))
+BLUR_WINDOWS = (1, 3, 31)
+SSIM_ITERS, SSIM_PLAIN_ITERS = 20, 3
+SSIM_FWD_OPS, SSIM_BWD_OPS = 17, 38
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -474,7 +517,7 @@ def tile_of(tile16: bool) -> int:
 def blend_launches(launches: dict) -> dict:
     """The blend kernels' part of a run's launches (the tri-plane
     sampler's part is held by `check_sampler`, the binning's by
-    `check_binning`)."""
+    `check_binning`, SSIM's by `check_ssim`)."""
     return {k: v for k, v in launches.items() if k not in XLA_STAGES}
 
 
@@ -507,6 +550,22 @@ def check_sampler(launches: dict, what: str, fwd=None, bwd=None):
         raise AssertionError(f"{what} launched the sampler's kernels "
                              f"{got} times, not {(fwd, bwd)} (None: at "
                              "least once)")
+
+
+def check_ssim(launches: dict, what: str, fwd=None, bwd=None):
+    """SSIM's kernels launched for `fwd` forwards and `bwd` backwards in
+    `what`, or at least once each where the count is None: a forward
+    blurs once and maps once, a backward maps back once and blurs once,
+    so the blur always launches as often as the two map kernels
+    together."""
+    got = {k: launches.get(k, 0) for k in SSIM}
+    n_fwd, n_bwd = got[loss_ops.MAP_FWD_KERNEL], got[loss_ops.MAP_BWD_KERNEL]
+    if not (got[loss_ops.BLUR_KERNEL] == n_fwd + n_bwd
+            and all(n >= 1 if w is None else n == w
+                    for n, w in ((n_fwd, fwd), (n_bwd, bwd)))):
+        raise AssertionError(f"{what} launched SSIM's kernels {got} times, "
+                             f"not for {(fwd, bwd)} forwards and backwards "
+                             "(None: at least once)")
 
 
 def compare_kernel(binned, tiles_x, tiles_y, work=None, tile=TILE):
@@ -837,6 +896,10 @@ def train_phase(params, state, cfg, args, dev, tile16=False):
     planes = planes_sampled(0) * (n_steps - 2) + planes_sampled(2) * 2
     check_sampler(launches, "training", planes, planes)
     check_binning(launches, "training")
+    # an SSIM a view (forward and backward) and one a consistency pair's
+    # gate (forward; the step computes the gates when none are passed)
+    check_ssim(launches, "training", n_steps * (MV + MV * (MV - 1) // 2),
+               n_steps * MV)
     return trainer, launches, step_ms
 
 
@@ -978,6 +1041,7 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
                              "frames")
     check_sampler(launches, "render_set", frames * planes_sampled(level), 0)
     check_binning(launches, "render_set")
+    check_ssim(launches, "render_set", 0, 0)
 
     tiles_x, tiles_y = grid(tile16)
     with torch.inference_mode():
@@ -1411,6 +1475,7 @@ def disk_phase(args, dev, card: str, scene_dir: str):
                                  f"{frames} frames")
         check_sampler(launches, "render_sets", bwd=0)
         check_binning(launches, "render_sets")
+        check_ssim(launches, "render_sets", 0, 0)
 
         loaded, l_active, contractor, level, _ = load_trained(cfg,
                                                               device=dev)
@@ -1478,7 +1543,8 @@ class TrainProbe:
     also leaves copies of its blend kernels' inputs in `raster`: "fwd"
     the forward's arguments, "bwd" the backward's cotangent, rgb, T and
     bg for the same records, with the step's kmax and capacity.  Steps `profiled` (consecutive) run under
-    torch.profiler, left in `profiler`."""
+    torch.profiler, left in `profiler`.  `loop_ssims` counts the SSIMs the
+    trainer scores outside its steps (pair gates, eval frames)."""
 
     TIMED = ("_cvpm_and_densify", "_graph_downsample", "evaluate",
              "save_model", "save_training_state")
@@ -1490,6 +1556,7 @@ class TrainProbe:
         self.kmax, self.grows = [], []
         self.raster, self.capturing = {}, False
         self.profiled, self.profiler = tuple(profiled), None
+        self.loop_ssims = 0
 
     def steady_ms(self):
         """The CUDA-event times of the steps other than the first (its
@@ -1551,6 +1618,11 @@ class TrainProbe:
 
         raster_fwd0 = rasterize_ops.raster_fwd
         raster_bwd0 = rasterize_ops.raster_bwd
+        ssim0 = train_loop.ssim
+
+        def counted_ssim(*a, **kw):
+            self.loop_ssims += 1
+            return ssim0(*a, **kw)
 
         def copies(args):
             return tuple(a.clone() if torch.is_tensor(a) else a
@@ -1598,6 +1670,7 @@ class TrainProbe:
             escalate
         rasterize_ops.raster_fwd = capture_fwd
         rasterize_ops.raster_bwd = capture_bwd
+        train_loop.ssim = counted_ssim
         try:
             yield self
         finally:
@@ -1605,6 +1678,7 @@ class TrainProbe:
                 setattr(cls, name, fn)
             rasterize_ops.raster_fwd = raster_fwd0
             rasterize_ops.raster_bwd = raster_bwd0
+            train_loop.ssim = ssim0
             if SummaryWriter is not None:
                 SummaryWriter.add_image = add_image
 
@@ -1735,6 +1809,10 @@ def train_disk_phase(args, dev, card: str, scene_dir: str, model1: str):
             raise AssertionError(f"training launched {launches}, not {want}")
         check_sampler(launches, "training from disk")
         check_binning(launches, "training from disk")
+        # an SSIM a view a step, and the ones the loop scored: a
+        # consistency pair's gate (cached by camera pair) or an eval frame
+        check_ssim(launches, "training from disk",
+                   MV * steps + probe.loop_ssims, MV * steps)
         staged_view_checks(probe, tile)
         probe.raster.clear()
 
@@ -1852,15 +1930,18 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
                              f"{DISK_VIEWS} views")
     check_sampler(launches, "render_torch.py", bwd=0)
     check_binning(launches, "render_torch.py")
+    check_ssim(launches, "render_torch.py", 0, 0)
 
     # 2. the metrics CLI with seeded LPIPS weights at VGG16's widths, each
     # test view recomputed on the CPU from the same PNG pixels
     npz = os.path.join(model_dir, "lpips_random.npz")
     np.savez(npz, **lpips.random_weights(args.seed))
+    cuda_lib.LAUNCHES.clear()
     t0 = time.perf_counter()
     metrics_torch.main(["-m", model_dir, "--lpips_weights", npz])
     torch.cuda.synchronize()
     metrics_s = time.perf_counter() - t0
+    metric_launches = dict(cuda_lib.LAUNCHES)
     with open(os.path.join(model_dir, "results.json")) as fh:
         full = json.load(fh)[it_dir]
     with open(os.path.join(model_dir, "per_view.json")) as fh:
@@ -1901,6 +1982,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
           f"FLIP {worst['FLIP']:.3e}, LPIPS relative {worst['LPIPS']:.3e}; "
           f"ms per {WIDTH}x{HEIGHT} image on the card (CUDA events, mean "
           f"of 3 after a warm-up) {json.dumps(metric_ms)}")
+    check_ssim(metric_launches, "metrics_torch.py", bwd=0)
     for key, tol in METRIC_TOL.items():
         if not worst[key] <= tol:
             raise AssertionError(f"{key}: card and CPU differ by "
@@ -1934,6 +2016,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
     check_sampler(orbit_launches, "the orbit",
                   ORBIT_FRAMES * planes_sampled(level), 0)
     check_binning(orbit_launches, "the orbit")
+    check_ssim(orbit_launches, "the orbit", 0, 0)
 
     # 4. the popping CLI with RAFT: seeded weights in the official layout
     pth = os.path.join(model_dir, "raft_random.pth")
@@ -1990,6 +2073,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
     if not err <= RAFT_TOL * scale:
         raise AssertionError(f"RAFT: card and CPU differ by {err:.3e}")
     total = collections.Counter(launches)
+    total.update(metric_launches)
     total.update(orbit_launches)
     return dict(total)
 
@@ -2138,6 +2222,7 @@ def one_rank_phase(params, state, cfg, args, dev):
         raise AssertionError("the 1x1 sharded step disagrees with the "
                              "single-device step")
     check_binning(launches, "18a's sharded steps")
+    check_ssim(launches, "18a's sharded steps")
     return launches, ms
 
 
@@ -2448,7 +2533,9 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
                              "in its 16 px step")
     check_sampler(launches_b, "18b's sharded steps")
     check_binning(launches_b, "18b's sharded steps")
+    check_ssim(launches_b, "18b's sharded steps")
     check_binning(launches_b16, "18b's 16 px sharded step")
+    check_ssim(launches_b16, "18b's 16 px sharded step")
     check_sampler(launches_b16, "18b's 16 px sharded step")
 
     loop = r0["loop"]
@@ -2490,6 +2577,7 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
         raise AssertionError(f"18c's sharded steps must launch {want_c}")
     check_sampler(launches_c, "18c's sharded steps")
     check_binning(launches_c, "18c's sharded steps")
+    check_ssim(launches_c, "18c's sharded steps")
     if not (delta < LOOP_TOL and sum(d[1][0] for d in loop["densify"]) > 0
             and loop["capacity"][0] == 2 * r0["small_capacity"]):
         raise AssertionError("the sharded loop left the single-device "
@@ -2734,6 +2822,7 @@ def viewer_phase(args, dev, card: str, tmp: str, scene_dir: str,
                              f"{want}")
     check_sampler(launches, "the viewer run")
     check_binning(launches, "the viewer run")
+    check_ssim(launches, "the viewer run")
     print(f"  phase 19a wall {time.perf_counter() - t_phase:.1f} s")
     for name in (kernels[0], *binning.KERNELS):
         launches[name] -= out["references"]
@@ -2784,6 +2873,7 @@ def profile_cli_phase(args, card: str, tmp: str, scene_dir: str,
         raise AssertionError(f"--profile launched {launches}, not {want}")
     check_sampler(launches, "--profile")
     check_binning(launches, "--profile")
+    check_ssim(launches, "--profile")
     for rng in ("binning", "slot_reduce"):
         if not any(e.get("name") == rng for e in events):
             raise AssertionError(f"the trace does not name the {rng} "
@@ -2826,6 +2916,7 @@ def step_recon_phase(params, state, cfg, args, dev, card: str):
                              f"{want}")
     check_sampler(launches, "the attribution")
     check_binning(launches, "the attribution")
+    check_ssim(launches, "the attribution")
     return launches
 
 
@@ -2910,6 +3001,7 @@ def hard_phase(dev, card: str, tmp: str):
     if launches.get(BWD_KERNELS[tile]) != run["config"]["mv"] * HARD_ITERS:
         raise AssertionError(f"the quality run launched {launches}")
     check_binning(launches, "the quality run")
+    check_ssim(launches, "the quality run")
 
     cuda_lib.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -3681,6 +3773,202 @@ def binning_launch_table(phase_launches: dict):
             raise AssertionError(f"{phase} did not bin through the kernels")
 
 
+# ---------------------------------------------------------------------
+# phase 22: SSIM's kernels (ops/losses.py: sep_blur, ssim_map_fwd,
+# ssim_map_bwd)
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same shape and the same float32 bits (NaNs included)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+@contextlib.contextmanager
+def plain_ssim():
+    """SSIM through its plain versions, on whatever device the tensors
+    are: the three wrappers swapped for the functions the kernels are
+    held to."""
+    saved = (loss_ops.sep_blur, loss_ops.ssim_map_fwd, loss_ops.ssim_map_bwd)
+    loss_ops.sep_blur = loss_ops._sep_gauss_blur
+    loss_ops.ssim_map_fwd = loss_ops._ssim_map_fwd_plain
+    loss_ops.ssim_map_bwd = loss_ops._ssim_map_bwd_plain
+    try:
+        yield
+    finally:
+        (loss_ops.sep_blur, loss_ops.ssim_map_fwd,
+         loss_ops.ssim_map_bwd) = saved
+
+
+def ssim_images(shape, kind, seed: int, dev):
+    """A seeded image pair [B, C, H, W] as SSIM sees one: a rendered view
+    against its target, 8-bit pixels (an evaluation image read from PNG),
+    or a pair with NaN and infinite entries."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(shape, generator=gen, device=dev)
+    b = (a + 0.1 * torch.randn(shape, generator=gen, device=dev)).clamp(0, 1)
+    if kind == "png":
+        a, b = (torch.round(x * 255.0) / 255.0 for x in (a, b))
+    if kind == "nonfinite":
+        flat = a.view(-1)
+        idx = torch.randint(0, flat.numel(), (30,), generator=gen,
+                            device=dev)
+        flat[idx[:10]] = float("nan")
+        flat[idx[10:20]] = float("inf")
+        flat[idx[20:]] = -float("inf")
+    return a, b
+
+
+def ssim_stack(a, b):
+    """`_ssim_map`'s stack of the five moments before the blur."""
+    return torch.cat([a, b, a * a, b * b, a * b])
+
+
+def ssim_value_and_grads(fn, a, b):
+    a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = fn(a, b)
+    return (out.detach(), *torch.autograd.grad(out, (a, b)))
+
+
+def ssim_case(what, shape, kind, seed: int, dev, windows=()):
+    """22a-c on one case: the blur (and each of `windows`) twice against
+    its plain version, the map forward and backward (a seeded cotangent
+    and `mean`'s constant one) twice against theirs, and `ssim` and
+    `masked_ssim` with their gradients through the kernels against the
+    plain versions, all on the card and bit for bit.  Returns the
+    blurred stack."""
+    a, b = ssim_images(shape, kind, seed, dev)
+    stack = ssim_stack(a, b)
+    g1d = loss_ops._gaussian_1d(11, 1.5)
+    results = {}
+    blurred = loss_ops.sep_blur(stack, g1d)
+    again = loss_ops.sep_blur(stack, g1d)
+    results["sep_blur"] = (bits_equal(blurred, again) and bits_equal(
+        blurred, loss_ops._sep_gauss_blur(stack, g1d)))
+    for w in windows:
+        win = loss_ops._gaussian_1d(w, 1.5)
+        results[f"sep_blur[{w} taps]"] = bits_equal(
+            loss_ops.sep_blur(stack, win),
+            loss_ops._sep_gauss_blur(stack, win))
+    fwd = loss_ops.ssim_map_fwd(blurred)
+    results["ssim_map_fwd"] = (
+        bits_equal(fwd, loss_ops.ssim_map_fwd(blurred))
+        and bits_equal(fwd, loss_ops._ssim_map_fwd_plain(blurred)))
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    cts = {"seeded": torch.randn(fwd.shape, generator=gen, device=dev)
+           / fwd.numel(),
+           "mean's": torch.full((), 1.0 / fwd.numel(),
+                                device=dev).expand(fwd.shape)}
+    for name, ct in cts.items():
+        got = loss_ops.ssim_map_bwd(ct, blurred)
+        results[f"ssim_map_bwd[{name}]"] = (
+            bits_equal(got, loss_ops.ssim_map_bwd(ct, blurred))
+            and bits_equal(got, loss_ops._ssim_map_bwd_plain(ct, blurred)))
+    mask = torch.rand(shape[-2:], generator=gen, device=dev) < 0.7
+    for name, fn in (("ssim", ssim),
+                     ("masked_ssim", lambda x, y: masked_ssim(x, y, mask))):
+        got = ssim_value_and_grads(fn, a, b)
+        with plain_ssim():
+            want = ssim_value_and_grads(fn, a, b)
+        results[f"{name} and grads"] = all(
+            bits_equal(x, y) for x, y in zip(got, want))
+    torch.cuda.synchronize()
+    print(f"22a-c. {what} {list(shape)}: bit for bit "
+          f"{json.dumps(results)}")
+    if not all(results.values()):
+        raise AssertionError(f"SSIM's kernels differ from their plain "
+                             f"versions on {what}")
+    return blurred
+
+
+def conv2d_blur(x, g1d):
+    """The blur as a depthwise 11x1 then 1x11 `F.conv2d` over x [P, H, W]
+    (zero padding, groups = P): one library call a pass, timed only (its
+    sums run in another order)."""
+    p = x.shape[0]
+    k = torch.as_tensor(g1d, device=x.device)
+    r = k.numel() // 2
+    y = torch.nn.functional.conv2d(
+        x[None], k.view(1, 1, -1, 1).expand(p, 1, -1, 1), padding=(r, 0),
+        groups=p)
+    return torch.nn.functional.conv2d(
+        y, k.view(1, 1, 1, -1).expand(p, 1, 1, -1), padding=(0, r),
+        groups=p)[0]
+
+
+def ssim_phase(dev, card: str, seed: int):
+    """Phase 22a-c: SSIM's kernels against their plain versions on the
+    card, bit for bit, on the cases of SSIM_CASES; each kernel timed at
+    a training view's shapes beside its bound, its plain version and the
+    `F.conv2d` pair (the blur's library call).  Returns each kernel's
+    numbers."""
+    t_phase = time.perf_counter()
+    for i, (what, shape, kind) in enumerate(SSIM_CASES):
+        blurred = ssim_case(what, shape, kind, seed + i, dev,
+                            BLUR_WINDOWS if shape[0] > 1 else ())
+        if i == 0:
+            view = blurred
+    a, b = ssim_images(SSIM_CASES[0][1], None, seed, dev)
+    stack = ssim_stack(a, b)
+    g1d = loss_ops._gaussian_1d(11, 1.5)
+    taps = len(g1d)
+    n = view.numel() // 5
+    ct = torch.randn(view.shape[0] // 5, *view.shape[1:],
+                     generator=torch.Generator(device=dev).manual_seed(seed),
+                     device=dev) / n
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the float32 function
+    try:
+        library = cuda_time_ms(lambda: conv2d_blur(
+            stack.view(-1, *stack.shape[2:]), g1d), SSIM_ITERS)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    runs = {
+        loss_ops.BLUR_KERNEL: (
+            lambda: loss_ops.sep_blur(stack, g1d),
+            lambda: loss_ops._sep_gauss_blur(stack, g1d),
+            bound(8 * stack.numel(), 2 * (2 * taps - 1) * stack.numel()),
+            library),
+        loss_ops.MAP_FWD_KERNEL: (
+            lambda: loss_ops.ssim_map_fwd(view),
+            lambda: loss_ops._ssim_map_fwd_plain(view),
+            bound(4 * 6 * n, SSIM_FWD_OPS * n), None),
+        loss_ops.MAP_BWD_KERNEL: (
+            lambda: loss_ops.ssim_map_bwd(ct, view),
+            lambda: loss_ops._ssim_map_bwd_plain(ct, view),
+            bound(4 * 11 * n, SSIM_BWD_OPS * n), None),
+    }
+    numbers = {}
+    for name, (kernel, plain, bnd, lib) in runs.items():
+        err = float((kernel() - plain()).abs().max())
+        ms = cuda_time_ms(kernel, SSIM_ITERS)
+        plain_ms = cuda_time_ms(plain, SSIM_PLAIN_ITERS)
+        numbers[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound": bnd, "library_ms": lib}
+        print(f"22b. {name} at a training view ({list(view.shape)} "
+              f"moments, {card}): max |kernel - plain| {err:.3e}, kernel "
+              f"{ms:.5f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})"
+              + (f", F.conv2d pair {lib:.5f} ms" if lib is not None
+                 else ""))
+    print(f"  phase 22a-c wall {time.perf_counter() - t_phase:.1f} s")
+    return numbers
+
+
+def ssim_launch_table(phase_launches: dict, scoring):
+    """22d: SSIM's kernels' launches on each phase's main path (each
+    phase's own `check_ssim` held them to its forwards and backwards);
+    every phase in `scoring` scored through the kernels."""
+    table = {phase: {k: launches.get(k, 0) for k in SSIM}
+             for phase, launches in phase_launches.items()}
+    print(f"22d. SSIM's kernels' launches on each phase's main path: "
+          f"{json.dumps(table)}")
+    for phase in scoring:
+        if not table[phase][loss_ops.MAP_FWD_KERNEL]:
+            raise AssertionError(f"{phase} did not score SSIM through the "
+                                 "kernels")
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -3807,15 +4095,23 @@ def main() -> int:
     # 18. the sharded step: a 1x1 mesh over NCCL, four ranks on the card
     sharded_launches = sharded_phase(params, state, cfg, args, dev, smi)
 
+    # 22. SSIM's kernels against their plain versions, timed
+    ssim_numbers = ssim_phase(dev, smi, args.seed)
+
     phases = (fwd["launches"], train_launches, fwd3["launches"],
               train3_launches, disk_launches, train_disk_launches,
               eval_launches, last_launches, sharded_launches)
-    binning_launch_table(dict(zip(
+    phase_launches = dict(zip(
         ("4 render_set v2", "7 training v2", "12 render_set v3",
          "13 training v3", "15 render_sets and render_torch.py",
-         "16 train_torch.py", "17 evaluation renders",
+         "16 train_torch.py", "17 evaluation",
          "19 viewer, --profile, attribution, hard protocol",
-         "18 sharded steps"), phases)))
+         "18 sharded steps"), phases))
+    binning_launch_table(phase_launches)
+    ssim_launch_table(phase_launches, (
+        "7 training v2", "13 training v3", "16 train_torch.py",
+        "17 evaluation", "19 viewer, --profile, attribution, hard protocol",
+        "18 sharded steps"))
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
               + train_launches.get(KERNEL, 0)
@@ -3845,6 +4141,8 @@ def main() -> int:
                 sampler_numbers[name]) for name in SAMPLER),
         *(entry(name, sum(p.get(name, 0) for p in phases),
                 binning_numbers[name]) for name in BINNING),
+        *(entry(name, sum(p.get(name, 0) for p in phases),
+                ssim_numbers[name]) for name in SSIM),
     ]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

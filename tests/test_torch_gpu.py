@@ -33,7 +33,14 @@ atomics choose their order), the slot map only under the slot mask (the
 card leaves it unfilled elsewhere; `binning.binning_diff`), on a random
 scene, a tile longer than a sorting block's 4,096 keys, a tile of more
 than two 16,384-key chunks (the long path's merge in more than one
-round) and an empty scene, in both configurations.
+round) and an empty scene, in both configurations.  SSIM's kernels
+(ops/losses.py: the one-launch separable blur, the map forward and its
+VJP) equal their plain versions bit for bit on small seeded images, sizes
+that are no multiple of the blur's tiles, H or W below the window, a 1x1
+image and NaN and infinite pixels, the blur also at 1, 3 and 31 taps, and
+so do `ssim` and `masked_ssim` with their gradients; every training step
+above launches them once a view and once a consistency pair's gate
+forward and once a view backward, and the trainer once an eval frame.
 """
 import collections
 import dataclasses
@@ -55,6 +62,7 @@ from splatco_torch.models.renderer import prefilter_voxel, render
 from splatco_torch.models.splatco import decode_kwargs, init_model
 from splatco_torch.ops import (binning, cuda_lib, flip, lpips, plane_sample,
                                probes, raster_ablate, raster_v3)
+from splatco_torch.ops import losses
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import (REDUCE_KERNEL, bin_frame,
@@ -77,6 +85,13 @@ from splatco_torch.utils.synthetic import (write_blender_dataset,
 
 pytestmark = pytest.mark.gpu
 BINNING = (*binning.KERNELS, REDUCE_KERNEL)
+
+
+def ssim_launches(fwd: int, bwd: int) -> dict:
+    """SSIM's kernels for `fwd` forwards (a blur and a map each) and `bwd`
+    backwards (a map VJP and a blur each)."""
+    return {losses.BLUR_KERNEL: fwd + bwd, losses.MAP_FWD_KERNEL: fwd,
+            losses.MAP_BWD_KERNEL: bwd}
 BWD_TOL = 1e-5  # of each row's max |value|: pixel sums in another order
 
 
@@ -342,10 +357,13 @@ def check_step(dev, tile16):
     kernels = (FWD_KERNELS[tile], BWD_KERNELS[tile])
     cuda_lib.LAUNCHES.clear()
     first = toy_step(dev, tile16)
+    # SSIM: one a view and one for the pair's gate forward, one a view
+    # backward
     assert dict(cuda_lib.LAUNCHES) == {**{name: 2 for name in kernels},
                                        plane_sample.FWD_KERNEL: 6,
                                        plane_sample.BWD_KERNEL: 6,
-                                       **{name: 2 for name in BINNING}}
+                                       **{name: 2 for name in BINNING},
+                                       **ssim_launches(3, 2)}
     second = toy_step(dev, tile16)
     for a, b in zip(leaves(first[:3]), leaves(second[:3])):
         assert torch.equal(a, b)
@@ -524,7 +542,10 @@ def test_trainer_on_the_card_resumes_bit_for_bit(card, tmp_path):
         plane_sample.FWD_KERNEL: planes + frames // 2 * (6 + 9),
         plane_sample.BWD_KERNEL: planes,
         **{name: 2 * 20 + frames for name in binning.KERNELS},
-        REDUCE_KERNEL: 2 * 20}
+        REDUCE_KERNEL: 2 * 20,
+        # SSIM: a view a step, a gate a camera pair (cached), an eval frame
+        **ssim_launches(2 * 20 + len(straight._gate_cache) + frames,
+                        2 * 20)}
     assert any("densify_grown" in m for m in log)
     psnr = [m["test_psnr"] for m in log if "test_psnr" in m]
     assert psnr[1] > psnr[0]
@@ -707,3 +728,88 @@ def test_binning_kernels_match_plain(card, case, tile16):
     got = bin_frame(proj, colors, opac, tile, h, w, kmax)[0]
     plain = binning.bin_gaussians_plain(proj, colors, opac, *geo)
     assert binning.binning_diff(got, plain) == []
+
+
+SSIM_CASES = {"view": ((1, 3, 96, 128), None), "odd_b2": ((2, 3, 67, 301),
+                                                         None),
+              "h7": ((1, 3, 7, 300), None), "w6": ((1, 3, 300, 6), None),
+              "1x1": ((1, 3, 1, 1), None),
+              "nan_inf": ((1, 3, 70, 90), "nonfinite")}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def ssim_pair(shape, kind, seed, dev):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.rand(shape, generator=gen, device=dev)
+    b = (a + 0.1 * torch.randn(shape, generator=gen, device=dev)).clamp(0, 1)
+    if kind == "nonfinite":
+        flat = a.view(-1)
+        idx = torch.randperm(flat.numel(), generator=gen, device=dev)[:9]
+        flat[idx[:3]] = float("nan")
+        flat[idx[3:6]] = float("inf")
+        flat[idx[6:]] = -float("inf")
+    return a, b
+
+
+@pytest.mark.parametrize("case", SSIM_CASES)
+def test_ssim_kernels_match_plain(card, case):
+    """The blur (at 1, 3, 11 and 31 taps), the map and its VJP (a seeded
+    cotangent and `mean`'s constant one) launch once a call and equal
+    their plain versions bit for bit; two launches agree."""
+    shape, kind = SSIM_CASES[case]
+    a, b = ssim_pair(shape, kind, 0, card)
+    stack = torch.cat([a, b, a * a, b * b, a * b])
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    for taps in (1, 3, 11, 31):
+        g1d = losses._gaussian_1d(taps, 1.5)
+        got = losses.sep_blur(stack, g1d)
+        assert same_bits(got, losses.sep_blur(stack, g1d))
+        assert same_bits(got, losses._sep_gauss_blur(stack, g1d)), taps
+    blurred = got
+    fwd = losses.ssim_map_fwd(blurred)
+    assert same_bits(fwd, losses.ssim_map_fwd(blurred))
+    assert same_bits(fwd, losses._ssim_map_fwd_plain(blurred))
+    gen = torch.Generator(device=card).manual_seed(1)
+    for ct in (torch.randn(fwd.shape, generator=gen, device=card),
+               torch.full((), 0.5, device=card).expand(fwd.shape)):
+        got = losses.ssim_map_bwd(ct, blurred)
+        assert same_bits(got, losses.ssim_map_bwd(ct, blurred))
+        assert same_bits(got, losses._ssim_map_bwd_plain(ct, blurred))
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES - before == {losses.BLUR_KERNEL: 8,
+                                          losses.MAP_FWD_KERNEL: 2,
+                                          losses.MAP_BWD_KERNEL: 4}
+
+
+def value_and_grads(fn, a, b):
+    a, b = a.clone().requires_grad_(), b.clone().requires_grad_()
+    out = fn(a, b)
+    return (out.detach(),
+            *torch.autograd.grad(out, (a, b), torch.ones_like(out)))
+
+
+@pytest.mark.parametrize("case", SSIM_CASES)
+def test_ssim_and_masked_ssim_match_plain(card, case, monkeypatch):
+    """`ssim` and `masked_ssim` and their gradients through the kernels
+    equal the same calls through the plain versions on the card, bit for
+    bit."""
+    shape, kind = SSIM_CASES[case]
+    a, b = ssim_pair(shape, kind, 2, card)
+    mask = torch.rand(shape[-2:], generator=torch.Generator(
+        device=card).manual_seed(3), device=card) < 0.7
+    fns = (losses.ssim, lambda x, y: losses.ssim(x, y, size_average=False),
+           lambda x, y: losses.masked_ssim(x, y, mask))
+    got = [value_and_grads(fn, a, b) for fn in fns]
+    monkeypatch.setattr(losses, "sep_blur", losses._sep_gauss_blur)
+    monkeypatch.setattr(losses, "ssim_map_fwd", losses._ssim_map_fwd_plain)
+    monkeypatch.setattr(losses, "ssim_map_bwd", losses._ssim_map_bwd_plain)
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    want = [value_and_grads(fn, a, b) for fn in fns]
+    assert cuda_lib.LAUNCHES == before  # the plain path launches nothing
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert same_bits(x, y)

@@ -49,8 +49,10 @@ COMBINED = frozenset({"ssim", "consistency", "tv", "sreg", "stats"})
 # by `step_digest` with the step of the commit before `disable` existed,
 # with the tri-plane sampler of ops/plane_sample.py in it (whose backward
 # sums each texel's entries exactly, as int64 under a power-of-two scale)
+# and the SSIM map's hand-written VJP of ops/losses.py (the same
+# arithmetic as autograd's, rounded in another order)
 DEFAULT_STEP_DIGEST = \
-    "d539a37888c673ab93f3069fe85bc10add669e2296e7f26b956a97e2f109af3b"
+    "2ff39b2757d4cd958a29638abbe35365d50ac5da03e99fb46d8ccc39bf679a56"
 
 
 @pytest.fixture(autouse=True)

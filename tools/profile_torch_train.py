@@ -29,9 +29,10 @@ node's `evaluate_function` row holds its backward's kernels.
 The tri-plane sampler's forward and backward run inside
 `record_function("plane_sample")` ranges, the tile binning's three
 kernels inside `record_function("binning")` and the backward's slot
-reduce inside `record_function("slot_reduce")` (ops/rasterize.py): the
-summary's `<range>_device_ms_per_step` is the device time of the
-kernels, memsets and memcpys inside the range's spans on the device,
+reduce inside `record_function("slot_reduce")` (ops/rasterize.py), SSIM
+inside `record_function("ssim")` ranges (ops/losses.py): the summary's
+`<range>_device_ms_per_step` is the device time of the kernels, memsets
+and memcpys inside the range's spans on the device,
 `<range>_device_span_ms_per_step` those spans themselves (first kernel's
 start to last one's end, the gaps between them included), which is also
 the range's row of the tables.
@@ -172,7 +173,7 @@ def device_time_us(events, skip=()) -> float:
                and not e.is_user_annotation and e.key not in skip)
 
 
-RANGES = ("plane_sample", "binning", "slot_reduce")
+RANGES = ("plane_sample", "binning", "slot_reduce", "ssim")
 
 
 def range_device_ms(raw, steps: int) -> dict:
@@ -180,8 +181,10 @@ def range_device_ms(raw, steps: int) -> dict:
     the tri-plane sampler (ops/plane_sample.py: its forward kernel, and
     its backward's memset and three kernels), the binning
     (ops/binning.py: bin_count, bin_place, bin_sort_tiles, their memsets
-    and the read-back of the pair count) and the slot reduce
-    (ops/rasterize.py).  `_device_ms`: the device time of the work inside
+    and the read-back of the pair count), the slot reduce
+    (ops/rasterize.py) and SSIM (ops/losses.py: forward, the stack of
+    moments, the blur and the map; backward, the map's VJP and the
+    blur, each in its own range).  `_device_ms`: the device time of the work inside
     the range's device-side spans; `_device_span_ms`: the spans."""
     cuda = torch.autograd.DeviceType.CUDA
     on_device = [e for e in raw if e.device_type == cuda]
