@@ -212,12 +212,13 @@ Run from the repository root.  Phases, each of which fails loudly:
      forward blurs and maps once, a backward maps back and blurs once:
      `check_ssim` in every phase, exactly where the count is simple, 0
      in the render-only ones).  22a-c: on a training view's images at
-     1600x1088, an evaluation image's (8-bit pixels), sizes that are no
-     multiple of the blur's tiles (B = 2; the blur also at 1, 3 and 31
+     1600x1088, phase 17's first test view (its render and ground truth
+     as read back from the PNGs render_torch.py wrote), sizes that are
+     no multiple of the blur's tiles (B = 2; the blur also at 1, 3 and 31
      taps), H or W below the 11-tap window, a 1x1 image and NaN and
      infinite pixels, each kernel launched twice against its plain
      version bit for bit (the map's backward with a seeded cotangent and
-     with `mean`'s constant one), and `ssim` and `masked_ssim` with their
+     with a constant one, as `mean` sends), and `ssim` and `masked_ssim` with their
      gradients through the kernels against the same calls through the
      plain versions on the card, bit for bit; each kernel timed at a
      training view's shapes beside its bound, its plain version and, for
@@ -458,8 +459,8 @@ MIXED_N, MIXED_KMAX_V3 = 4133, 40
 OPS_PER_GAUSSIAN, OPS_PER_SLOT = 40, 60
 # phase 22: SSIM's kernels held to their plain versions bit for bit (the
 # same float32 operations in the same order, --fmad=false, IEEE division)
-# on a training view's moments, an evaluation image's (8-bit pixels),
-# sizes that are no multiple of the blur's 246 x 64 tiles (with B = 2,
+# on a training view's moments, phase 17's first test view (render and
+# ground truth read back from their PNGs; its shape comes with it), sizes that are no multiple of the blur's 246 x 64 tiles (with B = 2,
 # and the blur at other windows too), H or W below the 11-tap window, a
 # 1x1 image and NaN and infinite pixels; each kernel timed over
 # SSIM_ITERS launches and its plain version over SSIM_PLAIN_ITERS.  The
@@ -467,7 +468,7 @@ OPS_PER_GAUSSIAN, OPS_PER_SLOT = 40, 60
 # `map`, 38 in `map_vjp`, a division as one) and the blur's multiplies
 # and adds (2 (2 taps - 1) a pixel)
 SSIM_CASES = (("a training view", (1, 3, HEIGHT, WIDTH), None),
-              ("an evaluation image", (1, 3, HEIGHT, WIDTH), "png"),
+              ("phase 17's first test view", None, "png"),
               ("odd sizes", (2, 3, 1001, 1517), None),
               ("H < 11", (1, 3, 7, 300), None),
               ("W < 11", (1, 3, 300, 6), None),
@@ -3800,15 +3801,26 @@ def plain_ssim():
          loss_ops.ssim_map_bwd) = saved
 
 
-def ssim_images(shape, kind, seed: int, dev):
-    """A seeded image pair [B, C, H, W] as SSIM sees one: a rendered view
-    against its target, 8-bit pixels (an evaluation image read from PNG),
-    or a pair with NaN and infinite entries."""
+def eval_image_pair(model_dir: str):
+    """Phase 17's first test view: its render and its ground truth
+    [3, H, W] as metrics_torch.py reads them back from their PNGs."""
+    it_dir = os.path.join(model_dir, "test", f"ours_{TRAIN_ITERS}")
+    renders, gts, _ = metrics_driver.read_images(
+        os.path.join(it_dir, "renders"), os.path.join(it_dir, "gt"))
+    return renders[0], gts[0]
+
+
+def ssim_images(shape, kind, seed: int, dev, eval_pair=None):
+    """An image pair [B, C, H, W] as SSIM sees one: a seeded rendered
+    view against its target, `eval_pair` (a render and its ground truth
+    read from PNG) for kind "png", or a seeded pair with NaN and infinite
+    entries."""
+    if kind == "png":
+        return tuple(torch.from_numpy(np.ascontiguousarray(x))[None].to(dev)
+                     for x in eval_pair)
     gen = torch.Generator(device=dev).manual_seed(seed)
     a = torch.rand(shape, generator=gen, device=dev)
     b = (a + 0.1 * torch.randn(shape, generator=gen, device=dev)).clamp(0, 1)
-    if kind == "png":
-        a, b = (torch.round(x * 255.0) / 255.0 for x in (a, b))
     if kind == "nonfinite":
         flat = a.view(-1)
         idx = torch.randint(0, flat.numel(), (30,), generator=gen,
@@ -3830,14 +3842,15 @@ def ssim_value_and_grads(fn, a, b):
     return (out.detach(), *torch.autograd.grad(out, (a, b)))
 
 
-def ssim_case(what, shape, kind, seed: int, dev, windows=()):
-    """22a-c on one case: the blur (and each of `windows`) twice against
-    its plain version, the map forward and backward (a seeded cotangent
-    and `mean`'s constant one) twice against theirs, and `ssim` and
-    `masked_ssim` with their gradients through the kernels against the
-    plain versions, all on the card and bit for bit.  Returns the
-    blurred stack."""
-    a, b = ssim_images(shape, kind, seed, dev)
+def ssim_case(what, a, b, seed: int, dev):
+    """22a-c on the pair a, b: the blur (and, with B > 1, each of
+    BLUR_WINDOWS) twice against its plain version, the map forward and
+    backward (a seeded cotangent and a constant one, as `mean` sends)
+    twice against theirs, and `ssim` and `masked_ssim` with their
+    gradients through the kernels against the plain versions, all on the
+    card and bit for bit.  Returns the blurred stack."""
+    shape = tuple(a.shape)
+    windows = BLUR_WINDOWS if shape[0] > 1 else ()
     stack = ssim_stack(a, b)
     g1d = loss_ops._gaussian_1d(11, 1.5)
     results = {}
@@ -3857,8 +3870,8 @@ def ssim_case(what, shape, kind, seed: int, dev, windows=()):
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
     cts = {"seeded": torch.randn(fwd.shape, generator=gen, device=dev)
            / fwd.numel(),
-           "mean's": torch.full((), 1.0 / fwd.numel(),
-                                device=dev).expand(fwd.shape)}
+           "constant": torch.full(fwd.shape, 1.0 / fwd.numel(),
+                                  device=dev)}
     for name, ct in cts.items():
         got = loss_ops.ssim_map_bwd(ct, blurred)
         results[f"ssim_map_bwd[{name}]"] = (
@@ -3896,16 +3909,17 @@ def conv2d_blur(x, g1d):
         groups=p)[0]
 
 
-def ssim_phase(dev, card: str, seed: int):
+def ssim_phase(dev, card: str, seed: int, eval_pair):
     """Phase 22a-c: SSIM's kernels against their plain versions on the
-    card, bit for bit, on the cases of SSIM_CASES; each kernel timed at
+    card, bit for bit, on the cases of SSIM_CASES (the "png" one is
+    `eval_pair`, phase 17's first test view); each kernel timed at
     a training view's shapes beside its bound, its plain version and the
     `F.conv2d` pair (the blur's library call).  Returns each kernel's
     numbers."""
     t_phase = time.perf_counter()
     for i, (what, shape, kind) in enumerate(SSIM_CASES):
-        blurred = ssim_case(what, shape, kind, seed + i, dev,
-                            BLUR_WINDOWS if shape[0] > 1 else ())
+        a, b = ssim_images(shape, kind, seed + i, dev, eval_pair)
+        blurred = ssim_case(what, a, b, seed + i, dev)
         if i == 0:
             view = blurred
     a, b = ssim_images(SSIM_CASES[0][1], None, seed, dev)
@@ -4081,6 +4095,7 @@ def main() -> int:
         # 17. the trained model rendered, scored and its orbit stream
         # checked for popping through the CLIs
         eval_launches = eval_phase(args, dev, smi, scene_dir, model_dir)
+        eval_pair = eval_image_pair(model_dir)  # for phase 22
         # 19. the viewer, the profiling switches and the hard protocol
         last_launches = last_paths_phase(args, dev, smi, tmp, scene_dir,
                                          model_dir, params, state, cfg)
@@ -4096,7 +4111,7 @@ def main() -> int:
     sharded_launches = sharded_phase(params, state, cfg, args, dev, smi)
 
     # 22. SSIM's kernels against their plain versions, timed
-    ssim_numbers = ssim_phase(dev, smi, args.seed)
+    ssim_numbers = ssim_phase(dev, smi, args.seed, eval_pair)
 
     phases = (fwd["launches"], train_launches, fwd3["launches"],
               train3_launches, disk_launches, train_disk_launches,

@@ -10,12 +10,11 @@
 //
 // Computes what `_ssim_map_bwd_plain` (splatco_torch/ops/losses.py)
 // computes, operation for operation: `ssim::map_vjp` (csrc/ssim.cuh).  The
-// cotangent is either [n] contiguous or one value for every pixel (stride
-// 0: `mean`'s cotangent, an expanded scalar), read once.
+// cotangent is [n] contiguous.
 //
 // What bounds it: bytes, the cotangent and the five moments read once and
-// the five gradients written once (44 B a pixel, 40 B with a broadcast
-// cotangent) against ~30 fp32 operations and three divisions a pixel.
+// the five gradients written once (44 B a pixel) against ~30 fp32
+// operations and three divisions a pixel.
 // float4 loads and stores where n is a multiple of 4 and the arrays are
 // 16 B aligned, over a grid-stride loop.
 #include <cstdint>
@@ -38,9 +37,8 @@ __device__ __forceinline__ void store(float* __restrict__ d, long long n,
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-map_bwd(const float* __restrict__ g, long long g_stride,
-        const float* __restrict__ stack, long long n, float c1, float c2,
-        float* __restrict__ d_stack) {
+map_bwd(const float* __restrict__ g, const float* __restrict__ stack,
+        long long n, float c1, float c2, float* __restrict__ d_stack) {
   const long long stride = (long long)gridDim.x * kThreads;
   if (kVec) {
     const long long n4 = n / 4;
@@ -48,9 +46,7 @@ map_bwd(const float* __restrict__ g, long long g_stride,
     float4* d = reinterpret_cast<float4*>(d_stack);
     for (long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
          i < n4; i += stride) {
-      const float4 gv = g_stride
-          ? reinterpret_cast<const float4*>(g)[i]
-          : make_float4(g[0], g[0], g[0], g[0]);
+      const float4 gv = reinterpret_cast<const float4*>(g)[i];
       const float4 mu1 = s[i], mu2 = s[n4 + i], e11 = s[2 * n4 + i],
                    e22 = s[3 * n4 + i], e12 = s[4 * n4 + i];
       const ssim::MomentGrads x = ssim::map_vjp(
@@ -71,34 +67,28 @@ map_bwd(const float* __restrict__ g, long long g_stride,
     for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x;
          e < n; e += stride)
       store(d_stack, n, e,
-            ssim::map_vjp(ssim::moments(stack, n, e), g[e * g_stride], c1,
-                          c2));
+            ssim::map_vjp(ssim::moments(stack, n, e), g[e], c1, c2));
   }
 }
 
 }  // namespace
 
-// g: [n] float32 with element stride g_stride (1, or 0 for one value);
-// stack: [5, n] float32, contiguous; d_stack: [5, n] float32.  Launches on
-// `stream` and returns cudaGetLastError().
-extern "C" int ssim_map_bwd(const float* g, long long g_stride,
-                            const float* stack, long long n, float c1,
-                            float c2, float* d_stack, int sms,
+// g: [n] float32, contiguous; stack: [5, n] float32, contiguous;
+// d_stack: [5, n] float32.  Launches on `stream` and returns
+// cudaGetLastError().
+extern "C" int ssim_map_bwd(const float* g, const float* stack, long long n,
+                            float c1, float c2, float* d_stack, int sms,
                             void* stream) {
   if (n <= 0) return (int)cudaGetLastError();
-  if (g_stride != 0 && g_stride != 1) return (int)cudaErrorInvalidValue;
   const bool vec = n % 4 == 0 && (uintptr_t)stack % 16 == 0 &&
-                   (uintptr_t)d_stack % 16 == 0 &&
-                   (g_stride == 0 || (uintptr_t)g % 16 == 0);
+                   (uintptr_t)d_stack % 16 == 0 && (uintptr_t)g % 16 == 0;
   const long long work = vec ? n / 4 : n;
   const long long blocks = (work + kThreads - 1) / kThreads;
   const unsigned grid = (unsigned)(blocks < 8LL * sms ? blocks : 8LL * sms);
   const cudaStream_t s = (cudaStream_t)stream;
   if (vec)
-    map_bwd<true><<<grid, kThreads, 0, s>>>(g, g_stride, stack, n, c1, c2,
-                                             d_stack);
+    map_bwd<true><<<grid, kThreads, 0, s>>>(g, stack, n, c1, c2, d_stack);
   else
-    map_bwd<false><<<grid, kThreads, 0, s>>>(g, g_stride, stack, n, c1, c2,
-                                              d_stack);
+    map_bwd<false><<<grid, kThreads, 0, s>>>(g, stack, n, c1, c2, d_stack);
   return (int)cudaGetLastError();
 }

@@ -177,7 +177,7 @@ def _ssim_map_fwd_plain(stack: torch.Tensor) -> torch.Tensor:
 
 def _ssim_map_bwd_plain(g: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
     """The map's VJP: the gradient [5B, C, H, W] of the blurred moments for
-    the map's cotangent g (any tensor that broadcasts to [B, C, H, W]).
+    the map's cotangent g [B, C, H, W].
     With num = a b and den = d e, a = 2 mu1 mu2 + C1, b = 2 sigma12 + C2,
     d = mu1^2 + mu2^2 + C1, e = sigma1^2 + sigma2^2 + C2: g_num = g / den,
     g_den = -g (num / den) / den (autograd's division rule), and the
@@ -227,9 +227,8 @@ def ssim_map_fwd(stack: torch.Tensor) -> torch.Tensor:
 
 def ssim_map_bwd(g: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
     """The gradient [5B, C, H, W] of the blurred moments for the map's
-    cotangent g [B, C, H, W]: the kernel for CUDA tensors (g contiguous,
-    or one value expanded over the map, as `mean` sends back; anything
-    else is made contiguous), the plain version for CPU ones."""
+    cotangent g [B, C, H, W]: the kernel for CUDA tensors (made
+    contiguous), the plain version for CPU ones."""
     _check_stack(stack, MAP_BWD_KERNEL)
     _check_device(g, MAP_BWD_KERNEL)
     shape = (stack.shape[0] // 5, *stack.shape[1:])
@@ -239,16 +238,13 @@ def ssim_map_bwd(g: torch.Tensor, stack: torch.Tensor) -> torch.Tensor:
                          f"{tuple(g.shape)} on {g.device}")
     if stack.device.type == "cpu":
         return _ssim_map_bwd_plain(g, stack)
-    stack = stack.contiguous()
-    broadcast = all(s == 0 for s in g.stride())
-    if not broadcast:
-        g = g.contiguous()
+    stack, g = stack.contiguous(), g.contiguous()
     d_stack = torch.empty_like(stack)
-    fn = cuda_lib.function(MAP_BWD_KERNEL, (_P, _L, _P, _L, ctypes.c_float,
+    fn = cuda_lib.function(MAP_BWD_KERNEL, (_P, _P, _L, ctypes.c_float,
                                             ctypes.c_float, _P, _I, _P))
     with torch.cuda.device(stack.device):
-        err = fn(g.data_ptr(), 0 if broadcast else 1, stack.data_ptr(),
-                 g.numel(), C1, C2, d_stack.data_ptr(), _sms(stack.device),
+        err = fn(g.data_ptr(), stack.data_ptr(), g.numel(), C1, C2,
+                 d_stack.data_ptr(), _sms(stack.device),
                  cuda_lib.stream(stack.device))
     cuda_lib.launched(MAP_BWD_KERNEL, err)
     return d_stack

@@ -40,7 +40,8 @@ that are no multiple of the blur's tiles, H or W below the window, a 1x1
 image and NaN and infinite pixels, the blur also at 1, 3 and 31 taps, and
 so do `ssim` and `masked_ssim` with their gradients; every training step
 above launches them once a view and once a consistency pair's gate
-forward and once a view backward, and the trainer once an eval frame.
+forward and once a view backward, and the trainer once an eval frame;
+the cotangent a step sends back to the map is dense.
 """
 import collections
 import dataclasses
@@ -370,6 +371,22 @@ def check_step(dev, tile16):
     cpu = toy_step(torch.device("cpu"), tile16)
     loss, want = float(first[3]["loss"]), float(cpu[3]["loss"])
     assert abs(loss - want) <= 1e-4 * abs(want)
+
+
+def test_train_step_sends_the_map_a_dense_cotangent(card, monkeypatch):
+    """Every cotangent a training step sends back to the SSIM map on the
+    card is dense and contiguous, so `ssim_map_bwd` copies nothing."""
+    seen = []
+    bwd = losses.ssim_map_bwd
+
+    def recording(g, stack):
+        seen.append((g.stride(), g.is_contiguous()))
+        return bwd(g, stack)
+
+    monkeypatch.setattr(losses, "ssim_map_bwd", recording)
+    toy_step(card, tile16=False)
+    print(f"the map's cotangents' strides in a step: {seen}")
+    assert seen == [((3 * 48 * 64, 48 * 64, 64, 1), True)] * 2
 
 
 def test_train_step_repeats_bit_for_bit_and_matches_cpu(card):
@@ -758,7 +775,7 @@ def ssim_pair(shape, kind, seed, dev):
 @pytest.mark.parametrize("case", SSIM_CASES)
 def test_ssim_kernels_match_plain(card, case):
     """The blur (at 1, 3, 11 and 31 taps), the map and its VJP (a seeded
-    cotangent and `mean`'s constant one) launch once a call and equal
+    cotangent and a constant one, as `mean` sends) launch once a call and equal
     their plain versions bit for bit; two launches agree."""
     shape, kind = SSIM_CASES[case]
     a, b = ssim_pair(shape, kind, 0, card)
@@ -775,7 +792,7 @@ def test_ssim_kernels_match_plain(card, case):
     assert same_bits(fwd, losses._ssim_map_fwd_plain(blurred))
     gen = torch.Generator(device=card).manual_seed(1)
     for ct in (torch.randn(fwd.shape, generator=gen, device=card),
-               torch.full((), 0.5, device=card).expand(fwd.shape)):
+               torch.full(fwd.shape, 0.5, device=card)):
         got = losses.ssim_map_bwd(ct, blurred)
         assert same_bits(got, losses.ssim_map_bwd(ct, blurred))
         assert same_bits(got, losses._ssim_map_bwd_plain(ct, blurred))

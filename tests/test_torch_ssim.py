@@ -241,8 +241,8 @@ def test_plain_map_and_vjp_are_the_kernels_arithmetic(shape, special):
     assert same_bits(t_losses.ssim_map_fwd(st).numpy(), want_map)
     assert same_bits(t_losses.ssim_map_bwd(torch.as_tensor(g), st).numpy(),
                      want_vjp)
-    # `mean`'s cotangent: one value expanded over the map
-    one = torch.tensor(0.25).expand(shape)
+    # `mean`'s cotangent: one value at every pixel
+    one = torch.full(shape, 0.25)
     assert same_bits(t_losses.ssim_map_bwd(one, st).numpy(), want_mean)
 
 
@@ -277,6 +277,36 @@ def test_wrappers_raise_on_shapes_they_do_not_take():
     with pytest.raises(ValueError, match="cotangent"):
         t_losses.ssim_map_bwd(torch.zeros((2, 3, 8, 9)),
                               torch.zeros((5, 3, 8, 9)))
+
+
+@pytest.mark.parametrize("name", ["ssim", "ssim_per_image", "masked_ssim",
+                                  "training_loss"])
+def test_the_map_gets_a_dense_cotangent(name, monkeypatch):
+    """What every caller sends back to `_SSIMMap` is a dense [B, C, H, W]
+    tensor (`mean`'s backward divides its expanded cotangent, a masked
+    sum multiplies it), so the kernel's `contiguous()` copies nothing.
+    `training_loss` is the training step's (1 - lam) L1 + lam (1 - SSIM)."""
+    shape = (1, 3, 24, 30)
+    a, b = image_pair(shape, 15)
+    at, bt = torch.as_tensor(a).requires_grad_(), torch.as_tensor(b)
+    fns = {"ssim": t_losses.ssim,
+           "ssim_per_image": lambda x, y: t_losses.ssim(
+               x, y, size_average=False).sum(),
+           "masked_ssim": lambda x, y: t_losses.masked_ssim(
+               x, y, torch.as_tensor(mask_of(shape, 15))),
+           "training_loss": lambda x, y: 0.8 * t_losses.l1_loss(x, y)
+           + 0.2 * (1.0 - t_losses.ssim(x, y))}
+    seen = []
+    bwd = t_losses.ssim_map_bwd
+
+    def recording(g, stack):
+        seen.append((g.shape, g.stride(), g.is_contiguous()))
+        return bwd(g, stack)
+
+    monkeypatch.setattr(t_losses, "ssim_map_bwd", recording)
+    fns[name](at, bt).backward()
+    assert seen == [(torch.Size(shape), (3 * 24 * 30, 24 * 30, 30, 1),
+                     True)]
 
 
 def test_profiled_ssim_records_its_range():

@@ -1,9 +1,8 @@
-"""Time the SSIM of one view on the card, as the training step and the
-evaluation call it: the device time of its forward and backward, the
-kernels each launches, the memory its forward keeps for the backward,
-and beside them the separable blur of the five stacked moments and a
-depthwise `F.conv2d` pair computing the same blur (`chip_smoke.conv2d_blur`,
-timed only).
+"""Time the SSIM of one view on the card, as the training step calls it:
+the device time of its forward and backward, the kernels each launches
+and the memory its forward keeps for the backward.  (chip_smoke.py
+phase 22 times each SSIM kernel alone; `tools/profile_torch_train.py`'s
+`ssim` range, SSIM's device time in whole training steps.)
 
     PYTHONPATH=. python tools/profile_torch_ssim.py [--height 1088]
         [--width 1600] [--reps 20] [--out PATH]
@@ -13,10 +12,8 @@ view does, against a seeded target: `1 - ssim(image, gt)` forward, then
 its backward.  Each timed run is queued behind a ~50 ms sleep kernel, so
 CUDA events time the device's work, not the host's launches.  The kernel
 counts are torch.profiler's device events (kernels, memsets, memcpys) of
-one forward and of one backward.  A training step of mv views with its
-pair gates uncached spends mv (forward + backward) + mv (mv - 1) / 2
-forwards; `no_grad_forward_ms` is an evaluation image's SSIM.  Prints one
-JSON line (and writes it to PATH with --out).
+one forward and of one backward.  Prints one JSON line (and writes it
+to PATH with --out).
 """
 from __future__ import annotations
 
@@ -28,9 +25,8 @@ import subprocess
 import numpy as np
 import torch
 
-import chip_smoke as cs
 from splatco_torch.ops import losses
-from splatco_torch.utils.measure import SLEEP_CYCLES, cuda_time_ms
+from splatco_torch.utils.measure import SLEEP_CYCLES
 
 
 def device_events(fn) -> int:
@@ -103,21 +99,6 @@ def main() -> None:
     del loss
     torch.cuda.synchronize()
     peak_mib = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-    with torch.no_grad():
-        eval_ms = cuda_time_ms(lambda: losses.ssim(img, gt), args.reps)
-
-    g1d = losses._gaussian_1d(11, 1.5)
-    stack = torch.as_tensor(rng.uniform(size=(15, *shape[1:])).astype(
-        np.float32), device=dev)
-    blur_ms = cuda_time_ms(
-        lambda: losses._sep_gauss_blur(stack[None], g1d), args.reps)
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False  # the fp32 function
-    try:
-        conv_ms = cuda_time_ms(lambda: cs.conv2d_blur(stack, g1d),
-                               args.reps)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
     summary = {
         "card": card, "torch": torch.__version__, "image": list(shape),
         "reps": args.reps,
@@ -126,11 +107,6 @@ def main() -> None:
         "backward_device_events": bwd_events,
         "kept_for_backward_mib": kept_mib,
         "forward_backward_peak_mib": peak_mib,
-        "no_grad_forward_ms": eval_ms,
-        "blur_of_the_stack_ms": blur_ms,
-        "conv2d_pair_ms": conv_ms,
-        "step_ms_mv4_gates_cached": 4 * (fwd_ms + bwd_ms),
-        "step_ms_mv4_gates_uncached": 4 * (fwd_ms + bwd_ms) + 6 * fwd_ms,
     }
     line = json.dumps(summary)
     print(line)
