@@ -235,14 +235,50 @@ def project_cols(means3d: torch.Tensor, cov6, viewmatrix: torch.Tensor,
                          cc=conic_c, radius=radius)
 
 
+class _BackwardRange(torch.autograd.Function):
+    """Identity on its tensors.  Its backward enters the profiler range
+    `state["range"]` when `state` holds none, else leaves it: applied to
+    the formula's outputs and to its inputs, it brackets the formula's
+    autograd nodes in the backward."""
+
+    @staticmethod
+    def forward(ctx, state, *xs):
+        ctx.state = state
+        return tuple(x.view_as(x) for x in xs)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        rf = ctx.state.pop("open", None)
+        if rf is None:
+            rf = torch.profiler.record_function("projection")
+            rf.__enter__()
+            ctx.state["open"] = rf
+        else:
+            rf.__exit__(None, None, None)
+        return (None, *gs)
+
+
 def project_gaussians_cols(means3d, scales, quats, camera) -> ProjectedCols:
-    """scales/quats -> covariance columns -> columnwise EWA."""
-    return project_cols(
-        means3d, covariance_cols(scales, quats),
-        camera.world_view_transform, camera.full_proj_transform,
-        camera.image_width, camera.image_height,
-        camera.tan_fovx, camera.tan_fovy,
-    )
+    """scales/quats -> covariance columns -> columnwise EWA, inside
+    `record_function("projection")` ranges, forward and backward."""
+    with torch.profiler.record_function("projection"):
+        bracket = torch.is_grad_enabled() and any(
+            t.requires_grad for t in (means3d, scales, quats))
+        if bracket:
+            state = {}
+            means3d, scales, quats = _BackwardRange.apply(
+                state, means3d, scales, quats)
+        out = project_cols(
+            means3d, covariance_cols(scales, quats),
+            camera.world_view_transform, camera.full_proj_transform,
+            camera.image_width, camera.image_height,
+            camera.tan_fovx, camera.tan_fovy,
+        )
+        if bracket:
+            out = out._replace(**dict(zip(
+                ("mx", "my", "depth", "ca", "cb", "cc"),
+                _BackwardRange.apply(state, *out[:6]))))
+        return out
 
 
 def visible_filter(means3d, scales, quats, camera) -> torch.Tensor:

@@ -30,12 +30,15 @@ The tri-plane sampler's forward and backward run inside
 `record_function("plane_sample")` ranges, the tile binning's three
 kernels inside `record_function("binning")` and the backward's slot
 reduce inside `record_function("slot_reduce")` (ops/rasterize.py), SSIM
-inside `record_function("ssim")` ranges (ops/losses.py): the summary's
+inside `record_function("ssim")` ranges (ops/losses.py), the EWA
+projection inside `record_function("projection")` ranges
+(ops/projection.py): the summary's
 `<range>_device_ms_per_step` is the device time of the kernels, memsets
 and memcpys inside the range's spans on the device,
 `<range>_device_span_ms_per_step` those spans themselves (first kernel's
 start to last one's end, the gaps between them included), which is also
-the range's row of the tables.
+the range's row of the tables, and `<range>_kernels_per_step` the
+device operations inside the spans.
 """
 from __future__ import annotations
 
@@ -173,7 +176,7 @@ def device_time_us(events, skip=()) -> float:
                and not e.is_user_annotation and e.key not in skip)
 
 
-RANGES = ("plane_sample", "binning", "slot_reduce", "ssim")
+RANGES = ("plane_sample", "binning", "slot_reduce", "ssim", "projection")
 
 
 def range_device_ms(raw, steps: int) -> dict:
@@ -184,8 +187,11 @@ def range_device_ms(raw, steps: int) -> dict:
     and the read-back of the pair count), the slot reduce
     (ops/rasterize.py) and SSIM (ops/losses.py: forward, the stack of
     moments, the blur and the map; backward, the map's VJP and the
-    blur, each in its own range).  `_device_ms`: the device time of the work inside
-    the range's device-side spans; `_device_span_ms`: the spans."""
+    blur, each in its own range) and the EWA projection
+    (ops/projection.py: the prefilter's, the render's and their
+    backward).  `_device_ms`: the device time of the work inside the
+    range's device-side spans; `_device_span_ms`: the spans;
+    `_kernels`: the kernels, memsets and memcpys inside them."""
     cuda = torch.autograd.DeviceType.CUDA
     on_device = [e for e in raw if e.device_type == cuda]
     work = [(e.time_range.start, e.time_range.end) for e in on_device
@@ -199,6 +205,9 @@ def range_device_ms(raw, steps: int) -> dict:
         out[f"{name}_device_ms_per_step"] = busy / 1e3 / steps
         out[f"{name}_device_span_ms_per_step"] = sum(
             hi - lo for lo, hi in spans) / 1e3 / steps
+        out[f"{name}_kernels_per_step"] = sum(
+            1 for a, b in work
+            if any(lo <= a and b <= hi for lo, hi in spans)) / steps
     return out
 
 
