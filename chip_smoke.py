@@ -224,8 +224,28 @@ Run from the repository root.  Phases, each of which fails loudly:
      training view's shapes beside its bound, its plain version and, for
      the blur, a depthwise `F.conv2d` pair (timed, never used).  22d:
      the three kernels' launches on each phase's main path.
+ 23. the EWA projection (ops/projection.py: project_fwd, project_bwd),
+     whose kernels every render and training step above launched
+     (`project_fwd` once a prefilter, radius only, and once a render;
+     `project_bwd` once a render's backward: `check_projection` in every
+     phase, exactly where the count is simple).  23a: each kernel launched
+     twice against its plain version bit for bit (the forward full and
+     radius only; the backward with the cotangents given and with zero
+     ones and none), on frame 0's decoded gaussians of the quick-start
+     model (v2 and v3 decode the same), a training step's view with the
+     cotangents the step sent back, phase 16's iteration-45 state
+     (capacity 131,072, its padding rows included), the prefilter's
+     anchors (the quick-start model's and that state's, the base scales
+     a strided slice) and crafted rows (`projection_crafted_cases`: behind
+     and on the near plane, |tz| < 1e-8, a zero quaternion, zero scales,
+     NaN and infinite inputs, tx / tz and ty / tz exactly at the frustum
+     limits, det == 0 under a singular view).  23b: each kernel timed at
+     phase 16's state, frame 0 and the step's view beside its bound and
+     its plain version (no one PyTorch call computes it), the radius-only
+     launch also at the prefilter's sizes.  23c: the two kernels'
+     launches on each phase's main path.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
-Prints a `kernels` JSON line (all eighteen kernels), then, as the last line,
+Prints a `kernels` JSON line (all twenty kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
 there is no CUDA card.
 """
@@ -258,7 +278,7 @@ from splatco_torch.config import (ModelConfig, OptimizationConfig,
                                   PipelineConfig, load_run_config,
                                   save_run_config)
 from splatco_torch.data import native_io
-from splatco_torch.data.cameras import look_at_camera
+from splatco_torch.data.cameras import look_at_camera, projection_matrix
 from splatco_torch.data.images import save_png
 from splatco_torch.data.scene import Scene
 from splatco_torch.eval import metrics_driver, popping, raft
@@ -273,6 +293,7 @@ from splatco_torch.models.triplane import _split_coords, apply_tpa
 from splatco_torch.ops import (binning, cuda_lib, lpips, plane_sample,
                                probes, raster_ablate, raster_v3)
 from splatco_torch.ops import losses as loss_ops
+from splatco_torch.ops import projection as projection_ops
 from splatco_torch.ops import rasterize as rasterize_ops
 from splatco_torch.ops.binning import TILE
 from splatco_torch.ops.flip import ldr_flip
@@ -298,7 +319,7 @@ from splatco_torch.train.checkpoint import (load_train_state,
 from splatco_torch.train.optimizer import (group_schedules, label_params,
                                            make_optimizer)
 from splatco_torch.train.step import init_stats, make_train_step
-from splatco_torch.utils.math import round_up
+from splatco_torch.utils.math import normalize, round_up
 from splatco_torch.utils.measure import (PEAK_FP32_PER_S, PEAK_TF32_PER_S,
                                          bound, bwd_bound, cuda_time_ms,
                                          fwd_bound)
@@ -348,11 +369,16 @@ REPLACES = {
     loss_ops.BLUR_KERNEL: "splatco_tpu/ops/losses.py:55",
     loss_ops.MAP_FWD_KERNEL: "splatco_tpu/ops/losses.py:109",
     loss_ops.MAP_BWD_KERNEL: "splatco_tpu/ops/losses.py:109",
+    # the EWA projection: `covariance_cols` + `project_cols` and their
+    # jax.grad, all XLA
+    projection_ops.FWD_KERNEL: "splatco_tpu/ops/projection.py:170",
+    projection_ops.BWD_KERNEL: "splatco_tpu/ops/projection.py:170",
 }
 SAMPLER = (plane_sample.FWD_KERNEL, plane_sample.BWD_KERNEL)
 BINNING = (*binning.KERNELS, REDUCE_KERNEL)
 SSIM = loss_ops.KERNELS
-XLA_STAGES = (*SAMPLER, *BINNING, *SSIM)
+PROJECTION = projection_ops.KERNELS
+XLA_STAGES = (*SAMPLER, *BINNING, *SSIM, *PROJECTION)
 # phase 14: the tools time each probe mode and ablation variant over this
 # many launches, after one checked launch and a warm-up
 PROBE_ITERS = 20
@@ -477,6 +503,23 @@ SSIM_CASES = (("a training view", (1, 3, HEIGHT, WIDTH), None),
 BLUR_WINDOWS = (1, 3, 31)
 SSIM_ITERS, SSIM_PLAIN_ITERS = 20, 3
 SSIM_FWD_OPS, SSIM_BWD_OPS = 17, 38
+# phase 23: the EWA projection's kernels held to their plain versions bit
+# for bit (the same float32 operations in the same order, --fmad=false,
+# IEEE division and square root) on frame 0's decoded gaussians (v2 and
+# v3 decode the same), a training step's view 0 with the cotangents the
+# step sent back, phase 16's iteration-45 state (capacity 131,072, its
+# padding rows included), the prefilter's anchors (the quick-start
+# model's and that state's) and crafted rows (`projection_crafted_cases`:
+# every degenerate case, NaN and inf included); the backward also with
+# zero cotangents and with none.  Each kernel timed over PROJ_ITERS
+# launches and its plain version over PROJ_PLAIN_ITERS.  The bounds count
+# 40 B of inputs a gaussian, 28 B of outputs (4 B radius only), 4 B a
+# cotangent sent and 40 B of gradients, and the plain versions'
+# elementwise operations a gaussian (torch.profiler counts 300 aten ops
+# in the forward, 721 in the backward, which recomputes the forward;
+# each one float32 or boolean operation a row)
+PROJ_ITERS, PROJ_PLAIN_ITERS = 20, 3
+PROJ_FWD_OPS, PROJ_BWD_OPS = 300, 721
 
 
 def random_projected_scene(n: int, seed: int, dev: torch.device):
@@ -567,6 +610,19 @@ def check_ssim(launches: dict, what: str, fwd=None, bwd=None):
         raise AssertionError(f"{what} launched SSIM's kernels {got} times, "
                              f"not for {(fwd, bwd)} forwards and backwards "
                              "(None: at least once)")
+
+
+def check_projection(launches: dict, what: str, fwd=None, bwd=None):
+    """The projection's kernels launched exactly `fwd` and `bwd` times in
+    `what`, or at least once where the count is None: `project_fwd` once
+    a prefilter (radius only) and once a render, `project_bwd` once a
+    render's backward."""
+    got = tuple(launches.get(k, 0) for k in PROJECTION)
+    if not all(g >= 1 if w is None else g == w
+               for g, w in zip(got, (fwd, bwd))):
+        raise AssertionError(f"{what} launched the projection's kernels "
+                             f"{got} times, not {(fwd, bwd)} (None: at "
+                             "least once)")
 
 
 def compare_kernel(binned, tiles_x, tiles_y, work=None, tile=TILE):
@@ -901,6 +957,8 @@ def train_phase(params, state, cfg, args, dev, tile16=False):
     # gate (forward; the step computes the gates when none are passed)
     check_ssim(launches, "training", n_steps * (MV + MV * (MV - 1) // 2),
                n_steps * MV)
+    # a view: the prefilter's and the render's forward, one backward
+    check_projection(launches, "training", 2 * MV * n_steps, MV * n_steps)
     return trainer, launches, step_ms
 
 
@@ -1043,6 +1101,7 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
     check_sampler(launches, "render_set", frames * planes_sampled(level), 0)
     check_binning(launches, "render_set")
     check_ssim(launches, "render_set", 0, 0)
+    check_projection(launches, "render_set", 2 * frames, 0)
 
     tiles_x, tiles_y = grid(tile16)
     with torch.inference_mode():
@@ -1344,8 +1403,10 @@ def probe_phase(dev):
                  for e in probes.BLEND_MODES})
     want.update({f"{raster_ablate.KERNEL}[{v}]": each
                  for v in raster_ablate.VARIANTS})
-    # the ablation tool bins its scene once, through the binning kernels
+    # the ablation tool projects its scene once and bins it once, through
+    # the projection's and the binning's kernels
     want.update({k: 1 for k in binning.KERNELS})
+    want[projection_ops.FWD_KERNEL] = 1
     if launches != want:
         raise AssertionError(f"the tools launched {launches}, not {want}")
     failed = [k for k, r in micro.items() if not r["ok"]]
@@ -1477,6 +1538,7 @@ def disk_phase(args, dev, card: str, scene_dir: str):
         check_sampler(launches, "render_sets", bwd=0)
         check_binning(launches, "render_sets")
         check_ssim(launches, "render_sets", 0, 0)
+        check_projection(launches, "render_sets", 2 * frames, 0)
 
         loaded, l_active, contractor, level, _ = load_trained(cfg,
                                                               device=dev)
@@ -1814,6 +1876,9 @@ def train_disk_phase(args, dev, card: str, scene_dir: str, model1: str):
         # consistency pair's gate (cached by camera pair) or an eval frame
         check_ssim(launches, "training from disk",
                    MV * steps + probe.loop_ssims, MV * steps)
+        # a view or an eval frame: a prefilter and a render
+        check_projection(launches, "training from disk",
+                         2 * want[kernels[0]], MV * steps)
         staged_view_checks(probe, tile)
         probe.raster.clear()
 
@@ -1932,6 +1997,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
     check_sampler(launches, "render_torch.py", bwd=0)
     check_binning(launches, "render_torch.py")
     check_ssim(launches, "render_torch.py", 0, 0)
+    check_projection(launches, "render_torch.py", 2 * DISK_VIEWS, 0)
 
     # 2. the metrics CLI with seeded LPIPS weights at VGG16's widths, each
     # test view recomputed on the CPU from the same PNG pixels
@@ -1984,6 +2050,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
           f"ms per {WIDTH}x{HEIGHT} image on the card (CUDA events, mean "
           f"of 3 after a warm-up) {json.dumps(metric_ms)}")
     check_ssim(metric_launches, "metrics_torch.py", bwd=0)
+    check_projection(metric_launches, "metrics_torch.py", 0, 0)
     for key, tol in METRIC_TOL.items():
         if not worst[key] <= tol:
             raise AssertionError(f"{key}: card and CPU differ by "
@@ -2018,6 +2085,7 @@ def eval_phase(args, dev, card: str, scene_dir: str, model_dir: str):
                   ORBIT_FRAMES * planes_sampled(level), 0)
     check_binning(orbit_launches, "the orbit")
     check_ssim(orbit_launches, "the orbit", 0, 0)
+    check_projection(orbit_launches, "the orbit", 2 * ORBIT_FRAMES, 0)
 
     # 4. the popping CLI with RAFT: seeded weights in the official layout
     pth = os.path.join(model_dir, "raft_random.pth")
@@ -2224,6 +2292,7 @@ def one_rank_phase(params, state, cfg, args, dev):
                              "single-device step")
     check_binning(launches, "18a's sharded steps")
     check_ssim(launches, "18a's sharded steps")
+    check_projection(launches, "18a's sharded steps")
     return launches, ms
 
 
@@ -2535,8 +2604,10 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
     check_sampler(launches_b, "18b's sharded steps")
     check_binning(launches_b, "18b's sharded steps")
     check_ssim(launches_b, "18b's sharded steps")
+    check_projection(launches_b, "18b's sharded steps")
     check_binning(launches_b16, "18b's 16 px sharded step")
     check_ssim(launches_b16, "18b's 16 px sharded step")
+    check_projection(launches_b16, "18b's 16 px sharded step")
     check_sampler(launches_b16, "18b's 16 px sharded step")
 
     loop = r0["loop"]
@@ -2579,6 +2650,7 @@ def sharded_phase(params, state, cfg, args, dev, card: str):
     check_sampler(launches_c, "18c's sharded steps")
     check_binning(launches_c, "18c's sharded steps")
     check_ssim(launches_c, "18c's sharded steps")
+    check_projection(launches_c, "18c's sharded steps")
     if not (delta < LOOP_TOL and sum(d[1][0] for d in loop["densify"]) > 0
             and loop["capacity"][0] == 2 * r0["small_capacity"]):
         raise AssertionError("the sharded loop left the single-device "
@@ -2824,9 +2896,12 @@ def viewer_phase(args, dev, card: str, tmp: str, scene_dir: str,
     check_sampler(launches, "the viewer run")
     check_binning(launches, "the viewer run")
     check_ssim(launches, "the viewer run")
+    check_projection(launches, "the viewer run")
     print(f"  phase 19a wall {time.perf_counter() - t_phase:.1f} s")
     for name in (kernels[0], *binning.KERNELS):
         launches[name] -= out["references"]
+    # a reference render's prefilter and render
+    launches[projection_ops.FWD_KERNEL] -= 2 * out["references"]
     return launches
 
 
@@ -2875,6 +2950,7 @@ def profile_cli_phase(args, card: str, tmp: str, scene_dir: str,
     check_sampler(launches, "--profile")
     check_binning(launches, "--profile")
     check_ssim(launches, "--profile")
+    check_projection(launches, "--profile")
     for rng in ("binning", "slot_reduce"):
         if not any(e.get("name") == rng for e in events):
             raise AssertionError(f"the trace does not name the {rng} "
@@ -2918,6 +2994,7 @@ def step_recon_phase(params, state, cfg, args, dev, card: str):
     check_sampler(launches, "the attribution")
     check_binning(launches, "the attribution")
     check_ssim(launches, "the attribution")
+    check_projection(launches, "the attribution")
     return launches
 
 
@@ -3003,6 +3080,7 @@ def hard_phase(dev, card: str, tmp: str):
         raise AssertionError(f"the quality run launched {launches}")
     check_binning(launches, "the quality run")
     check_ssim(launches, "the quality run")
+    check_projection(launches, "the quality run")
 
     cuda_lib.LAUNCHES.clear()
     t0 = time.perf_counter()
@@ -3983,6 +4061,319 @@ def ssim_launch_table(phase_launches: dict, scoring):
                                  "kernels")
 
 
+# ---------------------------------------------------------------------
+# phase 23: the EWA projection's kernels (ops/projection.py: project_fwd,
+# project_bwd)
+
+
+def projection_crafted_cases():
+    """The crafted rows phase 23 and the CPU tests hold the projection to,
+    as numpy float32: [(what, (means [N, 3], scales [N, 3], quats [N, 4],
+    viewmatrix [4, 4], projmatrix [4, 4], width, height, tan_fovx,
+    tan_fovy))].  The camera sits at the origin looking down +z (the view
+    matrix the identity, so t = p exactly): rows in front, on and behind
+    the near plane, at |tz| < 1e-8, with a zero quaternion, zero scales
+    (a padding row at capacity), NaN and infinite entries in each input,
+    and tx / tz, ty / tz exactly at and just past +-1.3 tan(fov).  The
+    second case's view matrix maps x and y alike (a singular view, W = H
+    and fovx = fovy), so M's rows are equal and a large gaussian's cov2D
+    has det == 0 exactly (the low pass is below its rounding)."""
+    fovx, width, height = 1.0, 64, 48
+    fovy = 2 * math.atan(math.tan(fovx / 2) * height / width)
+    tfx, tfy = math.tan(fovx / 2), math.tan(fovy / 2)
+    proj = projection_matrix(0.01, 100.0, fovx, fovy).T
+    eye = np.eye(4, dtype=np.float32)
+    limx, limy = np.float32(1.3 * tfx), np.float32(1.3 * tfy)
+    nan, inf = float("nan"), float("inf")
+    ok_s, ok_q = (0.05, 0.02, 0.01), (0.9, 0.1, -0.3, 0.2)
+    big_s = (0.6, 0.5, 0.4)
+    rows = [  # mean, scale, quat
+        ((0.1, -0.2, 3.0), ok_s, ok_q),
+        ((0.5, 0.3, 1.5), (0.2, 0.2, 0.2), (1.0, 0.0, 0.0, 0.0)),
+        ((0.0, 0.0, 0.1), ok_s, ok_q),                 # behind near
+        ((0.3, 0.1, -2.0), ok_s, ok_q),                # behind the camera
+        ((0.0, 0.0, 0.2), ok_s, ok_q),                 # on the near plane
+        ((0.2, 0.1, 0.0), ok_s, ok_q),                 # tz == 0
+        ((0.2, 0.1, 5e-9), ok_s, ok_q),                # |tz| < 1e-8
+        ((0.2, 0.1, -5e-9), ok_s, ok_q),
+        ((0.1, 0.1, 2.0), ok_s, (0.0, 0.0, 0.0, 0.0)),  # zero quaternion
+        ((0.1, 0.1, 2.0), (0.0, 0.0, 0.0), ok_q),      # zero scales
+        ((0.0, 0.0, 0.0), (0.0, 0.0, 0.0), (0.0, 0.0, 0.0, 0.0)),  # padding
+        # tx / tz, ty / tz at and just past the limits (large enough to
+        # reach the screen from there)
+        ((2 * limx, 0.1, 2.0), big_s, ok_q),
+        ((-2 * limx, 0.1, 2.0), big_s, ok_q),
+        ((0.1, 2 * limy, 2.0), big_s, ok_q),
+        ((0.1, -2 * limy, 2.0), big_s, ok_q),
+        ((np.nextafter(2 * limx, np.float32(9)), 0.1, 2.0), big_s, ok_q),
+        ((5.0, -4.0, 2.0), ok_s, ok_q),                # far outside
+        ((nan, 0.1, 2.0), ok_s, ok_q),
+        ((0.1, 0.1, nan), ok_s, ok_q),
+        ((inf, 0.1, 2.0), ok_s, ok_q),
+        ((0.1, 0.1, -inf), ok_s, ok_q),
+        ((0.1, 0.1, 2.0), (nan, 0.02, 0.01), ok_q),
+        ((0.1, 0.1, 2.0), (0.05, inf, 0.01), ok_q),
+        ((0.1, 0.1, 2.0), ok_s, (nan, 0.1, -0.3, 0.2)),
+        ((0.1, 0.1, 2.0), ok_s, (0.9, inf, -0.3, 0.2)),
+        ((0.1, 0.1, 2.0), ok_s, (inf, inf, 0.0, 0.0)),
+        ((0.1, 0.1, 2.0), (1e30, 1e30, 1e30), ok_q),   # cov2D overflows
+    ]
+    cols = [np.array([r[k] for r in rows], np.float32) for k in range(3)]
+    singular = np.eye(4, dtype=np.float32)
+    singular[0, 1], singular[1, 1] = 1.0, 0.0
+    tf = math.tan(0.5)
+    big = np.array([[0.1, 0.3, 2.0], [0.0, 0.2, 3.0], [0.3, -0.1, 1.0]],
+                   np.float32)
+    return [("crafted rows", (*cols, eye, eye @ proj, width, height, tfx,
+                              tfy)),
+            ("det == 0 under a singular view",
+             (big, np.full((3, 3), 1e4, np.float32),
+              np.tile(np.float32([0.7, 0.1, 0.5, -0.5]), (3, 1)), singular,
+              singular @ projection_matrix(0.01, 100.0, 1.0, 1.0).T, 64, 64,
+              tf, tf))]
+
+
+def projection_inputs(fn):
+    """Runs fn() with `projection.project_fwd` and `project_bwd` wrapped:
+    {"inputs": the first full forward's inputs (means, scales, quats, the
+    matrices and the geometry)} and, if fn takes a backward, "backward":
+    the first backward's (six cotangents, inputs), all copied."""
+    seen = {}
+    fwd0, bwd0 = projection_ops.project_fwd, projection_ops.project_bwd
+
+    def copied(args):
+        return tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+
+    def fwd(*args, radius_only=False):
+        if not radius_only:
+            seen.setdefault("inputs", copied(args))
+        return fwd0(*args, radius_only=radius_only)
+
+    def bwd(cots, *args):
+        seen.setdefault("backward", (copied(cots), copied(args)))
+        return bwd0(cots, *args)
+
+    projection_ops.project_fwd, projection_ops.project_bwd = fwd, bwd
+    try:
+        fn()
+    finally:
+        projection_ops.project_fwd, projection_ops.project_bwd = fwd0, bwd0
+    return seen
+
+
+def rendered_projection(params, active, contractor, cam, cfg, level: int):
+    """The projection's inputs of a `render` of this state and camera,
+    and the prefilter's (the anchors, their base scales as the strided
+    [:, :3] slice the prefilter passes, their normalised rotations)."""
+    dev = active.device
+
+    def run():
+        with torch.inference_mode():
+            vis = prefilter_voxel(params["anchors"], active, cam)
+            render(params, active, contractor, cam, torch.zeros(3, device=dev),
+                   visible_mask=vis, activate_level=level,
+                   **decode_kwargs(cfg))
+    geom = (cam.world_view_transform, cam.full_proj_transform,
+            cam.image_width, cam.image_height, cam.tan_fovx, cam.tan_fovy)
+    anchors = params["anchors"]
+    prefilter = (anchors["anchor"], torch.exp(anchors["scaling"])[:, :3],
+                 normalize(anchors["rotation"], eps=1e-12), *geom)
+    return projection_inputs(run)["inputs"], prefilter
+
+
+def seeded_cotangents(n: int, seed: int, dev):
+    """The cotangents a render's backward sends: mx, my and the conic's,
+    seeded; none for the depth."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    g = [torch.randn(n, generator=gen, device=dev) for _ in range(5)]
+    return (g[0], g[1], None, g[2], g[3], g[4])
+
+
+def projection_bytes(n: int, cots=None) -> int:
+    """Bytes a launch must move: the forward's 40 B in and 28 B out a
+    gaussian (4 B out radius only, cots "radius"); the backward's inputs,
+    the cotangents sent and 40 B of gradients."""
+    if cots is None:
+        return 68 * n
+    if cots == "radius":
+        return 44 * n
+    return (80 + 4 * sum(g is not None for g in cots)) * n
+
+
+def projection_case(what, inputs, cots_sets, timed: bool):
+    """23a on one case: the forward, full and radius only, twice against
+    its plain version, and the backward twice against
+    `_project_bwd_plain` with each set of `cots_sets` (name -> six [N]
+    cotangents, None for zeros), all bit for bit; when `timed`, each
+    kernel, its plain version and its bound (the backward with the
+    first set).  Returns {name: numbers}."""
+    means, scales, quats, vm, pm, *geom = inputs
+    fwd = projection_ops.project_fwd
+    bwd = projection_ops.project_bwd
+    got = fwd(*inputs)
+    results = {"project_fwd": (
+        bits_equal(got, fwd(*inputs))
+        and bits_equal(got, projection_ops._project_fwd_plain(*inputs)))}
+    results["project_fwd[radius]"] = bits_equal(
+        fwd(*inputs, radius_only=True), got[6])
+    for name, cots in cots_sets.items():
+        a, b = bwd(cots, *inputs), bwd(cots, *inputs)
+        want = projection_ops._project_bwd_plain(cots, *inputs)
+        results[f"project_bwd[{name}]"] = all(
+            bits_equal(x, y) and bits_equal(x, z)
+            for x, y, z in zip(a, b, want))
+    torch.cuda.synchronize()
+    n = means.shape[0]
+    print(f"23a. {what} ({n} gaussians): bit for bit {json.dumps(results)}")
+    if not all(results.values()):
+        raise AssertionError(f"the projection's kernels differ from their "
+                             f"plain versions on {what}")
+    if not timed:
+        return {}
+    cots = next(iter(cots_sets.values()))
+    runs = {
+        projection_ops.FWD_KERNEL: (
+            lambda: fwd(*inputs),
+            lambda: projection_ops._project_fwd_plain(*inputs),
+            bound(projection_bytes(n), PROJ_FWD_OPS * n)),
+        f"{projection_ops.FWD_KERNEL}[radius]": (
+            lambda: fwd(*inputs, radius_only=True),
+            lambda: projection_ops._project_fwd_plain(*inputs,
+                                                      radius_only=True),
+            bound(projection_bytes(n, "radius"), PROJ_FWD_OPS * n)),
+        projection_ops.BWD_KERNEL: (
+            lambda: bwd(cots, *inputs),
+            lambda: projection_ops._project_bwd_plain(cots, *inputs),
+            bound(projection_bytes(n, cots), PROJ_BWD_OPS * n)),
+    }
+    numbers = {}
+    for name, (kernel, plain, bnd) in runs.items():
+        out, ref = kernel(), plain()
+        err = max(float((x - y).abs().nan_to_num(0.0).max())
+                  for x, y in zip(out if isinstance(out, tuple) else (out,),
+                                  ref if isinstance(ref, tuple) else (ref,)))
+        ms = cuda_time_ms(kernel, PROJ_ITERS)
+        plain_ms = cuda_time_ms(plain, PROJ_PLAIN_ITERS)
+        numbers[name] = {"err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound": bnd, "library_ms": None}
+        print(f"23b. {name} on {what} ({n} gaussians): max |kernel - "
+              f"plain| {err:.3e}, kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+    return numbers
+
+
+def projection_phase(dev, card: str, seed: int, params, state, cfg, cams,
+                     model_dir: str):
+    """Phase 23a-b: the projection's kernels against their plain versions
+    on the card, bit for bit, on frame 0 of the quick-start model (and the
+    prefilter's anchors), a training step's view 0 with the step's
+    cotangents, phase 16's iteration-45 state (and its anchors) and the
+    crafted cases; each kernel timed on that state and on frame 0 beside
+    its bound and its plain version (no one PyTorch call computes it).
+    Returns each kernel's numbers (phase 16's state first, every timed
+    case in `modes`)."""
+    t_phase = time.perf_counter()
+    frame0, anchors0 = rendered_projection(params, state.active,
+                                           state.contractor, cams[0], cfg, 2)
+    trainer = Trainer(params, state, cfg, seed, dev)
+    step_cots, step_inputs = projection_inputs(trainer.step)["backward"]
+    del trainer
+    tree, meta = load_train_state(model_dir, TRAIN_CKPT, device=dev)
+    contractor = Contractor(
+        xyz_min=torch.tensor(meta["contractor_min"], device=dev),
+        xyz_max=torch.tensor(meta["contractor_max"], device=dev),
+        enabled=bool(meta["contractor_enabled"]))
+    cam16 = orbit_camera(0, DISK_VIEWS, width=WIDTH, height_px=HEIGHT,
+                         device=dev)
+    state16, anchors16 = rendered_projection(
+        tree["params"], tree["active"].bool(), contractor, cam16,
+        load_run_config(model_dir)[0], 0)
+    del tree
+
+    def cots_sets(inputs, first):
+        n = inputs[0].shape[0]
+        zeros = torch.zeros(n, device=dev)
+        return {**first, "zero": (zeros,) * 6, "none": (None,) * 6}
+
+    n16 = state16[0].shape[0]
+    cases = [
+        (f"phase 16's iteration-{TRAIN_CKPT} state", state16,
+         cots_sets(state16, {"seeded": seeded_cotangents(n16, seed, dev)}),
+         True),
+        ("frame 0 (v2 and v3 decode the same)", frame0,
+         cots_sets(frame0, {"seeded": seeded_cotangents(
+             frame0[0].shape[0], seed, dev)}), True),
+        ("a training step's view (its first backward)", step_inputs,
+         cots_sets(step_inputs, {"the step's": step_cots}), True),
+        ("the quick-start model's anchors (prefilter)", anchors0,
+         cots_sets(anchors0, {"seeded": seeded_cotangents(
+             anchors0[0].shape[0], seed, dev)}), False),
+        (f"phase 16's iteration-{TRAIN_CKPT} anchors (prefilter)", anchors16,
+         cots_sets(anchors16, {"seeded": seeded_cotangents(
+             anchors16[0].shape[0], seed, dev)}), False),
+    ]
+    for what, arrays in projection_crafted_cases():
+        inputs = (*(torch.from_numpy(a).to(dev) for a in arrays[:5]),
+                  *arrays[5:])
+        n = arrays[0].shape[0]
+        cases.append((what, inputs, cots_sets(inputs, {
+            "seeded": seeded_cotangents(n, seed, dev),
+            "all six": tuple(torch.randn(n, generator=torch.Generator(
+                device=dev).manual_seed(seed + k), device=dev)
+                for k in range(6))}), False))
+    modes = {}
+    for what, inputs, cots, timed in cases:
+        for name, rec in projection_case(what, inputs, cots, timed).items():
+            modes.setdefault(name, {})[what] = rec
+    # the prefilter's radius-only launch at its own sizes
+    for what, inputs in (("the quick-start model's anchors", anchors0),
+                         (f"phase 16's iteration-{TRAIN_CKPT} anchors",
+                          anchors16)):
+        n = inputs[0].shape[0]
+        bnd = bound(projection_bytes(n, "radius"), PROJ_FWD_OPS * n)
+        ms = cuda_time_ms(lambda: projection_ops.project_fwd(
+            *inputs, radius_only=True), PROJ_ITERS)
+        plain_ms = cuda_time_ms(lambda: projection_ops._project_fwd_plain(
+            *inputs, radius_only=True), PROJ_PLAIN_ITERS)
+        modes[f"{projection_ops.FWD_KERNEL}[radius]"][what] = {
+            "err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound": bnd,
+            "library_ms": None}
+        print(f"23b. {projection_ops.FWD_KERNEL}[radius] on {what} ({n} "
+              f"anchors, the prefilter's): kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bnd[0]:.5f} ms ({bnd[1]})")
+    numbers = {}
+    for name in PROJECTION:
+        first = modes[name][cases[0][0]]
+        numbers[name] = {**first, "modes": {
+            what: {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                   "bound_ms": r["bound"][0], "max_abs_err": r["err"]}
+            for what, r in modes[name].items()}}
+    numbers[projection_ops.FWD_KERNEL]["modes"].update({
+        f"radius only, {what}": {"ms": r["ms"], "plain_ms": r["plain_ms"],
+                                 "bound_ms": r["bound"][0],
+                                 "max_abs_err": r["err"]}
+        for what, r in modes[f"{projection_ops.FWD_KERNEL}[radius]"].items()})
+    print(f"  phase 23a-b wall {time.perf_counter() - t_phase:.1f} s "
+          f"({card})")
+    return numbers
+
+
+def projection_launch_table(phase_launches: dict, training):
+    """23c: the projection's kernels' launches on each phase's main path
+    (each phase's own `check_projection` held them); every phase
+    projected through the kernel, and every phase in `training` took its
+    backward through the other."""
+    table = {phase: {k: launches.get(k, 0) for k in PROJECTION}
+             for phase, launches in phase_launches.items()}
+    print(f"23c. the projection's kernels' launches on each phase's main "
+          f"path: {json.dumps(table)}")
+    for phase, got in table.items():
+        if not got[projection_ops.FWD_KERNEL] or (
+                phase in training and not got[projection_ops.BWD_KERNEL]):
+            raise AssertionError(f"{phase} did not project through the "
+                                 "kernels")
+
+
 def entry(name, launches, numbers):
     """One kernel's record of the `kernels` line; a kernel with modes
     also lists each mode's numbers."""
@@ -4106,6 +4497,10 @@ def main() -> int:
         # inputs, phase 16's trained state and a hot tile
         binning_numbers = binning_phase(dev, smi, args.seed, params, state,
                                         cfg, cams, model_dir)
+        # 23. the projection's kernels on the main paths' inputs, a
+        # step's cotangents, phase 16's trained state and crafted rows
+        projection_numbers = projection_phase(dev, smi, args.seed, params,
+                                              state, cfg, cams, model_dir)
 
     # 18. the sharded step: a 1x1 mesh over NCCL, four ranks on the card
     sharded_launches = sharded_phase(params, state, cfg, args, dev, smi)
@@ -4126,6 +4521,10 @@ def main() -> int:
     ssim_launch_table(phase_launches, (
         "7 training v2", "13 training v3", "16 train_torch.py",
         "17 evaluation", "19 viewer, --profile, attribution, hard protocol",
+        "18 sharded steps"))
+    projection_launch_table(phase_launches, (
+        "7 training v2", "13 training v3", "16 train_torch.py",
+        "19 viewer, --profile, attribution, hard protocol",
         "18 sharded steps"))
     print(json.dumps({"kernels": [
         entry(KERNEL, fwd["launches"].get(KERNEL, 0)
@@ -4158,6 +4557,8 @@ def main() -> int:
                 binning_numbers[name]) for name in BINNING),
         *(entry(name, sum(p.get(name, 0) for p in phases),
                 ssim_numbers[name]) for name in SSIM),
+        *(entry(name, sum(p.get(name, 0) for p in phases),
+                projection_numbers[name]) for name in PROJECTION),
     ]}))
     print(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"ok": True, "device": {

@@ -39,7 +39,8 @@ from splatco_torch.models.renderer import (BACKENDS, generate_neural_gaussians,
 from splatco_torch.models.splatco import decode_kwargs
 from splatco_torch.models.triplane import tv_loss
 from splatco_torch.ops.losses import masked_ssim
-from splatco_torch.ops.projection import covariance_cols, project_cols
+from splatco_torch.ops.projection import (project_gaussians,
+                                          visible_radius_mask)
 from splatco_torch.parallel.collectives import (all_gather, all_reduce_sum,
                                                 fold_sum, gather_parts)
 from splatco_torch.parallel.mesh import Mesh
@@ -134,13 +135,12 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizationConfig,
         # the anchor prefilter with the view's true geometry
         anch = leaves["anchors"]
         with torch.no_grad():
-            pre = project_cols(
-                anch["anchor"],
-                covariance_cols(torch.exp(anch["scaling"])[:, :3],
-                                normalize(anch["rotation"], eps=1e-12)),
+            pre = visible_radius_mask(
+                anch["anchor"], torch.exp(anch["scaling"])[:, :3],
+                normalize(anch["rotation"], eps=1e-12),
                 cam.world_view_transform, cam.full_proj_transform, tw, th,
                 tfx, tfy)
-        vis = (pre.radius > 0) & active
+        vis = pre & active
         g = generate_neural_gaussians(
             leaves, contractor, cam, vis, activate_level=activate_level,
             q_noise=q_noise, generator=generator, group=mesh.gauss_group,
@@ -158,10 +158,9 @@ def make_sharded_train_step(cfg: ModelConfig, opt: OptimizationConfig,
         # projected with the true view size (the NDC -> pixel map must not
         # see the padded canvas), then shifted into this strip's frame;
         # the proxy rides on the global screen-space means
-        proj = project_cols(cols["xyz"],
-                            covariance_cols(cols["scaling"], cols["rot"]),
-                            cam.world_view_transform,
-                            cam.full_proj_transform, tw, th, tfx, tfy)
+        proj = project_gaussians(cols["xyz"], cols["scaling"], cols["rot"],
+                                 cam.world_view_transform,
+                                 cam.full_proj_transform, tw, th, tfx, tfy)
         radius = torch.where(opacity > 0.0, proj.radius, 0.0)
         sproj = proj._replace(
             mx=proj.mx + proxy[:, 0],

@@ -41,7 +41,14 @@ image and NaN and infinite pixels, the blur also at 1, 3 and 31 taps, and
 so do `ssim` and `masked_ssim` with their gradients; every training step
 above launches them once a view and once a consistency pair's gate
 forward and once a view backward, and the trainer once an eval frame;
-the cotangent a step sends back to the map is dense.
+the cotangent a step sends back to the map is dense.  The EWA
+projection's kernels (ops/projection.py: the forward, full and radius
+only, and the hand-written VJP) equal their plain versions bit for bit
+on chip_smoke.py's crafted rows (NaN and inf included; det == 0 under a
+singular view) and a seeded scene, with the render's five cotangents,
+all six, zeros and none; a training step projects in three launches a
+view (the prefilter's and the render's forward, one backward) and its
+result equals the same step through the plain versions bit for bit.
 """
 import collections
 import dataclasses
@@ -64,6 +71,7 @@ from splatco_torch.models.splatco import decode_kwargs, init_model
 from splatco_torch.ops import (binning, cuda_lib, flip, lpips, plane_sample,
                                probes, raster_ablate, raster_v3)
 from splatco_torch.ops import losses
+from splatco_torch.ops import projection
 from splatco_torch.ops.binning import TILE, bin_gaussians
 from splatco_torch.ops.projection import ProjectedCols
 from splatco_torch.ops.rasterize import (REDUCE_KERNEL, bin_frame,
@@ -93,6 +101,16 @@ def ssim_launches(fwd: int, bwd: int) -> dict:
     backwards (a map VJP and a blur each)."""
     return {losses.BLUR_KERNEL: fwd + bwd, losses.MAP_FWD_KERNEL: fwd,
             losses.MAP_BWD_KERNEL: bwd}
+
+
+def projection_launches(views: int, backwards: int) -> dict:
+    """The projection's kernels for `views` rendered views (each a
+    prefilter's radius-only forward and a render's forward) and
+    `backwards` render backwards."""
+    out = {projection.FWD_KERNEL: 2 * views}
+    if backwards:
+        out[projection.BWD_KERNEL] = backwards
+    return out
 BWD_TOL = 1e-5  # of each row's max |value|: pixel sums in another order
 
 
@@ -359,12 +377,13 @@ def check_step(dev, tile16):
     cuda_lib.LAUNCHES.clear()
     first = toy_step(dev, tile16)
     # SSIM: one a view and one for the pair's gate forward, one a view
-    # backward
+    # backward; the projection: 3 launches a view
     assert dict(cuda_lib.LAUNCHES) == {**{name: 2 for name in kernels},
                                        plane_sample.FWD_KERNEL: 6,
                                        plane_sample.BWD_KERNEL: 6,
                                        **{name: 2 for name in BINNING},
-                                       **ssim_launches(3, 2)}
+                                       **ssim_launches(3, 2),
+                                       **projection_launches(2, 2)}
     second = toy_step(dev, tile16)
     for a, b in zip(leaves(first[:3]), leaves(second[:3])):
         assert torch.equal(a, b)
@@ -499,7 +518,8 @@ def test_render_sets_from_disk_matches_in_memory(card, tmp_path):
     assert dict(cuda_lib.LAUNCHES) == {FWD_KERNELS[TILE]: 9,
                                        plane_sample.FWD_KERNEL: 9 * 12,
                                        **{name: 9 for name in
-                                          binning.KERNELS}}
+                                          binning.KERNELS},
+                                       **projection_launches(9, 0)}
     cam = sc.test_cameras()[0]
     with torch.inference_mode():
         vis = prefilter_voxel(params["anchors"], active, cam)
@@ -562,7 +582,9 @@ def test_trainer_on_the_card_resumes_bit_for_bit(card, tmp_path):
         REDUCE_KERNEL: 2 * 20,
         # SSIM: a view a step, a gate a camera pair (cached), an eval frame
         **ssim_launches(2 * 20 + len(straight._gate_cache) + frames,
-                        2 * 20)}
+                        2 * 20),
+        # the projection: a prefilter and a render a view and an eval frame
+        **projection_launches(2 * 20 + frames, 2 * 20)}
     assert any("densify_grown" in m for m in log)
     psnr = [m["test_psnr"] for m in log if "test_psnr" in m]
     assert psnr[1] > psnr[0]
@@ -830,3 +852,72 @@ def test_ssim_and_masked_ssim_match_plain(card, case, monkeypatch):
     for g, w in zip(got, want):
         for x, y in zip(g, w):
             assert same_bits(x, y)
+
+
+def projection_cases():
+    """(name, inputs): chip_smoke.py's crafted cases and a seeded scene of
+    20,000 gaussians around the origin seen from 96x64."""
+    from chip_smoke import projection_crafted_cases
+    cases = list(projection_crafted_cases())
+    rng = np.random.default_rng(21)
+    n = 20_000
+    cam = look_at_camera([0.3, 0.2, -3.0], [0, 0, 0], [0, -1, 0], 1.1, 0.8,
+                         96, 64, device="cpu")
+    cases.append(("seeded", (
+        rng.normal(size=(n, 3)).astype(np.float32),
+        np.exp(rng.normal(-3, 1, size=(n, 3))).astype(np.float32),
+        rng.normal(size=(n, 4)).astype(np.float32),
+        cam.world_view_transform.numpy(), cam.full_proj_transform.numpy(),
+        96, 64, cam.tan_fovx, cam.tan_fovy)))
+    return cases
+
+
+@pytest.mark.parametrize("case", range(3), ids=["crafted", "det0",
+                                                "seeded"])
+def test_projection_kernels_match_plain(card, case):
+    """project_fwd (full and radius only) and project_bwd (the render's
+    five cotangents, all six, zeros, none) launch once a call and equal
+    their plain versions bit for bit, NaN and inf rows included; two
+    launches agree."""
+    name, arrays = projection_cases()[case]
+    inputs = (*(torch.from_numpy(a).to(card) for a in arrays[:5]),
+              *arrays[5:])
+    n = arrays[0].shape[0]
+    gen = torch.Generator(device=card).manual_seed(case)
+    six = [torch.randn(n, generator=gen, device=card) for _ in range(6)]
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    got = projection.project_fwd(*inputs)
+    assert same_bits(got, projection.project_fwd(*inputs))
+    assert same_bits(got, projection._project_fwd_plain(*inputs))
+    assert same_bits(projection.project_fwd(*inputs, radius_only=True),
+                     got[6])
+    for cots in ((*six[:2], None, *six[3:]), six, (torch.zeros(n,
+                                                               device=card),)
+                 * 6, (None,) * 6):
+        a = projection.project_bwd(cots, *inputs)
+        b = projection.project_bwd(cots, *inputs)
+        want = projection._project_bwd_plain(cots, *inputs)
+        for x, y, z in zip(a, b, want):
+            assert same_bits(x, y) and same_bits(x, z)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES - before == {projection.FWD_KERNEL: 3,
+                                          projection.BWD_KERNEL: 8}
+
+
+def test_train_step_projects_in_three_launches_a_view(card, monkeypatch):
+    """A training step's projection is the prefilter's and the render's
+    forward and one backward a view, and its gradients equal the same
+    step's through the plain versions on the card bit for bit."""
+    cuda_lib.LAUNCHES.clear()
+    got = toy_step(card, False)
+    launched = {k: cuda_lib.LAUNCHES[k] for k in projection.KERNELS}
+    assert launched == projection_launches(2, 2)
+    monkeypatch.setattr(projection, "project_fwd",
+                        projection._project_fwd_plain)
+    monkeypatch.setattr(projection, "project_bwd",
+                        projection._project_bwd_plain)
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    want = toy_step(card, False)
+    assert all(cuda_lib.LAUNCHES[k] == before[k] for k in projection.KERNELS)
+    for a, b in zip(leaves(got[:3]), leaves(want[:3])):
+        assert torch.equal(a, b)

@@ -49,10 +49,11 @@ COMBINED = frozenset({"ssim", "consistency", "tv", "sreg", "stats"})
 # by `step_digest` with the step of the commit before `disable` existed,
 # with the tri-plane sampler of ops/plane_sample.py in it (whose backward
 # sums each texel's entries exactly, as int64 under a power-of-two scale)
-# and the SSIM map's hand-written VJP of ops/losses.py (the same
-# arithmetic as autograd's, rounded in another order)
+# and the hand-written VJPs of the SSIM map (ops/losses.py) and of the
+# EWA projection (ops/projection.py), each the same chain rule as
+# autograd's through the formula, rounded in another order
 DEFAULT_STEP_DIGEST = \
-    "2ff39b2757d4cd958a29638abbe35365d50ac5da03e99fb46d8ccc39bf679a56"
+    "85b758adac2e94a7ac52772a2d8d2ee6b90e43d30a2b15263b588e5fbceb93e4"
 
 
 @pytest.fixture(autouse=True)
