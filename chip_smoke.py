@@ -231,15 +231,19 @@ Run from the repository root.  Phases, each of which fails loudly:
      phase, exactly where the count is simple).  23a: each kernel launched
      twice against its plain version bit for bit (the forward full and
      radius only; the backward with the cotangents given and with zero
-     ones and none), on frame 0's decoded gaussians of the quick-start
+     ones, none and seeded ones zeroed on the culled rows, as a step
+     sends them), on frame 0's decoded gaussians of the quick-start
      model (v2 and v3 decode the same), a training step's view with the
      cotangents the step sent back, phase 16's iteration-45 state
      (capacity 131,072, its padding rows included), the prefilter's
      anchors (the quick-start model's and that state's, the base scales
-     a strided slice) and crafted rows (`projection_crafted_cases`: behind
+     a strided slice), crafted rows (`projection_crafted_cases`: behind
      and on the near plane, |tz| < 1e-8, a zero quaternion, zero scales,
      NaN and infinite inputs, tx / tz and ty / tz exactly at the frustum
-     limits, det == 0 under a singular view).  23b: each kernel timed at
+     limits, det == 0 under a singular view) and seeded rows at ragged
+     sizes, contiguous and as views 1 and 3 rows into larger tensors
+     (`projection_ragged_cases`: bases 4 and 12 B past 16 B).  23b: each
+     kernel timed at
      phase 16's state, frame 0 and the step's view beside its bound and
      its plain version (no one PyTorch call computes it), the radius-only
      launch also at the prefilter's sizes.  23c: the two kernels'
@@ -4133,6 +4137,54 @@ def projection_crafted_cases():
               tf, tf))]
 
 
+# 23a's ragged sizes (1, 3, a block less, at and past 128 and 256 rows)
+# and the row offsets of its views into larger tensors
+PROJ_RAGGED_N = (1, 3, 127, 128, 129, 255, 256, 257, 4097)
+PROJ_VIEW_OFFSETS = (0, 1, 3)
+
+
+def rows_at_offset(arrays, offset: int, dev):
+    """Each row array [N, k] (numpy) copied into rows offset.. of a NaN
+    tensor [N + offset, k] on `dev`, and returned as the view of those
+    rows: contiguous, its storage offset offset·k floats."""
+    views = []
+    for a in arrays:
+        big = torch.full((a.shape[0] + offset, a.shape[1]), float("nan"),
+                         device=dev)
+        big[offset:] = torch.from_numpy(a).to(dev)
+        views.append(big[offset:])
+    return tuple(views)
+
+
+def projection_ragged_cases(dev, seed: int):
+    """[(what, inputs)]: seeded rows (means around the origin, scales
+    e^N(-3, 1), unnormalised quaternions) seen from 1600x1088, N in
+    PROJ_RAGGED_N, each as views PROJ_VIEW_OFFSETS rows into larger
+    tensors (means and scales 12 or 36 B in, quaternions 16 or 48)."""
+    cam = look_at_camera([0.3, 0.2, -3.0], [0, 0, 0], [0, -1, 0], 1.1, 0.8,
+                         WIDTH, HEIGHT, device=dev)
+    geom = (cam.world_view_transform, cam.full_proj_transform, WIDTH,
+            HEIGHT, cam.tan_fovx, cam.tan_fovy)
+    cases = []
+    for n in PROJ_RAGGED_N:
+        rng = np.random.default_rng(seed + n)
+        arrays = (rng.normal(size=(n, 3)).astype(np.float32),
+                  np.exp(rng.normal(-3, 1, size=(n, 3))).astype(np.float32),
+                  rng.normal(size=(n, 4)).astype(np.float32))
+        for offset in PROJ_VIEW_OFFSETS:
+            cases.append((f"N {n}, {offset} rows in",
+                          (*rows_at_offset(arrays, offset, dev), *geom)))
+    return cases
+
+
+def culled_cotangents(cots, inputs):
+    """`cots` zeroed on the rows the projection culls (radius 0), as a
+    training step's backward sends them; None stays None."""
+    radius = projection_ops.project_fwd(*inputs, radius_only=True)
+    return tuple(None if g is None else torch.where(radius > 0, g, 0.0)
+                 for g in cots)
+
+
 def projection_inputs(fn):
     """Runs fn() with `projection.project_fwd` and `project_bwd` wrapped:
     {"inputs": the first full forward's inputs (means, scales, quats, the
@@ -4293,7 +4345,9 @@ def projection_phase(dev, card: str, seed: int, params, state, cfg, cams,
     def cots_sets(inputs, first):
         n = inputs[0].shape[0]
         zeros = torch.zeros(n, device=dev)
-        return {**first, "zero": (zeros,) * 6, "none": (None,) * 6}
+        return {**first, "zero": (zeros,) * 6, "none": (None,) * 6,
+                "culled": culled_cotangents(
+                    seeded_cotangents(n, seed + 1, dev), inputs)}
 
     n16 = state16[0].shape[0]
     cases = [
@@ -4321,6 +4375,10 @@ def projection_phase(dev, card: str, seed: int, params, state, cfg, cams,
             "all six": tuple(torch.randn(n, generator=torch.Generator(
                 device=dev).manual_seed(seed + k), device=dev)
                 for k in range(6))}), False))
+    for what, inputs in projection_ragged_cases(dev, seed):
+        n = inputs[0].shape[0]
+        cases.append((what, inputs, cots_sets(inputs, {
+            "seeded": seeded_cotangents(n, seed, dev)}), False))
     modes = {}
     for what, inputs, cots, timed in cases:
         for name, rec in projection_case(what, inputs, cots, timed).items():

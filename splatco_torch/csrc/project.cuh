@@ -1,11 +1,12 @@
 // The EWA projection's arithmetic, shared by csrc/project_fwd.cu and
 // csrc/project_bwd.cu.  `forward` repeats, operation for operation, the
 // torch ops of `covariance_cols` and `project_cols`
-// (splatco_torch/ops/projection.py), and `vjp` those of
-// `_project_bwd_plain`, the hand-written VJP beside them.  The sources are
-// built with --fmad=false, so no multiply and add contract into one
-// rounding; `/` is IEEE round-to-nearest division and `sqrtf` IEEE square
-// root (no fast math), as torch's eager kernels compute them.
+// (splatco_torch/ops/projection.py), and `vjp_view` then `vjp_rotation`
+// those of `_project_bwd_plain`, the hand-written VJP beside them.  The
+// sources are built with --fmad=false, so no multiply and add contract
+// into one rounding; `/` is IEEE round-to-nearest division (`div_cot`
+// gives the same bits) and `sqrtf` IEEE square root (no fast math), as
+// torch's eager kernels compute them.
 //
 // The Python scalars of the formula meet float32 tensors and are rounded
 // to float32 there, as torch rounds a Python float (static_cast<float> of
@@ -57,6 +58,23 @@ __device__ __forceinline__ float xform(const float* m, int col, float p0,
   return ((p0 * m[col] + p1 * m[4 + col]) + p2 * m[8 + col]) + m[12 + col];
 }
 
+// a / b (IEEE) for a dividend that is often zero, a cotangent of a row
+// that gets no gradient: the division's fast path hands a zero dividend to
+// its slow path, so a zero over a nonzero or infinite divisor is given its
+// signed zero directly (the division sees a dividend of 1 there).  The
+// same bits as a / b for every a and b.
+__device__ __forceinline__ float div_cot(float a, float b) {
+  const bool zero = a == 0.0f && fabsf(b) > 0.0f;
+  // an opaque copy: the compiler would otherwise divide a itself, since q
+  // is not read where zero holds
+  float d = zero ? 1.0f : a;
+  asm("mov.f32 %0, %0;" : "+f"(d));
+  const float q = d / b;
+  return zero ? __uint_as_float((__float_as_uint(a) ^ __float_as_uint(b)) &
+                                0x80000000u)
+              : q;
+}
+
 // one gaussian's inputs
 struct Row {
   float p0, p1, p2;      // mean
@@ -82,11 +100,49 @@ __device__ __forceinline__ Row load_row(const float* __restrict__ means,
   return r;
 }
 
+// covariance_cols' normalised quaternion (w, x, y, z) = q / n, n =
+// clamp_min(|q|, 1e-12)
+struct Quat {
+  float n_raw, n, w, x, y, z;
+};
+
+__device__ __forceinline__ Quat normalise(float q0, float q1, float q2,
+                                          float q3) {
+  Quat u;
+  u.n_raw = sqrtf(((q0 * q0 + q1 * q1) + q2 * q2) + q3 * q3);
+  u.n = clamp_min(u.n_raw, k_norm_min());
+  u.w = q0 / u.n;
+  u.x = q1 / u.n;
+  u.y = q2 / u.n;
+  u.z = q3 / u.n;
+  return u;
+}
+
+// R of the normalised quaternion, r[row][col]
+struct Rot {
+  float r[3][3];
+};
+
+__device__ __forceinline__ Rot rotation(const Quat& u) {
+  const float w = u.w, x = u.x, y = u.y, z = u.z;
+  Rot m;
+  m.r[0][0] = 1.0f - 2.0f * (y * y + z * z);
+  m.r[0][1] = 2.0f * (x * y - w * z);
+  m.r[0][2] = 2.0f * (x * z + w * y);
+  m.r[1][0] = 2.0f * (x * y + w * z);
+  m.r[1][1] = 1.0f - 2.0f * (x * x + z * z);
+  m.r[1][2] = 2.0f * (y * z - w * x);
+  m.r[2][0] = 2.0f * (x * z - w * y);
+  m.r[2][1] = 2.0f * (y * z + w * x);
+  m.r[2][2] = 1.0f - 2.0f * (x * x + y * y);
+  return m;
+}
+
 // the forward's values the outputs and the VJP read
 struct Terms {
   // covariance_cols
-  float n_raw, n, w, x, y, z;
-  float r[3][3];
+  Quat u;
+  Rot m;
   float v0, v1, v2;
   float xx, xy, xz, yy, yz, zz;
   // project_cols
@@ -100,8 +156,9 @@ struct Terms {
 
 // Sigma = R diag(s^2) R^T's column (xx, ...) as `sig` adds it
 __device__ __forceinline__ float sig(const Terms& t, int a, int b) {
-  return ((t.v0 * t.r[a][0]) * t.r[b][0] + (t.v1 * t.r[a][1]) * t.r[b][1]) +
-         (t.v2 * t.r[a][2]) * t.r[b][2];
+  return ((t.v0 * t.m.r[a][0]) * t.m.r[b][0] +
+          (t.v1 * t.m.r[a][1]) * t.m.r[b][1]) +
+         (t.v2 * t.m.r[a][2]) * t.m.r[b][2];
 }
 
 // u^T Sigma w as `quad` adds it
@@ -117,23 +174,8 @@ __device__ __forceinline__ float quad(const Terms& t, const float* u,
 __device__ __forceinline__ Terms forward(const Row& in, const Camera& c) {
   Terms t;
   // covariance_cols: the normalised quaternion, R, Sigma's six columns
-  t.n_raw = sqrtf(((in.q0 * in.q0 + in.q1 * in.q1) + in.q2 * in.q2) +
-                  in.q3 * in.q3);
-  t.n = clamp_min(t.n_raw, k_norm_min());
-  t.w = in.q0 / t.n;
-  t.x = in.q1 / t.n;
-  t.y = in.q2 / t.n;
-  t.z = in.q3 / t.n;
-  const float w = t.w, x = t.x, y = t.y, z = t.z;
-  t.r[0][0] = 1.0f - 2.0f * (y * y + z * z);
-  t.r[0][1] = 2.0f * (x * y - w * z);
-  t.r[0][2] = 2.0f * (x * z + w * y);
-  t.r[1][0] = 2.0f * (x * y + w * z);
-  t.r[1][1] = 1.0f - 2.0f * (x * x + z * z);
-  t.r[1][2] = 2.0f * (y * z - w * x);
-  t.r[2][0] = 2.0f * (x * z - w * y);
-  t.r[2][1] = 2.0f * (y * z + w * x);
-  t.r[2][2] = 1.0f - 2.0f * (x * x + y * y);
+  t.u = normalise(in.q0, in.q1, in.q2, in.q3);
+  t.m = rotation(t.u);
   t.v0 = in.s0 * in.s0;
   t.v1 = in.s1 * in.s1;
   t.v2 = in.s2 * in.s2;
@@ -204,20 +246,30 @@ __device__ __forceinline__ float radius(const Terms& t, float mx, float my,
   return visible ? radius_f : 0.0f;
 }
 
-// The VJP's outputs for one gaussian
-struct Grads {
-  float p[3], s[3], q[4];
+// `_project_bwd_plain` for one gaussian, in two parts.  Zero through a
+// `where` branch not taken, `clamp`'s gradient inside the closed
+// interval, `clamp_min`'s where x >= min, nothing through `ceil` (the
+// radius).
+
+// the cotangents of Sigma's six columns (xx, xy, xz, yy, yz, zz)
+struct Cov3 {
+  float xx, xy, xz, yy, yz, zz;
 };
 
-// `_project_bwd_plain` for one gaussian: the cotangents of mx, my, depth
-// and the conic (a, b, c) to the gradients of its mean, scale and
-// quaternion.  Zero through a `where` branch not taken, `clamp`'s
-// gradient inside the closed interval, `clamp_min`'s where x >= min,
-// nothing through `ceil` (the radius).
-__device__ __forceinline__ Grads vjp(const Row& in, const Terms& t,
-                                     const Camera& c, float g_mx, float g_my,
-                                     float g_depth, float g_ca, float g_cb,
-                                     float g_cc) {
+// The first part's outputs: the mean's gradient and the cotangents of
+// Sigma's six columns
+struct ViewGrads {
+  float p[3];
+  Cov3 g;
+};
+
+// The cotangents of mx, my, depth and the conic (a, b, c) to the mean's
+// gradient and Sigma's, through `project_cols` (the forward's values t)
+__device__ __forceinline__ ViewGrads vjp_view(const Terms& t,
+                                              const Camera& c, float g_mx,
+                                              float g_my, float g_depth,
+                                              float g_ca, float g_cb,
+                                              float g_cc) {
   const float* vm = c.vm;
   const float* pm = c.pm;
   // the pixel means -> hx, hy, p_w -> hw
@@ -256,10 +308,9 @@ __device__ __forceinline__ Grads vjp(const Row& in, const Terms& t,
   float tt[3][3];  // T_ij = m0_i e_j + m1_i f_j
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j) tt[i][j] = t.m0[i] * e[j] + t.m1[i] * f[j];
-  const float g_xx = tt[0][0], g_yy = tt[1][1], g_zz = tt[2][2];
-  const float g_xy = tt[0][1] + tt[1][0];
-  const float g_xz = tt[0][2] + tt[2][0];
-  const float g_yz = tt[1][2] + tt[2][1];
+  ViewGrads out;
+  out.g = Cov3{tt[0][0], tt[0][1] + tt[1][0], tt[0][2] + tt[2][0],
+               tt[1][1], tt[1][2] + tt[2][1], tt[2][2]};
 
   // M's rows -> a0, a2, b1, b2 -> tx, ty, inv_z
   const float g_a0 = (g_m0[0] * vm[0] + g_m0[1] * vm[4]) + g_m0[2] * vm[8];
@@ -276,8 +327,8 @@ __device__ __forceinline__ Grads vjp(const Row& in, const Terms& t,
   // the clamp -> the view coordinates and safe_z
   const float g_qx = (t.qx >= -c.limx && t.qx <= c.limx) ? g_tx * t.tz : 0.0f;
   const float g_qy = (t.qy >= -c.limy && t.qy <= c.limy) ? g_ty * t.tz : 0.0f;
-  const float g_txv = g_qx / t.safe_z;
-  const float g_tyv = g_qy / t.safe_z;
+  const float g_txv = div_cot(g_qx, t.safe_z);
+  const float g_tyv = div_cot(g_qy, t.safe_z);
   const float g_safe_z = (-g_inv_z * (t.inv_z * t.inv_z) +
                           -g_qx * (t.qx / t.safe_z)) +
                          -g_qy * (t.qy / t.safe_z);
@@ -285,34 +336,41 @@ __device__ __forceinline__ Grads vjp(const Row& in, const Terms& t,
                      (fabsf(t.tz) < k_z_eps() ? 0.0f : g_safe_z);
 
   // the view and clip coordinates -> the mean
-  Grads out;
   for (int k = 0; k < 3; ++k)
     out.p[k] = ((((g_txv * vm[4 * k] + g_tyv * vm[4 * k + 1]) +
                   g_tz * vm[4 * k + 2]) +
                  g_hx * pm[4 * k]) +
                 g_hy * pm[4 * k + 1]) +
                g_hw * pm[4 * k + 3];
+  return out;
+}
 
+// Sigma's cotangents g to the gradients of the scale s (ds) and of the
+// quaternion q (dq), through `covariance_cols` (u, m: its normalised q
+// and R)
+__device__ __forceinline__ void vjp_rotation(const Quat& u, const Rot& m,
+                                             const float* s, const float* q,
+                                             const Cov3& g, float* ds,
+                                             float* dq) {
   // Sigma's columns -> v = s^2 and R
-  const float dxx = g_xx + g_xx, dyy = g_yy + g_yy, dzz = g_zz + g_zz;
-  const float v[3] = {t.v0, t.v1, t.v2};
-  const float s[3] = {in.s0, in.s1, in.s2};
+  const float dxx = g.xx + g.xx, dyy = g.yy + g.yy, dzz = g.zz + g.zz;
   float g_r[3][3];
   for (int k = 0; k < 3; ++k) {
-    const float c0 = t.r[0][k], c1 = t.r[1][k], c2 = t.r[2][k];
+    const float c0 = m.r[0][k], c1 = m.r[1][k], c2 = m.r[2][k];
     const float g_v =
-        ((((g_xx * (c0 * c0) + g_xy * (c0 * c1)) + g_xz * (c0 * c2)) +
-          g_yy * (c1 * c1)) +
-         g_yz * (c1 * c2)) +
-        g_zz * (c2 * c2);
-    out.s[k] = g_v * s[k] + g_v * s[k];
-    g_r[0][k] = v[k] * ((dxx * c0 + g_xy * c1) + g_xz * c2);
-    g_r[1][k] = v[k] * ((g_xy * c0 + dyy * c1) + g_yz * c2);
-    g_r[2][k] = v[k] * ((g_xz * c0 + g_yz * c1) + dzz * c2);
+        ((((g.xx * (c0 * c0) + g.xy * (c0 * c1)) + g.xz * (c0 * c2)) +
+          g.yy * (c1 * c1)) +
+         g.yz * (c1 * c2)) +
+        g.zz * (c2 * c2);
+    const float v = s[k] * s[k];
+    ds[k] = g_v * s[k] + g_v * s[k];
+    g_r[0][k] = v * ((dxx * c0 + g.xy * c1) + g.xz * c2);
+    g_r[1][k] = v * ((g.xy * c0 + dyy * c1) + g.yz * c2);
+    g_r[2][k] = v * ((g.xz * c0 + g.yz * c1) + dzz * c2);
   }
 
   // R -> the normalised quaternion (w, x, y, z)
-  const float w = t.w, x = t.x, y = t.y, z = t.z;
+  const float w = u.w, x = u.x, y = u.y, z = u.z;
   const float s01 = g_r[0][1] + g_r[1][0], s02 = g_r[0][2] + g_r[2][0];
   const float s12 = g_r[1][2] + g_r[2][1];
   const float d01 = g_r[1][0] - g_r[0][1], d02 = g_r[0][2] - g_r[2][0];
@@ -327,14 +385,13 @@ __device__ __forceinline__ Grads vjp(const Row& in, const Terms& t,
 
   // the normalisation q / clamp_min(|q|, 1e-12) -> q
   const float g_n =
-      -(((g_w * w + g_x * x) + g_y * y) + g_z * z) / t.n;
-  const float g_n_raw = t.n_raw >= k_norm_min() ? g_n : 0.0f;
-  const float g_sq = g_n_raw / (2.0f * t.n_raw);
-  out.q[0] = g_w / t.n + g_sq * (2.0f * in.q0);
-  out.q[1] = g_x / t.n + g_sq * (2.0f * in.q1);
-  out.q[2] = g_y / t.n + g_sq * (2.0f * in.q2);
-  out.q[3] = g_z / t.n + g_sq * (2.0f * in.q3);
-  return out;
+      div_cot(-(((g_w * w + g_x * x) + g_y * y) + g_z * z), u.n);
+  const float g_n_raw = u.n_raw >= k_norm_min() ? g_n : 0.0f;
+  const float g_sq = div_cot(g_n_raw, 2.0f * u.n_raw);
+  dq[0] = div_cot(g_w, u.n) + g_sq * (2.0f * q[0]);
+  dq[1] = div_cot(g_x, u.n) + g_sq * (2.0f * q[1]);
+  dq[2] = div_cot(g_y, u.n) + g_sq * (2.0f * q[2]);
+  dq[3] = div_cot(g_z, u.n) + g_sq * (2.0f * q[3]);
 }
 
 }  // namespace project

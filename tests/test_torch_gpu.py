@@ -46,7 +46,10 @@ projection's kernels (ops/projection.py: the forward, full and radius
 only, and the hand-written VJP) equal their plain versions bit for bit
 on chip_smoke.py's crafted rows (NaN and inf included; det == 0 under a
 singular view) and a seeded scene, with the render's five cotangents,
-all six, zeros and none; a training step projects in three launches a
+all six, zeros, none and seeded ones zeroed on the culled rows (as a
+step sends them), and the backward also at ragged sizes on rows that
+are views 1 and 3 rows into larger tensors; a training step projects in
+three launches a
 view (the prefilter's and the render's forward, one backward) and its
 result equals the same step through the plain versions bit for bit.
 """
@@ -59,6 +62,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import PROJ_RAGGED_N, PROJ_VIEW_OFFSETS, culled_cotangents
 from splatco_torch.config import (ModelConfig, OptimizationConfig,
                                   PipelineConfig)
 from splatco_torch.data.cameras import look_at_camera
@@ -891,16 +895,49 @@ def test_projection_kernels_match_plain(card, case):
     assert same_bits(got, projection._project_fwd_plain(*inputs))
     assert same_bits(projection.project_fwd(*inputs, radius_only=True),
                      got[6])
+    culled = culled_cotangents((*six[:2], None, *six[3:]), inputs)
     for cots in ((*six[:2], None, *six[3:]), six, (torch.zeros(n,
                                                                device=card),)
-                 * 6, (None,) * 6):
+                 * 6, (None,) * 6, culled):
         a = projection.project_bwd(cots, *inputs)
         b = projection.project_bwd(cots, *inputs)
         want = projection._project_bwd_plain(cots, *inputs)
         for x, y, z in zip(a, b, want):
             assert same_bits(x, y) and same_bits(x, z)
     torch.cuda.synchronize()
-    assert cuda_lib.LAUNCHES - before == {projection.FWD_KERNEL: 3,
+    assert cuda_lib.LAUNCHES - before == {projection.FWD_KERNEL: 4,
+                                          projection.BWD_KERNEL: 10}
+
+
+@pytest.mark.parametrize("offset", PROJ_VIEW_OFFSETS)
+@pytest.mark.parametrize("n", PROJ_RAGGED_N)
+def test_projection_bwd_ragged_and_misaligned(card, n, offset):
+    """project_bwd at ragged sizes (a block of 128 rows and less, at and
+    past 128 and 256 rows) on rows that are views 0, 1 and 3 rows into
+    larger tensors (bases 12 and 36 B in), with seeded, culled (zero on
+    the culled rows), zero and no cotangents: one launch a call, bit for
+    bit with `_project_bwd_plain`, two launches alike; the forward too."""
+    from chip_smoke import projection_ragged_cases
+    cases = dict(projection_ragged_cases(card, 7))
+    inputs = cases[f"N {n}, {offset} rows in"]
+    assert inputs[0].storage_offset() == 3 * offset
+    gen = torch.Generator(device=card).manual_seed(n)
+    seeded = tuple(None if k == 2 else torch.randn(n, generator=gen,
+                                                   device=card)
+                   for k in range(6))
+    culled = culled_cotangents(seeded, inputs)
+    before = collections.Counter(cuda_lib.LAUNCHES)
+    assert same_bits(projection.project_fwd(*inputs),
+                     projection._project_fwd_plain(*inputs))
+    for cots in (seeded, culled, (torch.zeros(n, device=card),) * 6,
+                 (None,) * 6):
+        a = projection.project_bwd(cots, *inputs)
+        b = projection.project_bwd(cots, *inputs)
+        want = projection._project_bwd_plain(cots, *inputs)
+        for x, y, z in zip(a, b, want):
+            assert same_bits(x, y) and same_bits(x, z)
+    torch.cuda.synchronize()
+    assert cuda_lib.LAUNCHES - before == {projection.FWD_KERNEL: 1,
                                           projection.BWD_KERNEL: 8}
 
 

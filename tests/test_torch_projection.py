@@ -5,7 +5,10 @@ runs for CPU tensors) against the JAX package's
 what `project_bwd` runs) against `jax.grad` and against autograd through
 the formula, the autograd Function `_Project`, the wrappers' refusals,
 and the call sites that must go through it: the prefilter, the render
-and the sharded step.
+and the sharded step.  chip_smoke.py's helpers for the card's cases
+(ragged sizes as views into larger tensors, culled cotangents) and the
+IEEE rule `project::div_cot` (csrc/project.cuh) relies on are checked
+here too.
 
 Inputs are seeded with numpy: a few thousand gaussians around the
 origin, N = 1 and N = 33, and chip_smoke.py's crafted rows (behind the
@@ -27,7 +30,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import projection_crafted_cases
+from chip_smoke import (PROJ_RAGGED_N, PROJ_VIEW_OFFSETS, culled_cotangents,
+                        projection_crafted_cases, projection_ragged_cases,
+                        rows_at_offset)
 from splatco_torch.config import ModelConfig, OptimizationConfig
 from splatco_torch.data import cameras as t_cam
 from splatco_torch.models.renderer import prefilter_voxel, render
@@ -300,6 +305,82 @@ def test_noncontiguous_inputs_are_made_contiguous():
     for a, b in zip(t_proj.project_bwd(cots, *args),
                     t_proj.project_bwd(cots, *want)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("offset", PROJ_VIEW_OFFSETS)
+def test_rows_at_offset_are_views_past_the_base(offset):
+    """chip_smoke.rows_at_offset, which gives the card's kernels bases 12
+    and 36 B into [N, 3] rows (16 and 48 into [N, 4]): contiguous views
+    `offset` rows into NaN tensors, holding the rows bit for bit."""
+    arrays = gaussians(5, 31)
+    for a, v in zip(arrays, rows_at_offset(arrays, offset,
+                                           torch.device("cpu"))):
+        k = a.shape[1]
+        assert v.is_contiguous() and v.storage_offset() == k * offset
+        assert v.data_ptr() - v.untyped_storage().data_ptr() == 4 * k * offset
+        np.testing.assert_array_equal(v.numpy(), a)
+        head = v.as_strided((offset, k), (k, 1), storage_offset=0)
+        assert bool(head.isnan().all())
+
+
+@pytest.mark.parametrize("offset", PROJ_VIEW_OFFSETS)
+@pytest.mark.parametrize("n", PROJ_RAGGED_N)
+def test_ragged_views_match_jax_and_their_copies(n, offset):
+    """chip_smoke's ragged cases (phase 23a and the card tests) on the
+    CPU: the wrappers take the views as they are, the forward agrees with
+    JAX's on the same rows, and the VJP on the views equals the VJP on
+    fresh copies bit for bit, with seeded and with culled cotangents."""
+    cases = dict(projection_ragged_cases(torch.device("cpu"), 7))
+    inputs = cases[f"N {n}, {offset} rows in"]
+    means, scales, quats, vm, pm, *geom = inputs
+    assert means.storage_offset() == 3 * offset
+    copies = (means.clone(), scales.clone(), quats.clone(), vm, pm, *geom)
+    assert copies[0].storage_offset() == 0
+    got = t_proj.project_fwd(*inputs)
+    assert torch.equal(got, t_proj.project_fwd(*copies))
+    want = j_project((means.numpy(), scales.numpy(), quats.numpy(),
+                      vm.numpy(), pm.numpy(), *geom))
+    assert_forward_close(want, t_proj.ProjectedCols(*got))
+    seeded = seeded_cots(n, n)
+    for cots in (seeded, culled_cotangents(seeded, inputs)):
+        for a, b in zip(t_proj.project_bwd(cots, *inputs),
+                        t_proj.project_bwd(cots, *copies)):
+            assert torch.equal(a, b)
+
+
+def test_culled_cotangents_zero_the_culled_rows():
+    """chip_smoke.culled_cotangents, the cotangents a step sends: zero
+    exactly where the radius is 0, unchanged elsewhere, None kept."""
+    arrays, inputs = crafted(0)
+    n = arrays[0].shape[0]
+    cots = seeded_cots(n, 17)
+    got = culled_cotangents(cots, inputs)
+    visible = t_proj._project_fwd_plain(*inputs, radius_only=True) > 0
+    assert 0 < int(visible.sum()) < n
+    assert got[2] is None
+    for g, c in zip(got, cots):
+        if c is not None:
+            assert torch.equal(g[visible], c[visible])
+            assert bool((g[~visible] == 0).all())
+
+
+def test_zero_dividend_is_the_signed_zero():
+    """What `project::div_cot` (csrc/project.cuh) relies on to give a zero
+    dividend its quotient without the division: IEEE 0 / b is the zero
+    with the sign of a XOR the sign of b for every nonzero or infinite b,
+    and NaN for b = 0 or NaN."""
+    tiny = float(np.finfo(np.float32).smallest_subnormal)
+    big = float(np.finfo(np.float32).max)
+    b = torch.tensor([tiny, 1e-30, 0.3, 1.0, 7.0, 1e30, big, math.inf, 0.0,
+                      math.nan], dtype=torch.float32)
+    b = torch.cat([b, -b])
+    nonzero = (b.abs() > 0).numpy()
+    for a in (0.0, -0.0):
+        q = (torch.full_like(b, a) / b).numpy()
+        sign = np.signbit(np.float32(a)) ^ np.signbit(b.numpy())
+        assert (q[nonzero] == 0).all()
+        np.testing.assert_array_equal(np.signbit(q[nonzero]), sign[nonzero])
+        assert np.isnan(q[~nonzero]).all()
 
 
 def test_wrappers_refuse():
