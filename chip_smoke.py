@@ -59,12 +59,18 @@ Run from the repository root.  Phases, each of which fails loudly:
      tools/profile_torch_kernel_v3.py driven through their `run`, with
      the launch counts of every probe mode and ablation variant exact;
      then each of those kernels against its plain version on the card
-     (the row sums, the fp32 cumsum, the accumulation and the ablation's
-     full / nostage / noaccum exactly or to the forward's bound; the
-     TF32 cumsum against a float64 cumsum; the alpha-sum probe on the
-     tool's inputs with row 2 made positive, since a negative row 2
-     overflows exp), the plain versions and the one-call library
-     versions (torch.cumsum, Tensor.add_) timed, and each kernel's bound.
+     (the row sums, the fp32 cumsum and the ablation's full / nostage /
+     noaccum exactly or to the forward's bound; the TF32 cumsum against
+     a float64 cumsum; the accumulation bit for bit and in place on
+     seeded views of 1 to 2^20 floats that start 0-3 floats into larger
+     buffers, at 0, 1, 4 and 5 steps; the alpha-sum probe bit for bit,
+     NaN where it is NaN, on the tool's inputs (inf and NaN sums), with
+     row 2 made positive, and on windows at the edges, below 0 and past
+     the width), the plain versions and the one-call library versions
+     (torch.cumsum, Tensor.add_) timed, the accumulation, add_ and an
+     empty launch (the launch floor) timed in turns, each kernel's
+     bound, the alpha-sum probe's with the exps on the special-function
+     unit at the SM's maximum clock (nvidia-smi).
  15. a scene on disk at full width: the port's `write_colmap_dataset`
      writes a COLMAP binary scene (16 views at 1600x1088, 65,536 points),
      `Scene` reads it onto the card (the ground-truth images must equal
@@ -325,7 +331,8 @@ from splatco_torch.train.optimizer import (group_schedules, label_params,
 from splatco_torch.train.step import init_stats, make_train_step
 from splatco_torch.utils.math import normalize, round_up
 from splatco_torch.utils.measure import (PEAK_FP32_PER_S, PEAK_TF32_PER_S,
-                                         bound, bwd_bound, cuda_time_ms,
+                                         SFU_PER_CLOCK_SM, SM_COUNT, bound,
+                                         bound_terms, bwd_bound, cuda_time_ms,
                                          fwd_bound)
 from splatco_torch.utils.synthetic import orbit_camera, write_colmap_dataset
 
@@ -392,9 +399,18 @@ PROBE_ITERS = 20
 # TF32's measured 1.9e-4, below the ~1.5e-3 of inputs rounded to bf16
 CUMSUM_FP32_TOL = 1e-6
 CUMSUM_TF32_TOL = 5e-4
+# the accumulation probe held bit for bit on seeded views of these sizes
+# that start (out, in) floats into larger buffers (equal offsets take
+# the 16 B path after a head, unequal ones go element by element), at
+# these step counts; then the kernel, add_ and an empty launch timed in
+# ACCUM_TURNS turns
+ACCUM_SIZES = (1, 3, 1023, 1024, 1025, 1 << 20)
+ACCUM_OFFSETS = ((0, 0), (1, 1), (2, 2), (3, 3), (1, 0), (2, 3))
+ACCUM_STEP_COUNTS = (0, 1, 4, 5)
+ACCUM_TURNS = 5
 # the alpha-sum probe repeats its plain version's float32 operations in
-# order, up to the library exp: held to 1e-6 of the max |value|
-BLEND_PROBE_TOL = 1e-6
+# order, and both take libdevice's expf (torch's CUDA exp): held to it
+# bit for bit, NaN where it is NaN
 # phase 15: the scene on disk (llffhold 8: views 0 and 8 are the test set)
 DISK_VIEWS, DISK_POINTS, DISK_ITERATION = 16, 65536, 30000
 # phase 16: train_torch.py on that scene, the README's quick-start flags
@@ -1219,10 +1235,75 @@ def window_columns(starts: np.ndarray) -> int:
     return int(np.unique(cols).size)
 
 
+def accum_case(n: int, offsets, seed: int, dev):
+    """Seeded views (out, in) of n floats that start offsets[0] and
+    offsets[1] floats into buffers 8 floats longer."""
+    rng = np.random.default_rng(seed)
+    return tuple(torch.as_tensor(rng.normal(size=n + 8).astype(np.float32),
+                                 device=dev)[o:o + n] for o in offsets)
+
+
+def accum_differs(out, inp, steps: int) -> list:
+    """What `probes.accumulate_(out, inp, steps)` changes that the plain
+    version does not: the view's bits, the buffer around the view, or
+    the buffer itself (not in place)."""
+    base, lo = out._base, out.storage_offset()
+    hi = lo + out.numel()
+    before = base.clone()
+    want = probes.accumulate_plain_(out.clone(), inp, steps)
+    ptr = out.data_ptr()
+    got = probes.accumulate_(out, inp, steps)
+    bad = [] if got.data_ptr() == ptr else ["not in place"]
+    if not same_floats(out, want):
+        bad.append("bits")
+    if not (same_floats(base[:lo], before[:lo])
+            and same_floats(base[hi:], before[hi:])):
+        bad.append("outside the view")
+    return bad
+
+
+def blend_cases(inp: dict, dev) -> dict:
+    """{case: (data, starts)} for the alpha-sum probe: the tool's inputs
+    (inf and NaN sums) and with row 2 made positive; seeded [16, 8320]
+    data (row 2 made positive) at windows with p % 128 = 0 / 127, the
+    last that fits, below 0 and at or past the width (columns outside
+    read 0), and one window alone."""
+    big = torch.as_tensor(inp["big"], device=dev)
+    pos = big.clone()
+    pos[2] = pos[2].abs()
+    st2 = torch.as_tensor(inp["st2"], device=dev)
+    data = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(probes.REC, 8320)).astype(np.float32), device=dev)
+    data[2] = data[2].abs()
+    w = data.shape[1]
+
+    def starts(*p):
+        return torch.tensor(p, dtype=torch.int32, device=dev)
+    return {
+        "the tool's inputs": (big, st2),
+        "the tool's inputs, |row 2|": (pos, st2),
+        "edge windows": (data, starts(0, 7, 127, 128, 255, 1000, 4096,
+                                      w - 257, w - 129, w - 128)),
+        "below 0": (data, starts(-1, -5, -127, -128, -129, -100_000,
+                                 -2 ** 31)),
+        "at or past the width": (data, starts(w - 1, w, w + 3, w + 200,
+                                              2 ** 31 - 1)),
+        "n = 1": (data, starts(1000)),
+    }
+
+
+def same_floats_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """NaN at the same positions, every other value bit for bit."""
+    nan = torch.isnan(b)
+    return (a.shape == b.shape and torch.equal(torch.isnan(a), nan)
+            and same_floats(a[~nan], b[~nan]))
+
+
 def probe_checks(micro, dev):
     """Phase 14, the probes of tools/micro_mosaic_torch.py: each kernel in
     each mode against its plain version on the card (launches not
-    counted), the plain versions (and torch.cumsum) timed, the bounds.
+    counted), the plain versions (and torch.cumsum) timed, the
+    accumulation, add_ and the launch floor timed in turns, the bounds.
     `micro` is the tool's run (its kernel times).  Returns {kernel: the
     numbers of its `kernels` entry}."""
     import micro_mosaic_torch as mm
@@ -1295,59 +1376,108 @@ def probe_checks(micro, dev):
         "modes": {m: {k: v for k, v in d.items() if k != "bound"}
                   for m, d in modes.items()}}
 
-    # 5c: accumulation in place
+    # 5c: accumulation in place, bit for bit on every case, then timed
     ones = torch.ones((8, 128), device=dev)
     got = probes.accumulate_(torch.zeros_like(ones), ones)
     want = probes.accumulate_plain_(torch.zeros_like(ones), ones)
-    if not (torch.equal(got, want) and bool((got == 2.0).all())):
+    if not (same_floats(got, want) and bool((got == 2.0).all())):
         raise AssertionError("the accumulation probe is not 2.0 everywhere")
+    for i, n in enumerate(ACCUM_SIZES):
+        for j, offsets in enumerate(ACCUM_OFFSETS):
+            for steps in ACCUM_STEP_COUNTS:
+                bad = accum_differs(*accum_case(n, offsets, 100 * i + j, dev),
+                                    steps)
+                if bad:
+                    raise AssertionError(
+                        f"{probes.ACCUM} at n {n}, offsets {offsets}, "
+                        f"{steps} steps: {bad}")
     buf = torch.zeros_like(ones)
+    # in turns: the kernel, one PyTorch call (on the zeroed buffer,
+    # out + 2 in is (out + in) + in) and an empty launch, the floor
+    turns = {"kernel": lambda: probes.accumulate_(buf, ones),
+             "add_": lambda: buf.add_(ones, alpha=probes.ACC_STEPS // 2),
+             "floor": lambda: torch.cuda._sleep(0)}
+    times = {k: [] for k in turns}
+    for _ in range(ACCUM_TURNS):
+        for k, fn in turns.items():
+            times[k].append(cuda_time_ms(fn, PROBE_ITERS))
+    med = {k: float(np.median(v)) for k, v in times.items()}
     res[probes.ACCUM] = {
-        "err": float((got - want).abs().max()), "ms": ms_of("accum"),
+        "err": float((got - want).abs().max()), "ms": med["kernel"],
         "plain_ms": cuda_time_ms(
             lambda: probes.accumulate_plain_(buf, ones), PROBE_ITERS),
-        # one call: on the zeroed buffer, out + 2 in is (out + in) + in
-        "library_ms": cuda_time_ms(
-            lambda: buf.add_(ones, alpha=probes.ACC_STEPS // 2), PROBE_ITERS),
+        "library_ms": med["add_"], "launch_floor_ms": med["floor"],
+        "turns_ms": times,
         "bound": bound(3 * 4 * ones.numel(), probes.ACC_STEPS // 2
                        * ones.numel())}
-    print(f"{probes.ACCUM}: 2.0 everywhere, equal to the plain version")
+    print(f"{probes.ACCUM}: bit for bit with the plain version on "
+          f"{len(ACCUM_SIZES) * len(ACCUM_OFFSETS) * len(ACCUM_STEP_COUNTS)}"
+          " seeded views, in place; at [8, 128], ms median (min-max) of "
+          f"{ACCUM_TURNS} turns: " + ", ".join(
+              f"{k} {med[k]:.7f} ({min(v):.7f}-{max(v):.7f})"
+              for k, v in times.items()))
+    floor = med["floor"]
+    for name in (probes.EXTRACT, probes.CUMSUM, probes.ACCUM):
+        res[name]["launch_floor_ms"] = floor
+    print(f"launch floor (an empty launch, torch.cuda._sleep(0)) "
+          f"{floor:.7f} ms beside the bounds of "
+          + ", ".join(f"{name} {res[name]['bound'][0]:.7f} ms"
+                      for name in (probes.EXTRACT, probes.CUMSUM,
+                                   probes.ACCUM)))
 
-    # 5d: alpha sums.  The tool's row 2 is N(0, 1): where it is negative
-    # exp overflows and the sums are +-inf or NaN, so the kernel is held
-    # to its plain version on the same inputs with row 2 made positive
+    # 5d: alpha sums on the tool's inputs (its row 2 is N(0, 1): where it
+    # is negative exp overflows and the sums are +-inf or NaN), with row 2
+    # made positive, and on edge windows, bit for bit
+    modes = {f"extract={e}": {"max_abs_err": 0.0,
+                              "ms": ms_of(f"blend[extract={e}]")}
+             for e in probes.BLEND_MODES}
+    cases = blend_cases(inp, dev)
+    for case, (data, starts) in cases.items():
+        for extract in probes.BLEND_MODES:
+            got = probes.alpha_sums(data, starts, extract)
+            want = probes.alpha_sums_plain(data, starts, extract)
+            if not same_floats_or_nan(got, want):
+                raise AssertionError(f"{probes.BLEND}[extract={extract}] "
+                                     f"differs from its plain version on "
+                                     f"{case}")
+            mode = modes[f"extract={extract}"]
+            mode["max_abs_err"] = max(mode["max_abs_err"], float(torch.where(
+                torch.isfinite(want), got - want, 0.0).abs().max()))
+            if case == "the tool's inputs":
+                print(f"{probes.BLEND}[extract={extract}] on the tool's "
+                      f"inputs: {int(torch.isnan(got).sum())} NaN and "
+                      f"{int(torch.isinf(got).sum())} inf of {got.numel()}"
+                      " sums, at the plain version's positions")
+    print(f"{probes.BLEND}: every mode equals the plain version bit for "
+          f"bit (NaN where it is NaN) on {', '.join(cases)}")
     big = torch.as_tensor(inp["big"], device=dev)
     st2 = torch.as_tensor(inp["st2"], device=dev)
-    for extract in probes.BLEND_MODES:
-        got = probes.alpha_sums(big, st2, extract)
-        print(f"{probes.BLEND}[extract={extract}] on the tool's inputs: "
-              f"{int((~torch.isfinite(got)).sum())} of {got.numel()} sums "
-              "not finite")
-    pos = big.clone()
-    pos[2] = pos[2].abs()
-    modes = {}
-    for extract in probes.BLEND_MODES:
-        got = probes.alpha_sums(pos, st2, extract)
-        want = probes.alpha_sums_plain(pos, st2, extract)
-        err = float((got - want).abs().max())
-        rel = err / float(want.abs().max())
-        modes[f"extract={extract}"] = {
-            "max_abs_err": err, "ms": ms_of(f"blend[extract={extract}]")}
-        print(f"{probes.BLEND}[extract={extract}] (|row 2|): vs plain max "
-              f"|d| {err:.3e}, {rel:.3e} of the max")
-        if not rel <= BLEND_PROBE_TOL:
-            raise AssertionError(f"{probes.BLEND} differs from its plain "
-                                 "version")
     n = st2.shape[0]
-    bnd = bound(4 * 3 * window_columns(inp["st2"]) + 4 * n
-                + 4 * n * probes.PIX, 7 * n * probes.PIX * probes.WIN)
+    pairs = n * probes.PIX * probes.WIN
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0])
+    sfu_per_s = SM_COUNT * SFU_PER_CLOCK_SM * clock_mhz * 1e6
+    work = (4 * 3 * window_columns(inp["st2"]) + 4 * n + 4 * n * probes.PIX,
+            7 * pairs, PEAK_FP32_PER_S, pairs, sfu_per_s)
+    terms = bound_terms(*work)
+    bnd = bound(*work)
     res[probes.BLEND] = {
         "err": max(m["max_abs_err"] for m in modes.values()),
         "ms": modes["extract=True"]["ms"],
         "plain_ms": cuda_time_ms(
             lambda: probes.alpha_sums_plain(big, st2, True), 2),
-        "bound": bnd, "modes": modes}
-    print(f"{probes.BLEND}: bound {bnd[0]:.6f} ms ({bnd[1]})")
+        "bound": bnd, "bound_terms_ms": terms, "modes": modes}
+    ms = res[probes.BLEND]["ms"]
+    top = max(terms, key=terms.get)
+    print(f"{probes.BLEND}: {ms:.5f} ms; bound {bnd[0]:.6f} ms by "
+          f"{'the exps on the SFU' if top == 'sfu' else top} "
+          f"(terms in ms: {pairs} exps on the "
+          f"SFU at {SM_COUNT} x {SFU_PER_CLOCK_SM} a clock x {clock_mhz:g} "
+          f"MHz {terms['sfu']:.6f}, 7 fp32 operations a pair "
+          f"{terms['operations']:.6f}, bytes {terms['bytes']:.6f}), "
+          f"{bnd[0] / ms:.3f} of it")
     return res
 
 
@@ -1382,11 +1512,19 @@ def ablation_checks(ablate):
             "bound": ablate["bound"], "modes": modes}
 
 
+def tools_on_path():
+    """Puts the repository's tools/ on sys.path, where phase 14's tools
+    are imported from."""
+    tools = str(Path(__file__).resolve().parent / "tools")
+    if tools not in sys.path:
+        sys.path.insert(0, tools)
+
+
 def probe_phase(dev):
     """Phase 14: both tools driven through `run` with the launch counts
     from 0, then the checks.  Returns ({kernel: launches}, {kernel: the
     numbers of its `kernels` entry})."""
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "tools"))
+    tools_on_path()
     import micro_mosaic_torch as mm
     import profile_torch_kernel_v3 as pk
 
@@ -4445,8 +4583,9 @@ def entry(name, launches, numbers):
            "library_ms": numbers.get("library_ms")}
     if name in XLA_STAGES:
         out["replaces_kind"] = "XLA stage (no Pallas kernel)"
-    if "modes" in numbers:
-        out["modes"] = numbers["modes"]
+    for key in ("launch_floor_ms", "turns_ms", "bound_terms_ms", "modes"):
+        if key in numbers:
+            out[key] = numbers[key]
     return out
 
 

@@ -19,9 +19,10 @@ For CUDA tensors each wrapper launches its kernel and adds one to
 `cuda_lib.LAUNCHES["<kernel>[<mode>]"]`; for CPU tensors it runs the plain
 version; any other device raises.  There is no fallback from one to the
 other.  The plain versions add in the kernels' order, so on the same
-inputs they agree bit for bit (up to the library exp in `alpha_sums`;
-both use CUDA's expf on the card), except `cumsum_rows` in tf32 mode,
-whose tensor-core sums are held to a tolerance.
+inputs they agree bit for bit (`alpha_sums` with NaN where the plain
+version is NaN: the kernel's expf and torch's CUDA exp are both
+libdevice's), except `cumsum_rows` in tf32 mode, whose tensor-core sums
+are held to a tolerance.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ WIN = 128     # records (columns) of a window
 OUT_ROWS = 8  # rows of extract_rows' output per chunk; row 0 holds sums
 PIX = 256     # pixels of alpha_sums per chunk
 ACC_STEPS = 4  # the sequential steps of accumulate_
+ACCUM_THREADS = 256  # threads a block of csrc/probe_accum.cu
 
 EXTRACT = "probe_extract"
 CUMSUM = "probe_cumsum"
@@ -171,22 +173,41 @@ def accumulate_plain_(out: torch.Tensor, inp: torch.Tensor,
     return out
 
 
+def accum_plan(in_addr: int, out_addr: int, n: int):
+    """(head, nvec, blocks): how `probe_accum` splits n elements at these
+    addresses.  Where in and out sit at one offset modulo 16 B, elements
+    head .. head + 4 nvec - 1 go as nvec 16 B vectors, the head (up to 3
+    elements before out's first 16 B boundary) and the tail (up to 3
+    after the last vector) one element a thread; otherwise every element
+    goes alone (nvec 0).  The grid holds a thread a vector and a thread
+    an element left over."""
+    head = nvec = 0
+    if in_addr % 16 == out_addr % 16:
+        head = min(n, -out_addr % 16 // 4)
+        nvec = (n - head) // 4
+    units = nvec + n - 4 * nvec
+    return head, nvec, -(-units // ACCUM_THREADS)
+
+
 def accumulate_(out: torch.Tensor, inp: torch.Tensor,
                 steps: int = ACC_STEPS) -> torch.Tensor:
     """Add `inp` into `out` on the even ones of `steps` sequential steps.
     `out` is the caller's pre-zeroed buffer and is updated in place (the
     PyTorch counterpart of the TPU kernel's output aliasing a zeros
-    input); for out = 0 and inp = 1 every element ends at 2.0.  Returns
-    `out`."""
+    input); for out = 0 and inp = 1 every element ends at 2.0.  Any
+    alignment: `accum_plan` picks 16 B vectors where out and inp allow
+    them.  Returns `out`."""
     for name, t in (("out", out), ("inp", inp)):
         _check(t, name, torch.float32, out.dim())
     if inp.shape != out.shape or inp.device != out.device:
         raise ValueError("out and inp must have one shape and device")
     if _device(out, ACCUM) == "cpu":
         return accumulate_plain_(out, inp, steps)
-    fn = _kernel(ACCUM, _P, _P, _LL, _I, _P)
-    _launch(ACCUM, ACCUM, out, fn, inp.data_ptr(), out.data_ptr(),
-            out.numel(), steps)
+    n = out.numel()
+    head, nvec, blocks = accum_plan(inp.data_ptr(), out.data_ptr(), n)
+    fn = _kernel(ACCUM, _P, _P, _LL, _I, _LL, _LL, _LL, _P)
+    _launch(ACCUM, ACCUM, out, fn, inp.data_ptr(), out.data_ptr(), n,
+            steps, head, nvec, blocks)
     return out
 
 

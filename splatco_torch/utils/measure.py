@@ -10,6 +10,15 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_TF32_PER_S = 495e12  # dense, on the tensor cores
+# the special-function unit (MUFU: ex2, rcp, rsqrt, lg2, sin, cos) gives
+# 16 results a clock an SM at compute capability 9.0 (CUDA C++
+# Programming Guide, "Arithmetic Instructions", the throughput table of
+# native arithmetic instructions); 132 SMs at the SM's maximum clock,
+# 1,980 MHz on an H100 SXM (nvidia-smi --query-gpu=clocks.max.sm)
+SM_COUNT = 132
+SFU_PER_CLOCK_SM = 16
+MAX_SM_CLOCK_HZ = 1.98e9
+PEAK_SFU_PER_S = SM_COUNT * SFU_PER_CLOCK_SM * MAX_SM_CLOCK_HZ
 # fp32/SFU operations per pixel evaluation of a record (dx, dy, power,
 # compare, exp, alpha, clamp, compare) and per contribution (1 - alpha,
 # T (1 - alpha), compare, w, three colour multiply-adds)
@@ -45,13 +54,24 @@ def cuda_time_ms(fn, iters: int) -> float:
     return start.elapsed_time(stop) / iters
 
 
-def bound(n_bytes: int, n_ops: int, peak_ops_per_s: float = PEAK_FP32_PER_S):
-    """(ms, what bounds it): the larger of bytes over the memory rate and
-    operations over their type's peak rate (default fp32)."""
-    bytes_ms = 1e3 * n_bytes / PEAK_BYTES_PER_S
-    ops_ms = 1e3 * n_ops / peak_ops_per_s
-    return max(bytes_ms, ops_ms), ("operations" if ops_ms >= bytes_ms
-                                   else "bytes")
+def bound_terms(n_bytes: int, n_ops: int,
+                peak_ops_per_s: float = PEAK_FP32_PER_S, n_sfu: int = 0,
+                peak_sfu_per_s: float = PEAK_SFU_PER_S) -> dict:
+    """ms of each term of a bound: `operations` at their type's peak
+    rate (default fp32), `sfu` results (an exp's MUFU.EX2, ...) at the
+    special-function unit's rate, `bytes` at the memory rate."""
+    return {"operations": 1e3 * n_ops / peak_ops_per_s,
+            "sfu": 1e3 * n_sfu / peak_sfu_per_s,
+            "bytes": 1e3 * n_bytes / PEAK_BYTES_PER_S}
+
+
+def bound(n_bytes: int, n_ops: int, peak_ops_per_s: float = PEAK_FP32_PER_S,
+          n_sfu: int = 0, peak_sfu_per_s: float = PEAK_SFU_PER_S):
+    """(ms, what bounds it): the largest of `bound_terms`, "bytes" or
+    "operations" (the SFU's results are operations too)."""
+    terms = bound_terms(n_bytes, n_ops, peak_ops_per_s, n_sfu, peak_sfu_per_s)
+    term = max(terms, key=terms.get)
+    return terms[term], "bytes" if term == "bytes" else "operations"
 
 
 def fwd_bound(binned, work, tiles_x, tiles_y, tile):

@@ -11,8 +11,10 @@ tile's 1024 pixels are taken in another order than the plain version's,
 so each of its nine rows is held to 1e-5 of that row's largest |value|.
 Both on random scenes and on crafted tiles (many record batches,
 termination in the first batch, records grazing a warp's rectangle).  The probes (ops/probes.py)
-add in their plain versions' order and are held to them exactly, the
-alpha-sum probe to 1e-6 of the max (its library exp), the TF32 cumsum to
+add in their plain versions' order and are held to them exactly (the
+alpha-sum probe with NaN where the plain version is NaN: both take
+libdevice's expf; the accumulation on views 0-3 floats into larger
+buffers, in place), the TF32 cumsum to
 5e-4 of the max of a float64 cumsum (measured 1.9e-4; inputs rounded to
 bf16 would give ~1.5e-3); the forward's ablation variants
 (ops/raster_ablate.py) as the forward.  A small scene written to disk
@@ -62,7 +64,10 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import PROJ_RAGGED_N, PROJ_VIEW_OFFSETS, culled_cotangents
+from chip_smoke import (ACCUM_OFFSETS, ACCUM_SIZES, ACCUM_STEP_COUNTS,
+                        PROJ_RAGGED_N, PROJ_VIEW_OFFSETS, accum_case,
+                        accum_differs, blend_cases, culled_cotangents,
+                        same_floats_or_nan, tools_on_path)
 from splatco_torch.config import (ModelConfig, OptimizationConfig,
                                   PipelineConfig)
 from splatco_torch.data.cameras import look_at_camera
@@ -468,15 +473,42 @@ def test_probe_accum_kernel_is_in_place_and_two(card):
     assert bool((out == 2.0).all())
 
 
+@pytest.mark.parametrize("offsets", ACCUM_OFFSETS)
+@pytest.mark.parametrize("n", ACCUM_SIZES)
+def test_probe_accum_kernel_matches_plain(card, n, offsets):
+    """Seeded views starting 0-3 floats into larger buffers (16 B vectors
+    after a head where in and out agree modulo 16 B, else element by
+    element), at 0, 1, 4 and 5 steps: bit for bit, in place, the buffer
+    around the view untouched, one launch a call."""
+    for steps in ACCUM_STEP_COUNTS:
+        out, inp = accum_case(n, offsets, 7 * n + steps, card)
+        assert launched(probes.ACCUM,
+                        lambda: accum_differs(out, inp, steps)) == []
+
+
 @pytest.mark.parametrize("extract", probes.BLEND_MODES)
 def test_probe_blend_kernel_matches_plain(card, extract):
     data, starts = probe_windows(card)
     data[2] = data[2].abs()  # a negative row 2 overflows exp
     got = launched(f"{probes.BLEND}[extract={extract}]",
                    lambda: probes.alpha_sums(data, starts, extract))
-    want = probes.alpha_sums_plain(data, starts, extract)
-    assert float((got - want).abs().max()) <= 1e-6 * float(
-        want.abs().max())
+    assert same_floats_or_nan(got,
+                              probes.alpha_sums_plain(data, starts, extract))
+
+
+@pytest.mark.parametrize("extract", probes.BLEND_MODES)
+def test_probe_blend_kernel_cases(card, extract):
+    """chip_smoke's cases (the tool's raw inputs with their inf and NaN
+    sums, row 2 made positive, edge windows, starts below 0 and at or
+    past the width, one window): bit for bit, NaN where the plain version
+    is NaN, one launch a call."""
+    tools_on_path()
+    import micro_mosaic_torch as mm
+    for case, (data, starts) in blend_cases(mm.inputs(), card).items():
+        got = launched(f"{probes.BLEND}[extract={extract}]",
+                       lambda: probes.alpha_sums(data, starts, extract))
+        want = probes.alpha_sums_plain(data, starts, extract)
+        assert same_floats_or_nan(got, want), case
 
 
 @pytest.mark.parametrize("variant", raster_ablate.VARIANTS)

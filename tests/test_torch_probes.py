@@ -10,7 +10,13 @@ the JAX tool's 1e-4 (measured 5.72e-6, numpy sums pairwise, the probe in
 32 lanes); the cumsum exact against numpy's float32 running sum (held to
 1e-6 of the max); the alpha-sum probe at 1e-5 of the max against float64
 numpy; the ablation bit for bit against the port's forward and at 1e-5
-against JAX's, as tests/test_torch_raster_v3.py.
+against JAX's, as tests/test_torch_raster_v3.py.  The card's cases
+(chip_smoke.py's accumulation views 0-3 floats into larger buffers and
+alpha-sum windows below 0 and past the width, the raw tool inputs' inf
+and NaN sums) run here on the plain versions against numpy float32
+loops; `accum_plan` must take every element once, its vectors 16 B
+aligned; `measure.bound` takes the largest of bytes, fp32 operations and
+the special-function unit's exps.
 """
 import os
 import re
@@ -24,6 +30,9 @@ import torch
 from test_torch_raster_v3 import ATOL, both_binnings, untile16
 from test_torch_render import REPO
 
+from chip_smoke import (ACCUM_OFFSETS, ACCUM_SIZES, ACCUM_STEP_COUNTS,
+                        accum_case, accum_differs, blend_cases,
+                        same_floats_or_nan)
 from splatco_torch.ops import probes, raster_ablate
 from splatco_torch.ops.rasterize_cuda import raster_fwd_plain
 from splatco_torch.utils import measure
@@ -120,6 +129,124 @@ def test_alpha_sums_match_float64(tool_inputs, extract):
         want[c] = (o[:, None] * np.exp(-0.5 * q[:, None]
                                        * (m[:, None] - px) ** 2)).sum(0)
     assert np.abs(got - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("offsets", ACCUM_OFFSETS)
+@pytest.mark.parametrize("n", ACCUM_SIZES)
+def test_accumulate_plain_on_the_card_cases(n, offsets):
+    """The card's cases on the plain version: a view starting 0-3 floats
+    into a larger buffer, updated in place and nowhere else, equal to a
+    numpy float32 loop of ceil(steps / 2) rounded adds."""
+    for steps in ACCUM_STEP_COUNTS:
+        out, inp = accum_case(n, offsets, 7 * n + steps, torch.device("cpu"))
+        want = out.numpy().copy()
+        for _ in range((steps + 1) // 2):
+            want = want + inp.numpy()
+        assert accum_differs(out, inp, steps) == []
+        np.testing.assert_array_equal(out.numpy(), want)
+
+
+def plan_cover(in_addr, out_addr, n):
+    """The elements and 16 B vectors `probe_accum`'s threads take under
+    `accum_plan`, as the kernel maps its thread index i: i < nvec a
+    vector from element head + 4 i, then the head's elements, then the
+    tail's."""
+    head, nvec, blocks = probes.accum_plan(in_addr, out_addr, n)
+    taken, vectors = [], []
+    for i in range(blocks * probes.ACCUM_THREADS):
+        if i < nvec:
+            vectors.append(head + 4 * i)
+            taken += range(head + 4 * i, head + 4 * i + 4)
+        elif i - nvec < n - 4 * nvec:
+            j = i - nvec
+            taken.append(j if j < head else j + 4 * nvec)
+    return head, nvec, blocks, taken, vectors
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 4, 5, 1023, 1024, 1025, 2053])
+def test_accum_plan_covers_each_element_once(n):
+    """At every pair of in / out offsets modulo 16 B: each element taken
+    by one thread; where the offsets agree, every vector 16 B aligned in
+    both buffers, at most 3 elements before the first and after the last;
+    otherwise no vector; the grid the fewest blocks of ACCUM_THREADS that
+    hold a thread a unit."""
+    for a in range(0, 16, 4):
+        for b in range(0, 16, 4):
+            in_addr, out_addr = 4096 + a, 8192 + b
+            head, nvec, blocks, taken, vectors = plan_cover(in_addr,
+                                                            out_addr, n)
+            assert sorted(taken) == list(range(n))
+            units = nvec + n - 4 * nvec
+            assert blocks == -(-units // probes.ACCUM_THREADS)
+            if a != b:
+                assert nvec == 0
+                continue
+            assert head <= 3 and n - head - 4 * nvec <= 3
+            assert all((in_addr + 4 * e) % 16 == 0
+                       and (out_addr + 4 * e) % 16 == 0 for e in vectors)
+
+
+def test_accum_threads_match_the_kernel():
+    src = open(os.path.join(REPO, "splatco_torch", "csrc",
+                            "probe_accum.cu")).read()
+    assert re.search(r"constexpr int kThreads = (\d+);", src).group(1) \
+        == str(probes.ACCUM_THREADS)
+
+
+def alpha_sums_numpy(data, starts, extract):
+    """The alpha sums as a numpy float32 loop over each chunk's records,
+    in the kernel's order (numpy's exp)."""
+    out = np.zeros((len(starts), probes.PIX), np.float32)
+    px = np.arange(probes.PIX, dtype=np.float32)
+    width = data.shape[1]
+    with np.errstate(over="ignore", invalid="ignore"):
+        for c, p in enumerate(starts.tolist()):
+            col0 = p if extract else p // probes.WIN * probes.WIN
+            s = np.zeros(probes.PIX, np.float32)
+            for k in range(probes.WIN):
+                col = col0 + k
+                m, q, o = (data[[0, 2, 5], col] if 0 <= col < width
+                           else np.zeros(3, np.float32))
+                dx = m - px
+                t = np.float32(-0.5) * q * dx
+                t = t * dx
+                s = s + o * np.exp(t)
+            out[c] = s
+    return out
+
+
+@pytest.mark.parametrize("extract", probes.BLEND_MODES)
+def test_alpha_sums_plain_on_the_card_cases(tool_inputs, extract):
+    """The card's cases on the plain version (the tool's raw inputs cut
+    to their first 48 chunks) against a numpy float32 loop: NaN and inf
+    at the same positions, every other sum to 1e-5 of the case's max
+    (the two exps may differ in the last bit)."""
+    dev = torch.device("cpu")
+    cases = blend_cases(tool_inputs, dev)
+    big, st2 = cases["the tool's inputs"]
+    cases["the tool's inputs"] = (big[:, :49 * probes.WIN].contiguous(),
+                                    st2[:48])
+    del cases["the tool's inputs, |row 2|"]
+    for case, (data, starts) in cases.items():
+        got = probes.alpha_sums(data, starts, extract).reshape(
+            len(starts), probes.PIX).numpy()
+        want = alpha_sums_numpy(data.numpy(), starts.numpy(), extract)
+        for flag in (np.isnan, np.isposinf, np.isneginf):
+            np.testing.assert_array_equal(flag(got), flag(want), case)
+        fin = np.isfinite(want)
+        assert np.abs(got[fin] - want[fin]).max() <= 1e-5 * max(
+            np.abs(want[fin]).max(), 1e-30), case
+
+
+def test_same_floats_or_nan():
+    """The card's comparison of the alpha sums: NaN positions equal,
+    everything else bit for bit (a signed zero too)."""
+    t = torch.tensor
+    assert same_floats_or_nan(t([np.nan, 1.0, -0.0, np.inf]),
+                              t([np.nan, 1.0, -0.0, np.inf]))
+    assert not same_floats_or_nan(t([0.0]), t([-0.0]))
+    assert not same_floats_or_nan(t([np.nan]), t([1.0]))
+    assert not same_floats_or_nan(t([1.0]), t([np.nan]))
 
 
 def test_wrappers_refuse_other_devices():
@@ -264,3 +391,21 @@ def test_bound_takes_the_larger_time(n_bytes, n_ops, by):
     Tflop/s, 1 ms for the side that bounds."""
     ms, what = measure.bound(n_bytes, n_ops)
     assert what == by and ms == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("term, work", [
+    ("bytes", (3.35e9, 1e9, 1e9)),
+    ("operations", (1e6, 67e9, 1e9)),
+    ("sfu", (1e6, 1e9, 132 * 16 * 1.98e6))])
+def test_bound_takes_the_largest_of_three_terms(term, work):
+    """measure.bound with the exps counted on the special-function unit
+    (132 SMs x 16 a clock x 1.98 GHz): 1 ms for the term that bounds,
+    the others below it; the SFU's term reads as operations."""
+    n_bytes, n_ops, n_sfu = work
+    terms = measure.bound_terms(n_bytes, n_ops, n_sfu=n_sfu)
+    assert max(terms, key=terms.get) == term
+    assert terms[term] == pytest.approx(1.0)
+    assert sorted(terms.values())[1] < 0.5
+    ms, what = measure.bound(n_bytes, n_ops, n_sfu=n_sfu)
+    assert ms == pytest.approx(1.0)
+    assert what == ("bytes" if term == "bytes" else "operations")
