@@ -59,11 +59,19 @@ Run from the repository root.  Phases, each of which fails loudly:
      tools/profile_torch_kernel_v3.py driven through their `run`, with
      the launch counts of every probe mode and ablation variant exact;
      then each of those kernels against its plain version on the card
-     (the row sums, the fp32 cumsum and the ablation's full / nostage /
-     noaccum exactly or to the forward's bound; the TF32 cumsum against
-     a float64 cumsum; the accumulation bit for bit and in place on
+     (the row sums in every mode bit for bit on the tool's windows, edge
+     windows, windows below 0 and at or past the width, one window, rows
+     not 16 B aligned and the kernel scale's 8,192 windows; the cumsum
+     on the tool's xs, xs with inf, -inf and NaN rows, seeded shapes and
+     a misaligned x, fp32 bit for bit, NaN where the plain version is
+     NaN, TF32 with NaN and inf at the plain version's positions and
+     within 5e-4 of a float64 cumsum's max elsewhere; both kernels timed
+     at kernel scale too, the cumsum at [128, 65,536] beside
+     torch.cumsum; the ablation's full / nostage / noaccum to the
+     forward's bound; the accumulation bit for bit and in place on
      seeded views of 1 to 2^20 floats that start 0-3 floats into larger
-     buffers, at 0, 1, 4 and 5 steps; the alpha-sum probe bit for bit,
+     buffers, at 0, 1, 4 and 5 steps, and refusing views that overlap;
+     the alpha-sum probe bit for bit,
      NaN where it is NaN, on the tool's inputs (inf and NaN sums), with
      row 2 made positive, and on windows at the edges, below 0 and past
      the width), the plain versions and the one-call library versions
@@ -265,6 +273,7 @@ import argparse
 import collections
 import contextlib
 import dataclasses
+import functools
 import hashlib
 import json
 import math
@@ -393,21 +402,25 @@ XLA_STAGES = (*SAMPLER, *BINNING, *SSIM, *PROJECTION)
 # phase 14: the tools time each probe mode and ablation variant over this
 # many launches, after one checked launch and a warm-up
 PROBE_ITERS = 20
-# the fp32 cumsum adds in the plain version's order: held to 1e-6 of the
-# max |value|; the TF32 one rounds each input to 10 mantissa bits and sums
-# on the tensor cores, held to 5e-4 of the max of a float64 cumsum: above
+# the fp32 cumsum adds in the plain version's order: held to it bit for
+# bit, NaN where it is NaN; the TF32 one rounds each input to 10 mantissa
+# bits and sums on the tensor cores: NaN and +-inf at the plain version's
+# positions, elsewhere held to 5e-4 of the max of a float64 cumsum: above
 # TF32's measured 1.9e-4, below the ~1.5e-3 of inputs rounded to bf16
-CUMSUM_FP32_TOL = 1e-6
 CUMSUM_TF32_TOL = 5e-4
+# the kernel scale both window probes are also checked and timed at: the
+# cumsum over [128, CUMSUM_SCALE_COLS] (32 MiB in, 32 MiB out), the
+# extraction on the tool's 8,192 `big` / `st2` windows
+CUMSUM_SCALE_COLS = 65536
 # the accumulation probe held bit for bit on seeded views of these sizes
 # that start (out, in) floats into larger buffers (equal offsets take
 # the 16 B path after a head, unequal ones go element by element), at
 # these step counts; then the kernel, add_ and an empty launch timed in
-# ACCUM_TURNS turns
+# PROBE_TURNS turns, as the window probes at kernel scale are
 ACCUM_SIZES = (1, 3, 1023, 1024, 1025, 1 << 20)
 ACCUM_OFFSETS = ((0, 0), (1, 1), (2, 2), (3, 3), (1, 0), (2, 3))
 ACCUM_STEP_COUNTS = (0, 1, 4, 5)
-ACCUM_TURNS = 5
+PROBE_TURNS = 5
 # the alpha-sum probe repeats its plain version's float32 operations in
 # order, and both take libdevice's expf (torch's CUDA exp): held to it
 # bit for bit, NaN where it is NaN
@@ -1262,6 +1275,14 @@ def accum_differs(out, inp, steps: int) -> list:
     return bad
 
 
+def accum_overlaps(dev) -> list:
+    """(out, inp) pairs whose bytes overlap, which `accumulate_` refuses:
+    one buffer twice, views one float apart, and a view inside another."""
+    x = torch.ones(1024, device=dev)
+    return [(x, x), (x[1:], x[:-1]), (x[:-1], x[1:]),
+            (x[:512], x[256:768])]
+
+
 def blend_cases(inp: dict, dev) -> dict:
     """{case: (data, starts)} for the alpha-sum probe: the tool's inputs
     (inf and NaN sums) and with row 2 made positive; seeded [16, 8320]
@@ -1292,11 +1313,101 @@ def blend_cases(inp: dict, dev) -> dict:
     }
 
 
+def misaligned(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of t that starts 4 B past a 16 B boundary."""
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=t.device)
+    out = buf[1:1 + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def extract_cases(inp: dict, dev) -> dict:
+    """{case: (data, starts)} for the window row sums: the tool's windows,
+    the alpha-sum probe's cases (`blend_cases`: the kernel scale's 8,192
+    windows, edge windows, below 0, at or past the width, one window),
+    rows that are not 16 B aligned (width 8,323) and data 4 B past a 16 B
+    boundary (both take the aligned modes' 4 B loads)."""
+    data = torch.as_tensor(inp["data"], device=dev)
+    cases = {"the tool's windows": (data,
+                                    torch.as_tensor(inp["starts"],
+                                                    device=dev))}
+    cases.update({k: v for k, v in blend_cases(inp, dev).items()
+                  if k != "the tool's inputs, |row 2|"})
+    odd = torch.as_tensor(np.random.default_rng(6).normal(
+        size=(probes.REC, 8323)).astype(np.float32), device=dev)
+    st = torch.tensor([-200, -3, 0, 5, 127, 128, 4100, 8194, 8195, 8196,
+                       8300, 8323], dtype=torch.int32, device=dev)
+    cases["width 8,323"] = (odd, st)
+    cases["data 4 B past 16 B"] = (misaligned(cases["edge windows"][0]),
+                                   cases["edge windows"][1])
+    return cases
+
+
+def cumsum_cases(inp: dict, dev) -> dict:
+    """{case: x} for the cumsum: the tool's xs; xs with inf, -inf and NaN
+    in rows 0, 5, 50, 100 and 127 (a row's three in columns of their own)
+    and one column with +inf in row 5 and -inf in row 100 (NaN from row
+    100 on); seeded [16, 16], [48, 80] and [1024, 48]; xs 4 B past a 16 B
+    boundary (4 B loads)."""
+    xs = torch.as_tensor(inp["xs"], device=dev)
+    bad = xs.clone()
+    for i, row in enumerate((0, 5, 50, 100, 127)):
+        bad[row, 3 * i:3 * i + 3] = torch.tensor(
+            [float("inf"), float("-inf"), float("nan")])
+    bad[5, 100], bad[100, 100] = float("inf"), float("-inf")
+    rng = np.random.default_rng(7)
+    cases = {"the tool's xs": xs, "inf, -inf and NaN rows": bad}
+    for shape in ((16, 16), (48, 80), (1024, 48)):
+        cases[f"{shape}"] = torch.as_tensor(
+            rng.normal(size=shape).astype(np.float32), device=dev)
+    cases["xs 4 B past 16 B"] = misaligned(bad)
+    return cases
+
+
+def cumsum_differs(got: torch.Tensor, x: torch.Tensor, mode: str):
+    """None if the cumsum `got` of x in `mode` holds: fp32 bit for bit
+    with the plain version, NaN where it is NaN; tf32 NaN, +inf and -inf
+    at the plain version's positions and elsewhere within CUMSUM_TF32_TOL
+    of the max of the float64 cumsum.  Else what differs."""
+    plain = probes.cumsum_rows_plain(x)
+    if mode == "fp32":
+        return None if same_floats_or_nan(got, plain) else "bits"
+    for flag in (torch.isnan, torch.isposinf, torch.isneginf):
+        if not torch.equal(flag(got), flag(plain)):
+            return f"{flag.__name__} positions"
+    fin = torch.isfinite(plain)
+    ref = probes.cumsum_rows_plain(x.double())[fin]
+    err = float((got[fin].double() - ref).abs().max()) if fin.any() else 0.0
+    scale = float(ref.abs().max()) if fin.any() else 1.0
+    return None if err <= CUMSUM_TF32_TOL * scale else \
+        f"{err / scale:.3e} of the max"
+
+
 def same_floats_or_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
     """NaN at the same positions, every other value bit for bit."""
     nan = torch.isnan(b)
     return (a.shape == b.shape and torch.equal(torch.isnan(a), nan)
             and same_floats(a[~nan], b[~nan]))
+
+
+def timed_in_turns(fns: dict) -> dict:
+    """{name: [ms of each turn]}: every fn timed over PROBE_ITERS launches,
+    one after another, in PROBE_TURNS turns."""
+    times = {k: [] for k in fns}
+    for _ in range(PROBE_TURNS):
+        for k, fn in fns.items():
+            times[k].append(cuda_time_ms(fn, PROBE_ITERS))
+    return times
+
+
+def medians(times: dict) -> dict:
+    return {k: float(np.median(v)) for k, v in times.items()}
+
+
+def spread(times: dict) -> str:
+    """'name median (min-max), ...' of `timed_in_turns`' result."""
+    return ", ".join(f"{k} {np.median(v):.7f} ({min(v):.7f}-{max(v):.7f})"
+                     for k, v in times.items())
 
 
 def probe_checks(micro, dev):
@@ -1314,67 +1425,108 @@ def probe_checks(micro, dev):
     inp = mm.inputs()
     res = {}
 
-    # 5a: window row sums, at the tool's starts and at p % 128 = 0 / 127
-    data = torch.as_tensor(inp["data"], device=dev)
-    width = data.shape[1]
-    edge = torch.tensor([0, 127, 128, 255, 4096, width - 257, width - 256,
-                         width - 129], dtype=torch.int32, device=dev)
-    starts = torch.as_tensor(inp["starts"], device=dev)
+    # 5a: window row sums in every mode, bit for bit on every case, then
+    # timed at kernel scale
     errs = {m: 0.0 for m in probes.EXTRACT_MODES}
-    for st in (starts, edge):
+    cases = extract_cases(inp, dev)
+    for case, (data, st) in cases.items():
         want = probes.extract_rows_plain(data, st)
         for mode in probes.EXTRACT_MODES:
             got = probes.extract_rows(data, st, mode)
             errs[mode] = max(errs[mode], float((got - want).abs().max()))
             if not torch.equal(got, want):
                 raise AssertionError(f"extract[{mode}] differs from its "
-                                     "plain version")
-    n = starts.shape[0]
-    bnd = bound(4 * probes.REC * window_columns(inp["starts"]) + 4 * n
-                + 4 * n * probes.OUT_ROWS * probes.REC,
-                probes.REC * n * (probes.WIN - 1))
+                                     f"plain version on {case}")
+    data = torch.as_tensor(inp["data"], device=dev)
+    starts = torch.as_tensor(inp["starts"], device=dev)
+
+    def extract_bound(st):
+        n = len(st)
+        return bound(4 * probes.REC * window_columns(st) + 4 * n
+                     + 4 * n * probes.OUT_ROWS * probes.REC,
+                     probes.REC * n * (probes.WIN - 1))
+    bnd = extract_bound(inp["starts"])
+    big, st2 = cases["the tool's inputs"]
+    times = timed_in_turns(
+        {m: functools.partial(probes.extract_rows, big, st2, m)
+         for m in probes.EXTRACT_MODES})
+    scale = {"windows": int(st2.shape[0]),
+             "bound_ms": extract_bound(inp["st2"])[0],
+             "ms": medians(times), "turns_ms": times}
     res[probes.EXTRACT] = {
         "err": max(errs.values()), "ms": ms_of("extract[direct]"),
         "plain_ms": cuda_time_ms(
             lambda: probes.extract_rows_plain(data, starts), 5),
-        "bound": bnd, "modes": {m: {"max_abs_err": errs[m],
-                                    "ms": ms_of(f"extract[{m}]")}
-                                for m in probes.EXTRACT_MODES}}
+        "bound": bnd, "kernel_scale": scale,
+        "modes": {m: {"max_abs_err": errs[m], "ms": ms_of(f"extract[{m}]")}
+                  for m in probes.EXTRACT_MODES}}
     print(f"{probes.EXTRACT}: every mode equals the plain version bit for "
-          f"bit (tool's starts and p % 128 = 0 / 127); bound "
-          f"{bnd[0]:.6f} ms ({bnd[1]})")
+          f"bit on {', '.join(cases)}; bound {bnd[0]:.6f} ms ({bnd[1]}); "
+          f"at {scale['windows']} windows, ms median (min-max) of "
+          f"{PROBE_TURNS} turns: {spread(times)} against a bound of "
+          f"{scale['bound_ms']:.6f} ms (bytes)")
 
-    # 5b: cumsum, fp32 against the plain version, TF32 against float64
-    xs = torch.as_tensor(inp["xs"], device=dev)
+    # 5b: cumsum, fp32 bit for bit with the plain version, TF32 at its
+    # non-finite positions and to a float64 cumsum elsewhere, on every
+    # case; then timed at kernel scale
+    cases = cumsum_cases(inp, dev)
+    for case, x in cases.items():
+        for mode in probes.CUMSUM_MODES:
+            bad = cumsum_differs(probes.cumsum_rows(x, mode), x, mode)
+            if bad:
+                raise AssertionError(f"{probes.CUMSUM}[{mode}] differs from "
+                                     f"its plain version on {case}: {bad}")
+    xs = cases["the tool's xs"]
     plain = probes.cumsum_rows_plain(xs)
     ref64 = torch.cumsum(xs.double(), dim=0)
-    scale = float(ref64.abs().max())
-    rows, cols = xs.shape
-    macs = rows * (rows + 1) // 2 * cols  # L's nonzero part
+    top = float(ref64.abs().max())
+
+    def cumsum_bound(x, peak):
+        rows, cols = x.shape
+        macs = rows * (rows + 1) // 2 * cols  # L's nonzero part
+        return bound(2 * 4 * rows * cols, 2 * macs, peak)
+    xl = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(128, CUMSUM_SCALE_COLS)).astype(np.float32), device=dev)
     modes = {}
     for mode, peak in (("tf32", PEAK_TF32_PER_S), ("fp32", PEAK_FP32_PER_S)):
         got = probes.cumsum_rows(xs, mode)
-        d_plain = float((got - plain).abs().max())
-        d64 = float((got.double() - ref64).abs().max()) / scale
-        modes[mode] = {"max_abs_err": d_plain, "rel_err_float64": d64,
+        bad = cumsum_differs(probes.cumsum_rows(xl, mode), xl, mode)
+        if bad:
+            raise AssertionError(f"{probes.CUMSUM}[{mode}] differs from its "
+                                 f"plain version at kernel scale: {bad}")
+        d64 = float((got.double() - ref64).abs().max()) / top
+        modes[mode] = {"max_abs_err": float((got - plain).abs().max()),
+                       "rel_err_float64": d64,
                        "ms": ms_of(f"cumsum[{mode}]"),
-                       "bound": bound(2 * 4 * rows * cols, 2 * macs, peak)}
-        print(f"{probes.CUMSUM}[{mode}]: vs plain max |d| {d_plain:.3e}, "
-              f"vs float64 {d64:.3e} of the max; bound "
-              f"{modes[mode]['bound'][0]:.6f} ms ({modes[mode]['bound'][1]})")
-    if not modes["fp32"]["max_abs_err"] <= CUMSUM_FP32_TOL * scale:
-        raise AssertionError("the fp32 cumsum differs from its plain version")
-    if not modes["tf32"]["rel_err_float64"] <= CUMSUM_TF32_TOL:
-        raise AssertionError("the TF32 cumsum is off by more than "
-                             f"{CUMSUM_TF32_TOL} of the max")
+                       "bound": cumsum_bound(xs, peak)}
+        print(f"{probes.CUMSUM}[{mode}]: vs plain max |d| "
+              f"{modes[mode]['max_abs_err']:.3e}, vs float64 {d64:.3e} of "
+              f"the max; bound {modes[mode]['bound'][0]:.7f} ms "
+              f"({modes[mode]['bound'][1]})")
+    fns = {m: functools.partial(probes.cumsum_rows, xl, m)
+           for m in probes.CUMSUM_MODES}
+    fns["torch.cumsum"] = functools.partial(torch.cumsum, xl, dim=0)
+    times = timed_in_turns(fns)
+    med = medians(times)
+    scale = {"shape": [128, CUMSUM_SCALE_COLS],
+             "bound_ms": cumsum_bound(xl, PEAK_TF32_PER_S)[0],
+             "ms": {m: med[m] for m in probes.CUMSUM_MODES},
+             "library_ms": med["torch.cumsum"], "turns_ms": times}
     res[probes.CUMSUM] = {
         "err": max(m["max_abs_err"] for m in modes.values()),
         "ms": modes["tf32"]["ms"], "bound": modes["tf32"]["bound"],
         "plain_ms": cuda_time_ms(lambda: probes.cumsum_rows_plain(xs), 5),
         "library_ms": cuda_time_ms(lambda: torch.cumsum(xs, dim=0),
                                    PROBE_ITERS),
-        "modes": {m: {k: v for k, v in d.items() if k != "bound"}
+        "kernel_scale": scale,
+        "modes": {m: {k: v for k, v in d.items()
+                      if k in ("max_abs_err", "rel_err_float64", "ms")}
                   for m, d in modes.items()}}
+    print(f"{probes.CUMSUM}: both modes hold on {', '.join(cases)} (fp32 "
+          "bit for bit, NaN where the plain version is NaN; TF32 NaN and inf"
+          f" at its positions); at [128, {CUMSUM_SCALE_COLS}], ms median "
+          f"(min-max) of {PROBE_TURNS} turns: {spread(times)} against a "
+          f"bound of {scale['bound_ms']:.6f} ms (bytes)")
 
     # 5c: accumulation in place, bit for bit on every case, then timed
     ones = torch.ones((8, 128), device=dev)
@@ -1391,17 +1543,20 @@ def probe_checks(micro, dev):
                     raise AssertionError(
                         f"{probes.ACCUM} at n {n}, offsets {offsets}, "
                         f"{steps} steps: {bad}")
+    for a, b in accum_overlaps(dev):
+        try:
+            probes.accumulate_(a, b)
+        except ValueError:
+            continue
+        raise AssertionError(f"{probes.ACCUM} took views that overlap")
     buf = torch.zeros_like(ones)
     # in turns: the kernel, one PyTorch call (on the zeroed buffer,
     # out + 2 in is (out + in) + in) and an empty launch, the floor
-    turns = {"kernel": lambda: probes.accumulate_(buf, ones),
-             "add_": lambda: buf.add_(ones, alpha=probes.ACC_STEPS // 2),
-             "floor": lambda: torch.cuda._sleep(0)}
-    times = {k: [] for k in turns}
-    for _ in range(ACCUM_TURNS):
-        for k, fn in turns.items():
-            times[k].append(cuda_time_ms(fn, PROBE_ITERS))
-    med = {k: float(np.median(v)) for k, v in times.items()}
+    times = timed_in_turns({
+        "kernel": lambda: probes.accumulate_(buf, ones),
+        "add_": lambda: buf.add_(ones, alpha=probes.ACC_STEPS // 2),
+        "floor": lambda: torch.cuda._sleep(0)})
+    med = medians(times)
     res[probes.ACCUM] = {
         "err": float((got - want).abs().max()), "ms": med["kernel"],
         "plain_ms": cuda_time_ms(
@@ -1412,10 +1567,8 @@ def probe_checks(micro, dev):
                        * ones.numel())}
     print(f"{probes.ACCUM}: bit for bit with the plain version on "
           f"{len(ACCUM_SIZES) * len(ACCUM_OFFSETS) * len(ACCUM_STEP_COUNTS)}"
-          " seeded views, in place; at [8, 128], ms median (min-max) of "
-          f"{ACCUM_TURNS} turns: " + ", ".join(
-              f"{k} {med[k]:.7f} ({min(v):.7f}-{max(v):.7f})"
-              for k, v in times.items()))
+          " seeded views, in place, refusing overlapping views; at [8, 128],"
+          f" ms median (min-max) of {PROBE_TURNS} turns: {spread(times)}")
     floor = med["floor"]
     for name in (probes.EXTRACT, probes.CUMSUM, probes.ACCUM):
         res[name]["launch_floor_ms"] = floor
@@ -4583,7 +4736,8 @@ def entry(name, launches, numbers):
            "library_ms": numbers.get("library_ms")}
     if name in XLA_STAGES:
         out["replaces_kind"] = "XLA stage (no Pallas kernel)"
-    for key in ("launch_floor_ms", "turns_ms", "bound_terms_ms", "modes"):
+    for key in ("launch_floor_ms", "turns_ms", "bound_terms_ms", "modes",
+                "kernel_scale"):
         if key in numbers:
             out[key] = numbers[key]
     return out

@@ -8,7 +8,7 @@ tools/micro_mosaic_torch.py).
                  modes direct / smem / shfl;
   cumsum_rows    inclusive cumsum over rows as the product L x
                  (`cs_kernel`, :88): `csrc/probe_cumsum.cu`, modes tf32 /
-                 fp32;
+                 fp32; NaN above a non-finite value, as L's zeros give;
   accumulate_    in-place accumulation over sequential steps (`acc_kernel`,
                  :140): `csrc/probe_accum.cu`;
   alpha_sums     the 1-D alpha evaluation summed over a chunk's records
@@ -22,7 +22,7 @@ other.  The plain versions add in the kernels' order, so on the same
 inputs they agree bit for bit (`alpha_sums` with NaN where the plain
 version is NaN: the kernel's expf and torch's CUDA exp are both
 libdevice's), except `cumsum_rows` in tf32 mode, whose tensor-core sums
-are held to a tolerance.
+are held to a tolerance (NaN and inf at the plain version's positions).
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ REC = 16      # record rows of a window
 WIN = 128     # records (columns) of a window
 OUT_ROWS = 8  # rows of extract_rows' output per chunk; row 0 holds sums
 PIX = 256     # pixels of alpha_sums per chunk
+CUMSUM_MAX_ROWS = 1024  # rows of cumsum_rows: the kernel stages them all
 ACC_STEPS = 4  # the sequential steps of accumulate_
 ACCUM_THREADS = 256  # threads a block of csrc/probe_accum.cu
 
@@ -136,23 +137,32 @@ def extract_rows(data: torch.Tensor, starts: torch.Tensor,
 
 
 def cumsum_rows_plain(x: torch.Tensor) -> torch.Tensor:
-    """Inclusive cumsum over dim 0, a running float32 sum row by row (the
-    fp32 kernel's order)."""
+    """L x with L [K, K] lower-triangular ones, as the reference's float32
+    product gives it: out[i] the running sum x[0] + ... + x[i] from +0.0,
+    added row by row (the fp32 kernel's order), and NaN in row i of every
+    column with an inf or NaN in a later row (L's zero times it).  For
+    finite x L's zeros add +-0.0 to a sum that never becomes -0.0, so the
+    bits are the running sum's."""
     out = torch.empty_like(x)
     s = torch.zeros_like(x[0])
     for i in range(x.shape[0]):
         s = s + x[i]
         out[i] = s
-    return out
+    bad = (~torch.isfinite(x)).to(torch.int32)
+    later = torch.zeros_like(bad, dtype=torch.bool)
+    later[:-1] = bad.flip(0).cumsum(0).flip(0)[1:] > 0
+    return out.masked_fill_(later, float("nan"))
 
 
 def cumsum_rows(x: torch.Tensor, mode: str = "fp32") -> torch.Tensor:
     """Inclusive cumsum over dim 0 of x [K, N] (K, N multiples of 16) as
-    the product L x with L lower-triangular ones: on the tensor cores in
-    TF32 (mode tf32) or by fp32 multiply-adds (mode fp32)."""
+    the product L x with L lower-triangular ones (`cumsum_rows_plain`'s
+    meaning): on the tensor cores in TF32 (mode tf32) or as the fp32
+    running sum (mode fp32).  K at most CUMSUM_MAX_ROWS."""
     _check(x, "x", torch.float32, 2)
-    if x.shape[0] % 16 or x.shape[1] % 16:
-        raise ValueError(f"x must be [16 a, 16 b], got {tuple(x.shape)}")
+    if x.shape[0] % 16 or x.shape[1] % 16 or x.shape[0] > CUMSUM_MAX_ROWS:
+        raise ValueError(f"x must be [16 a, 16 b] with at most "
+                         f"{CUMSUM_MAX_ROWS} rows, got {tuple(x.shape)}")
     mode_id = CUMSUM_MODES.index(mode)
     if _device(x, CUMSUM) == "cpu":
         return cumsum_rows_plain(x)
@@ -196,12 +206,18 @@ def accumulate_(out: torch.Tensor, inp: torch.Tensor,
     PyTorch counterpart of the TPU kernel's output aliasing a zeros
     input); for out = 0 and inp = 1 every element ends at 2.0.  Any
     alignment: `accum_plan` picks 16 B vectors where out and inp allow
-    them.  Returns `out`."""
+    them.  `inp` must not overlap `out` (the kernel reads it once, the
+    plain version after each add).  Returns `out`."""
     for name, t in (("out", out), ("inp", inp)):
         _check(t, name, torch.float32, out.dim())
     if inp.shape != out.shape or inp.device != out.device:
         raise ValueError("out and inp must have one shape and device")
-    if _device(out, ACCUM) == "cpu":
+    dev = _device(out, ACCUM)
+    size = 4 * out.numel()
+    if size and (inp.data_ptr() < out.data_ptr() + size
+                 and out.data_ptr() < inp.data_ptr() + size):
+        raise ValueError("out and inp overlap")
+    if dev == "cpu":
         return accumulate_plain_(out, inp, steps)
     n = out.numel()
     head, nvec, blocks = accum_plan(inp.data_ptr(), out.data_ptr(), n)

@@ -12,11 +12,14 @@ so each of its nine rows is held to 1e-5 of that row's largest |value|.
 Both on random scenes and on crafted tiles (many record batches,
 termination in the first batch, records grazing a warp's rectangle).  The probes (ops/probes.py)
 add in their plain versions' order and are held to them exactly (the
-alpha-sum probe with NaN where the plain version is NaN: both take
-libdevice's expf; the accumulation on views 0-3 floats into larger
-buffers, in place), the TF32 cumsum to
-5e-4 of the max of a float64 cumsum (measured 1.9e-4; inputs rounded to
-bf16 would give ~1.5e-3); the forward's ablation variants
+alpha-sum probe and the fp32 cumsum with NaN where the plain version is
+NaN: both take libdevice's expf, and the cumsum's NaN are L's zeros
+times a later inf or NaN; the accumulation on views 0-3 floats into
+larger buffers, in place, refusing views that overlap; the row sums on
+windows below 0, past the width, rows not 16 B aligned), the TF32 cumsum
+with NaN and inf at the plain version's positions and elsewhere to 5e-4
+of the max of a float64 cumsum (measured 1.9e-4; inputs rounded to bf16
+would give ~1.5e-3); the forward's ablation variants
 (ops/raster_ablate.py) as the forward.  A small scene written to disk
 and rendered by render_sets from a saved checkpoint equals the in-memory
 model's render bit for bit.  The trainer (train/loop.py) trains a small
@@ -66,8 +69,9 @@ import torch
 
 from chip_smoke import (ACCUM_OFFSETS, ACCUM_SIZES, ACCUM_STEP_COUNTS,
                         PROJ_RAGGED_N, PROJ_VIEW_OFFSETS, accum_case,
-                        accum_differs, blend_cases, culled_cotangents,
-                        same_floats_or_nan, tools_on_path)
+                        accum_differs, accum_overlaps, blend_cases,
+                        culled_cotangents, cumsum_cases, cumsum_differs,
+                        extract_cases, same_floats_or_nan, tools_on_path)
 from splatco_torch.config import (ModelConfig, OptimizationConfig,
                                   PipelineConfig)
 from splatco_torch.data.cameras import look_at_camera
@@ -450,19 +454,58 @@ def test_probe_extract_kernel_matches_plain(card, mode):
     assert torch.equal(got, probes.extract_rows_plain(data, starts))
 
 
+@pytest.mark.parametrize("mode", probes.EXTRACT_MODES)
+def test_probe_extract_kernel_cases(card, mode):
+    """chip_smoke's cases (the tool's windows, the kernel scale's 8,192,
+    edge windows, below 0, at or past the width, one window, rows that
+    are not 16 B aligned, data 4 B past a 16 B boundary): bit for bit,
+    one launch a call."""
+    tools_on_path()
+    import micro_mosaic_torch as mm
+    for case, (data, starts) in extract_cases(mm.inputs(), card).items():
+        got = launched(f"{probes.EXTRACT}[{mode}]",
+                       lambda: probes.extract_rows(data, starts, mode))
+        assert torch.equal(got, probes.extract_rows_plain(data, starts)), \
+            case
+
+
 @pytest.mark.parametrize("mode", probes.CUMSUM_MODES)
 def test_probe_cumsum_kernel_matches_plain(card, mode):
+    """fp32 bit for bit with the plain version; TF32 (10 mantissa bits an
+    input) to 5e-4 of a float64 cumsum's max."""
     x = torch.as_tensor(np.random.default_rng(2).normal(
         size=(128, 256)).astype(np.float32), device=card)
     got = launched(f"{probes.CUMSUM}[{mode}]",
                    lambda: probes.cumsum_rows(x, mode))
-    ref = torch.cumsum(x.double(), dim=0)
-    scale = float(ref.abs().max())
     if mode == "fp32":
-        assert float((got - probes.cumsum_rows_plain(x)).abs().max()) \
-            <= 1e-6 * scale
-    else:  # TF32 inputs: 10 mantissa bits
-        assert float((got.double() - ref).abs().max()) <= 5e-4 * scale
+        assert same_floats_or_nan(got, probes.cumsum_rows_plain(x))
+    assert cumsum_differs(got, x, mode) is None
+
+
+@pytest.mark.parametrize("mode", probes.CUMSUM_MODES)
+def test_probe_cumsum_kernel_cases(card, mode):
+    """chip_smoke's cases (the tool's xs, inf, -inf and NaN rows, seeded
+    shapes up to 1024 rows, a misaligned x) and [128, 65,536]: fp32 bit
+    for bit, NaN where the plain version is NaN; TF32 NaN and inf at its
+    positions, 5e-4 of the max elsewhere; one launch a call."""
+    tools_on_path()
+    import micro_mosaic_torch as mm
+    cases = cumsum_cases(mm.inputs(), card)
+    cases["scale"] = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(128, 65536)).astype(np.float32), device=card)
+    for case, x in cases.items():
+        got = launched(f"{probes.CUMSUM}[{mode}]",
+                       lambda: probes.cumsum_rows(x, mode))
+        assert cumsum_differs(got, x, mode) is None, case
+
+
+def test_probe_accum_refuses_overlapping_views(card):
+    """Views that share bytes raise before any launch."""
+    for out, inp in accum_overlaps(card):
+        before = cuda_lib.LAUNCHES[probes.ACCUM]
+        with pytest.raises(ValueError, match="overlap"):
+            probes.accumulate_(out, inp)
+        assert cuda_lib.LAUNCHES[probes.ACCUM] == before
 
 
 def test_probe_accum_kernel_is_in_place_and_two(card):

@@ -16,13 +16,22 @@ alpha-sum windows below 0 and past the width, the raw tool inputs' inf
 and NaN sums) run here on the plain versions against numpy float32
 loops; `accum_plan` must take every element once, its vectors 16 B
 aligned; `measure.bound` takes the largest of bytes, fp32 operations and
-the special-function unit's exps.
+the special-function unit's exps.  `accumulate_` refuses views that
+overlap.  The cumsum's meaning is the JAX tool's `cs_kernel` (L x in
+interpret mode, at both precisions), bit for bit with NaN at the same
+positions on the card's cases, inf and NaN rows among them; the
+extraction kernel's lane layouts (the shfl mode's four shuffle rounds,
+the butterfly split between rows) restated in numpy equal the plain
+version bit for bit.
 """
 import os
 import re
 import subprocess
 import sys
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,12 +40,15 @@ from test_torch_raster_v3 import ATOL, both_binnings, untile16
 from test_torch_render import REPO
 
 from chip_smoke import (ACCUM_OFFSETS, ACCUM_SIZES, ACCUM_STEP_COUNTS,
-                        accum_case, accum_differs, blend_cases,
-                        same_floats_or_nan)
+                        accum_case, accum_differs, accum_overlaps,
+                        blend_cases, cumsum_cases, cumsum_differs,
+                        extract_cases, same_floats_or_nan)
 from splatco_torch.ops import probes, raster_ablate
 from splatco_torch.ops.rasterize_cuda import raster_fwd_plain
 from splatco_torch.utils import measure
 from splatco_tpu.ops import raster_v3 as j_v3
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
 
 sys.path.insert(0, os.path.join(REPO, "tools"))
 import micro_mosaic_torch as mm  # noqa: E402
@@ -101,6 +113,200 @@ def test_cumsum_rows_match_numpy(tool_inputs, mode):
     got = probes.cumsum_rows(torch.as_tensor(xs), mode).numpy()
     want = np.cumsum(xs, axis=0)
     assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def cs_kernel(x_ref, out_ref, *, prec):
+    """The JAX tool's `cs_kernel` (tools/micro_mosaic.py:88), verbatim: it
+    is defined inside the tool's main."""
+    xk = x_ref[:]
+    kk = xk.shape[0]
+    rows = jax.lax.broadcasted_iota(jnp.int32, (kk, kk), 0)
+    cols = jax.lax.broadcasted_iota(jnp.int32, (kk, kk), 1)
+    L = (rows >= cols).astype(jnp.float32)   # inclusive cumsum
+    out_ref[:] = jax.lax.dot_general(
+        L.T, xk, (((0,), (0,)), ((), ())),
+        precision=prec, preferred_element_type=jnp.float32)
+
+
+CUMSUM_CASES = list(cumsum_cases(mm.inputs(), torch.device("cpu")))
+
+
+@pytest.mark.parametrize("prec", ["DEFAULT", "HIGHEST"])
+@pytest.mark.parametrize("case", [c for c in CUMSUM_CASES
+                                  if not c.startswith("(")])
+def test_cumsum_plain_is_the_jax_cs_kernel(tool_inputs, case, prec):
+    """`cumsum_rows_plain` equals the reference's L x, run as the JAX tool
+    runs it on the CPU (interpret mode), bit for bit, NaN where it is NaN,
+    at the tool's [128, 256]: the running sum, and NaN above an inf or
+    NaN in the same column.  (At other shapes XLA's CPU product adds in
+    another order, so the seeded shapes are held to float64 instead.)"""
+    x = cumsum_cases(tool_inputs, torch.device("cpu"))[case]
+    with pltpu.force_tpu_interpret_mode():
+        want = np.array(pl.pallas_call(
+            functools.partial(cs_kernel,
+                              prec=getattr(jax.lax.Precision, prec)),
+            out_shape=jax.ShapeDtypeStruct(tuple(x.shape), jnp.float32),
+        )(jnp.asarray(x.numpy())))
+    got = probes.cumsum_rows_plain(x)
+    assert same_floats_or_nan(got, torch.as_tensor(want))
+    if case == "inf, -inf and NaN rows":
+        assert np.isnan(want).any() and np.isinf(want).any()
+
+
+@pytest.mark.parametrize("case", CUMSUM_CASES)
+def test_cumsum_rows_take_the_plain_version_on_the_cpu(tool_inputs, case):
+    """Both modes of `cumsum_rows` are the plain version for a CPU tensor
+    (what the card's check holds fp32 to bit for bit, tf32 at its
+    non-finite positions), and the plain version's finite values are
+    within 1e-6 of the max of a float64 cumsum."""
+    x = cumsum_cases(tool_inputs, torch.device("cpu"))[case]
+    plain = probes.cumsum_rows_plain(x)
+    for mode in probes.CUMSUM_MODES:
+        got = probes.cumsum_rows(x, mode)
+        assert same_floats_or_nan(got, plain)
+        assert cumsum_differs(got, x, mode) is None
+    fin = torch.isfinite(plain)
+    ref = torch.cumsum(x.double(), dim=0)[fin]
+    assert float((plain[fin].double() - ref).abs().max()) <= 1e-6 * float(
+        ref.abs().max())
+
+
+def test_cumsum_rows_refuse_what_the_kernel_does_not_take():
+    """At most CUMSUM_MAX_ROWS rows, as `csrc/probe_cumsum.cu` stages
+    them, multiples of 16 both ways; on both devices."""
+    src = open(os.path.join(REPO, "splatco_torch", "csrc",
+                            "probe_cumsum.cu")).read()
+    assert f"rows > {probes.CUMSUM_MAX_ROWS}" in src
+    probes.cumsum_rows(torch.zeros((probes.CUMSUM_MAX_ROWS, 16)))
+    for shape in ((probes.CUMSUM_MAX_ROWS + 16, 16), (24, 16), (16, 8)):
+        with pytest.raises(ValueError, match="at most"):
+            probes.cumsum_rows(torch.zeros(shape))
+
+
+@pytest.mark.parametrize("pair", range(4))
+def test_accumulate_refuses_overlapping_views(pair):
+    """out and inp sharing bytes raise on both devices (the kernel reads
+    inp once, the plain version after each add): one buffer twice, views
+    one float apart either way, one view inside another."""
+    out, inp = accum_overlaps(torch.device("cpu"))[pair]
+    before = out.clone()
+    with pytest.raises(ValueError, match="overlap"):
+        probes.accumulate_(out, inp)
+    assert torch.equal(out, before)
+
+
+LANES = np.arange(32)
+
+
+def col_values(row, cols):
+    """row[cols], 0 outside [0, width)."""
+    inside = (cols >= 0) & (cols < row.shape[0])
+    return np.where(inside, row[np.clip(cols, 0, row.shape[0] - 1)],
+                    np.float32(0))
+
+
+def window_values(row, p):
+    """[32, 4]: lane l's window columns p + l + 32 j of one row."""
+    return col_values(row, p + LANES[:, None] + 32 * np.arange(4)[None, :])
+
+
+def shfl_values(row, p):
+    """[32, 4]: what the shfl mode of `csrc/probe_extract.cu` gives lane l
+    as its columns j = 0..3: lane m loads columns 4m .. 4m+3 of the two
+    aligned blocks, rotates each by m / 8, and in round t sends register
+    t of block 0 if its column is at or past the window's start, else of
+    block 1; lane l reads lane src_t(l) and puts the values back in
+    column order by its own rotation."""
+    block0 = p & ~127
+    off = p - block0
+    cols = block0 + 4 * LANES[:, None] + np.arange(4)[None, :]
+    blocks = [col_values(row, c) for c in (cols, cols + 128)]  # lane m's
+    sm = LANES >> 3
+    rot = (np.arange(4)[None, :] + sm[:, None]) & 3
+    b0, b1 = (b[LANES[:, None], rot] for b in blocks)
+    u = LANES + off
+    cl = ((u & 3) - (u >> 5)) & 3
+    got = np.zeros((32, 4), np.float32)
+    for t in range(4):
+        src = 8 * (((u & 3) - t) & 3) + ((u & 31) >> 2)
+        first = 4 * LANES + ((t + sm) & 3) >= off
+        got[:, t] = np.where(first, b0[:, t], b1[:, t])[src]
+    v = got[:, [0, 3, 2, 1]]
+    return v[LANES[:, None], (np.arange(4)[None, :] + (4 - cl[:, None]) & 3)]
+
+
+def split_butterfly(partials):
+    """The kernel's butterfly over R rows' lane partials [R, 32] (R a power
+    of 2): at offset 16, 8, ... a lane keeps the half of its rows its bit
+    selects and adds its partner's partials of them, until it holds one;
+    then the plain levels.  Returns [R]: row r from lane r << (5 - log2
+    R)."""
+    rows = partials.shape[0]
+    held = [list(partials[:, lane]) for lane in range(32)]
+    width, o = rows, 16
+    while width > 1:
+        half = width // 2
+        held = [[np.float32((held[lane][h + half] if lane & o
+                             else held[lane][h])
+                            + (held[lane ^ o][h] if (lane ^ o) & o
+                               else held[lane ^ o][h + half]))
+                 for h in range(half)] for lane in range(32)]
+        width, o = half, o // 2
+    val = np.array([h[0] for h in held], np.float32)
+    while o:
+        val = val + val[LANES ^ o]
+        o //= 2
+    shift = 5 - int(np.log2(rows))
+    return val[np.arange(rows) << shift]
+
+
+@pytest.mark.parametrize("rows", [1, 2, 4, 8, 16])
+def test_extract_lane_layouts_restate_the_plain_sums(rows):
+    """The extraction kernel's arithmetic restated: lane l's four columns
+    (read directly, or through the shfl mode's rounds), summed in order,
+    then the butterfly split between `rows` rows, equal
+    `extract_rows_plain` bit for bit at every offset modulo 128, below 0,
+    at and past the width."""
+    data = np.random.default_rng(3).normal(size=(16, 1000)).astype(
+        np.float32)
+    starts = np.array(list(range(0, 260, 3)) + [127, 128, -1, -5, -127,
+                                                -128, -129, 871, 872, 873,
+                                                999, 1000, 2 ** 31 - 1,
+                                                -2 ** 31], np.int64)
+    want = probes.extract_rows_plain(
+        torch.as_tensor(data), torch.as_tensor(starts.astype(np.int32))
+    ).numpy()[:, 0]
+    for c, p in enumerate(starts.tolist()):
+        for lane_values in (window_values, shfl_values):
+            v = np.stack([lane_values(data[r], p) for r in range(16)])
+            assert np.array_equal(v, np.stack(
+                [window_values(data[r], p) for r in range(16)]))
+            s = (v[:, :, 0] + v[:, :, 1]) + v[:, :, 2]
+            s = s + v[:, :, 3]  # [16, 32]
+            got = np.concatenate([split_butterfly(s[g:g + rows])
+                                  for g in range(0, 16, rows)])
+            np.testing.assert_array_equal(got.view(np.int32),
+                                          want[c].view(np.int32))
+
+
+def test_extract_rows_plain_on_the_card_cases(tool_inputs):
+    """The card's cases for the row sums (chip_smoke.extract_cases, the
+    8,192 windows cut to 48) on the plain version against float64 sums:
+    the windows below 0 and at or past the width read 0 there, the rows
+    of width 8,323 and the misaligned copy as any other."""
+    for case, (data, starts) in extract_cases(tool_inputs,
+                                              torch.device("cpu")).items():
+        starts = starts[:48]
+        got = probes.extract_rows_plain(data, starts).numpy()
+        d = data.numpy().astype(np.float64)
+        cols = starts.numpy().astype(np.int64)[:, None] + np.arange(128)
+        inside = (cols >= 0) & (cols < d.shape[1])
+        want = np.where(inside[:, None, :],
+                        d[:, np.clip(cols, 0, d.shape[1] - 1)].transpose(
+                            1, 0, 2), 0).sum(-1)
+        np.testing.assert_allclose(got[:, 0], want, rtol=1e-6, atol=1e-5,
+                                   err_msg=case)
+        assert not got[:, 1:].any()
 
 
 def test_accumulate_in_place_is_two():
