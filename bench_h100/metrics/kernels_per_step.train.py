@@ -1,0 +1,9 @@
+"""Device operations (kernels, memcpys, memsets) a training step launches,
+over the traced window's steps: the host's dispatch load."""
+from bench_h100.harness import trace as T
+
+
+def read(w):
+    if w.kind != "train" or not w.units or not w.ops:
+        return None
+    return len(w.ops) / w.units
