@@ -11,6 +11,11 @@ The viewspace proxy reproduces the reference's screen-space points trick:
 the caller passes zeros [C*K, 2] that require grad, they are added to the
 projected means, and their gradient is the per-gaussian screen-space
 gradient the densification statistics read.
+
+`render` runs inside `torch.profiler.record_function("render")`, and the
+decode (`generate_neural_gaussians`, `precompute_plane_feats`) inside
+`record_function("decode")`, so that a profiler trace shows each frame
+and each decode.
 """
 from __future__ import annotations
 
@@ -74,8 +79,9 @@ def precompute_plane_feats(params, contractor: Contractor,
                            compat_raw_domain: bool = False):
     """View-independent tri-plane sampling, computed once and shared by
     every view of the same params."""
-    xyz_norm = anchor_plane_coords(params, contractor, compat_raw_domain)
-    return sample_level_feats(params["planes"], xyz_norm, activate_level)
+    with torch.profiler.record_function("decode"):
+        xyz_norm = anchor_plane_coords(params, contractor, compat_raw_domain)
+        return sample_level_feats(params["planes"], xyz_norm, activate_level)
 
 
 def generate_neural_gaussians(
@@ -103,74 +109,76 @@ def generate_neural_gaussians(
     noise (training).  `group` (parallel/collectives.Group), when the
     anchors are one shard of a gauss axis, sums the fusion heads'
     BatchNorm statistics over that axis."""
-    anchors = params["anchors"]
-    anchor = anchors["anchor"]
-    feat = anchors["feat"]
-    offsets = anchors["offsets"]
-    c, k, _ = offsets.shape
-    grid_scaling = torch.exp(anchors["scaling"])
+    with torch.profiler.record_function("decode"):
+        anchors = params["anchors"]
+        anchor = anchors["anchor"]
+        feat = anchors["feat"]
+        offsets = anchors["offsets"]
+        c, k, _ = offsets.shape
+        grid_scaling = torch.exp(anchors["scaling"])
 
-    xyz_norm = anchor_plane_coords(params, contractor, compat_raw_domain)
-    if use_spatial_ctx:
-        # per level, the context grids of the anchor features over the
-        # contracted domain
-        g_fea = tuple(spatial_ctx(xyz_norm, feat, -2.0, 2.0, level=i,
-                                  mask=visible_mask)
-                      for i in range(activate_level + 1))
-    else:
-        g_fea = torch.cat([feat, anchor, offsets.reshape(c, -1),
-                           grid_scaling], dim=1)
-    geo_fea = feature_planes_forward(
-        params["planes"], xyz_norm, g_fea, visible_mask,
-        activate_level=activate_level, plane_feats=plane_feats, q=q_noise,
-        generator=generator, group=group)
+        xyz_norm = anchor_plane_coords(params, contractor, compat_raw_domain)
+        if use_spatial_ctx:
+            # per level, the context grids of the anchor features over the
+            # contracted domain
+            g_fea = tuple(spatial_ctx(xyz_norm, feat, -2.0, 2.0, level=i,
+                                      mask=visible_mask)
+                          for i in range(activate_level + 1))
+        else:
+            g_fea = torch.cat([feat, anchor, offsets.reshape(c, -1),
+                               grid_scaling], dim=1)
+        geo_fea = feature_planes_forward(
+            params["planes"], xyz_norm, g_fea, visible_mask,
+            activate_level=activate_level, plane_feats=plane_feats, q=q_noise,
+            generator=generator, group=group)
 
-    ob_view = anchor - camera.camera_center
-    ob_dist = torch.linalg.vector_norm(ob_view, dim=1, keepdim=True)
-    ob_view = ob_view / torch.clamp_min(ob_dist, 1e-12)
+        ob_view = anchor - camera.camera_center
+        ob_dist = torch.linalg.vector_norm(ob_view, dim=1, keepdim=True)
+        ob_view = ob_view / torch.clamp_min(ob_dist, 1e-12)
 
-    if use_feat_bank:
-        bank_w = dec.feature_bank_mlp(
-            params["decoders"], torch.cat([ob_view, ob_dist], dim=1)
-        )[:, None, :]  # [C,1,3]
-        f = feat[:, :, None]
-        feat = (f[:, ::4, :1].repeat(1, 4, 1) * bank_w[:, :, :1]
-                + f[:, ::2, :1].repeat(1, 2, 1) * bank_w[:, :, 1:2]
-                + f[:, ::1, :1] * bank_w[:, :, 2:]).squeeze(-1)
+        if use_feat_bank:
+            bank_w = dec.feature_bank_mlp(
+                params["decoders"], torch.cat([ob_view, ob_dist], dim=1)
+            )[:, None, :]  # [C,1,3]
+            f = feat[:, :, None]
+            feat = (f[:, ::4, :1].repeat(1, 4, 1) * bank_w[:, :, :1]
+                    + f[:, ::2, :1].repeat(1, 2, 1) * bank_w[:, :, 1:2]
+                    + f[:, ::1, :1] * bank_w[:, :, 2:]).squeeze(-1)
 
-    cat_local = torch.cat([feat, ob_view, ob_dist, geo_fea], dim=1)
-    cat_local_wod = torch.cat([feat, ob_view, geo_fea], dim=1)
+        cat_local = torch.cat([feat, ob_view, ob_dist, geo_fea], dim=1)
+        cat_local_wod = torch.cat([feat, ob_view, geo_fea], dim=1)
 
-    neural_opacity = dec.opacity_mlp(
-        params["decoders"], cat_local if add_opacity_dist else cat_local_wod
-    ).reshape(-1)  # [C*K]
-    mask = (neural_opacity > 0.0) & visible_mask.repeat_interleave(k)
-    opacity = torch.where(mask, neural_opacity, 0.0)
+        neural_opacity = dec.opacity_mlp(
+            params["decoders"],
+            cat_local if add_opacity_dist else cat_local_wod
+        ).reshape(-1)  # [C*K]
+        mask = (neural_opacity > 0.0) & visible_mask.repeat_interleave(k)
+        opacity = torch.where(mask, neural_opacity, 0.0)
 
-    color_in = cat_local if add_color_dist else cat_local_wod
-    if appearance_dim > 0:
-        app = dec.appearance_embedding(params["decoders"], camera.uid, c)
-        color_in = torch.cat([color_in, app], dim=1)
-    color = dec.color_mlp(params["decoders"], color_in).reshape(c * k, 3)
+        color_in = cat_local if add_color_dist else cat_local_wod
+        if appearance_dim > 0:
+            app = dec.appearance_embedding(params["decoders"], camera.uid, c)
+            color_in = torch.cat([color_in, app], dim=1)
+        color = dec.color_mlp(params["decoders"], color_in).reshape(c * k, 3)
 
-    scale_rot = dec.cov_mlp(
-        params["decoders"], cat_local if add_cov_dist else cat_local_wod
-    ).reshape(c * k, 7)
+        scale_rot = dec.cov_mlp(
+            params["decoders"], cat_local if add_cov_dist else cat_local_wod
+        ).reshape(c * k, 7)
 
-    # each anchor row repeated k times, as an expand (its backward is a
-    # sum over k, deterministic on the card)
-    def rep(a):
-        return a[:, None].expand(c, k, a.shape[1]).reshape(c * k, -1)
+        # each anchor row repeated k times, as an expand (its backward is a
+        # sum over k, deterministic on the card)
+        def rep(a):
+            return a[:, None].expand(c, k, a.shape[1]).reshape(c * k, -1)
 
-    scaling_rep = rep(grid_scaling)  # [C*K,6]
-    anchor_rep = rep(anchor)
-    scaling = scaling_rep[:, 3:] * torch.sigmoid(scale_rot[:, :3])
-    rot = normalize(scale_rot[:, 3:7], eps=1e-12)
-    xyz = anchor_rep + offsets.reshape(c * k, 3) * scaling_rep[:, :3]
-    return {
-        "xyz": xyz, "color": color, "opacity": opacity, "scaling": scaling,
-        "rot": rot, "neural_opacity": neural_opacity, "mask": mask,
-    }
+        scaling_rep = rep(grid_scaling)  # [C*K,6]
+        anchor_rep = rep(anchor)
+        scaling = scaling_rep[:, 3:] * torch.sigmoid(scale_rot[:, :3])
+        rot = normalize(scale_rot[:, 3:7], eps=1e-12)
+        xyz = anchor_rep + offsets.reshape(c * k, 3) * scaling_rep[:, :3]
+        return {
+            "xyz": xyz, "color": color, "opacity": opacity, "scaling": scaling,
+            "rot": rot, "neural_opacity": neural_opacity, "mask": mask,
+        }
 
 
 def rasterize_backend(backend: str, proj, colors, opacities, bg,
@@ -220,38 +228,39 @@ def render(
     max_slots kmax, as in the JAX package.  `scale_modifier` multiplies
     the decoded scales before the projection (the rasterizer setting the
     SIBR viewer drives); `RenderOutput.scaling` is the scaled value."""
-    if backend not in BACKENDS:
-        raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
-    if visible_mask is None:
-        visible_mask = active
-    g = generate_neural_gaussians(
-        params, contractor, camera, visible_mask,
-        activate_level=activate_level, plane_feats=plane_feats,
-        q_noise=q_noise if is_training else 0.0, generator=generator,
-        **decode_kwargs)
-    if scale_modifier != 1.0:
-        g["scaling"] = g["scaling"] * scale_modifier
+    with torch.profiler.record_function("render"):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend {backend!r} is not one of {BACKENDS}")
+        if visible_mask is None:
+            visible_mask = active
+        g = generate_neural_gaussians(
+            params, contractor, camera, visible_mask,
+            activate_level=activate_level, plane_feats=plane_feats,
+            q_noise=q_noise if is_training else 0.0, generator=generator,
+            **decode_kwargs)
+        if scale_modifier != 1.0:
+            g["scaling"] = g["scaling"] * scale_modifier
 
-    proj = project_gaussians_cols(g["xyz"], g["scaling"], g["rot"], camera)
-    radius = torch.where(g["opacity"] > 0.0, proj.radius, 0.0)
-    mx, my = proj.mx, proj.my
-    if viewspace_proxy is not None:
-        mx = mx + viewspace_proxy[:, 0]
-        my = my + viewspace_proxy[:, 1]
-    proj = proj._replace(mx=mx, my=my, radius=radius)
-    image, aux = rasterize_backend(
-        backend, proj, g["color"], g["opacity"], bg, camera.image_height,
-        camera.image_width, kmax, tile16)
-    radii = radius.to(torch.int32)
-    return RenderOutput(
-        image=image,
-        neural_opacity=g["neural_opacity"],
-        selection_mask=g["mask"],
-        scaling=g["scaling"],
-        radii=radii,
-        visibility_filter=radii > 0,
-        num_overflow=aux["num_overflow"],
-        max_slots=aux["max_slots"],
-        num_clipped=aux["num_clipped"],
-        num_pairs=aux["num_pairs"],
-    )
+        proj = project_gaussians_cols(g["xyz"], g["scaling"], g["rot"], camera)
+        radius = torch.where(g["opacity"] > 0.0, proj.radius, 0.0)
+        mx, my = proj.mx, proj.my
+        if viewspace_proxy is not None:
+            mx = mx + viewspace_proxy[:, 0]
+            my = my + viewspace_proxy[:, 1]
+        proj = proj._replace(mx=mx, my=my, radius=radius)
+        image, aux = rasterize_backend(
+            backend, proj, g["color"], g["opacity"], bg, camera.image_height,
+            camera.image_width, kmax, tile16)
+        radii = radius.to(torch.int32)
+        return RenderOutput(
+            image=image,
+            neural_opacity=g["neural_opacity"],
+            selection_mask=g["mask"],
+            scaling=g["scaling"],
+            radii=radii,
+            visibility_filter=radii > 0,
+            num_overflow=aux["num_overflow"],
+            max_slots=aux["max_slots"],
+            num_clipped=aux["num_clipped"],
+            num_pairs=aux["num_pairs"],
+        )

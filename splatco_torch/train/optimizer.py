@@ -18,7 +18,8 @@ scale_by_schedule(-lr))` in float32, op for op.  The state is
 Two counts per group, as in optax: a resumed run fast-forwards only the
 schedule's.  Frozen groups (LR 0) still update their moments.  It is
 written out instead of `torch.optim.Adam` because densify and resume do
-row surgery on the moments.
+row surgery on the moments.  `update` runs inside
+`torch.profiler.record_function("optimizer")`.
 """
 from __future__ import annotations
 
@@ -178,30 +179,34 @@ def make_optimizer(opt: OptimizationConfig, params: Dict[str, Any],
                 "mu": tree_map(zeros, params), "nu": tree_map(zeros, params)}
 
     def update(grads, state, params):
-        count_inc = {g: c + 1 for g, c in state["count"].items()}
-        # bias corrections and step sizes per group, in float32
-        b1 = torch.tensor(ADAM_B1, dtype=torch.float32, device=dev)
-        b2 = torch.tensor(ADAM_B2, dtype=torch.float32, device=dev)
-        bc1 = {g: 1 - b1 ** c for g, c in count_inc.items()}
-        bc2 = {g: 1 - b2 ** c for g, c in count_inc.items()}
-        neg_lr = {g: -fn(state["sched_count"][g]) for g, fn in scheds.items()}
+        with torch.profiler.record_function("optimizer"):
+            count_inc = {g: c + 1 for g, c in state["count"].items()}
+            # bias corrections and step sizes per group, in float32
+            b1 = torch.tensor(ADAM_B1, dtype=torch.float32, device=dev)
+            b2 = torch.tensor(ADAM_B2, dtype=torch.float32, device=dev)
+            bc1 = {g: 1 - b1 ** c for g, c in count_inc.items()}
+            bc2 = {g: 1 - b2 ** c for g, c in count_inc.items()}
+            neg_lr = {g: -fn(state["sched_count"][g])
+                      for g, fn in scheds.items()}
 
-        def leaf(label, g, mu, nu, p):
-            mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
-            nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
-            u = (mu / bc1[label]) / (torch.sqrt(nu / bc2[label]) + ADAM_EPS)
-            return p + neg_lr[label] * u, mu, nu
+            def leaf(label, g, mu, nu, p):
+                mu = (1 - ADAM_B1) * g + ADAM_B1 * mu
+                nu = (1 - ADAM_B2) * (g * g) + ADAM_B2 * nu
+                u = ((mu / bc1[label])
+                     / (torch.sqrt(nu / bc2[label]) + ADAM_EPS))
+                return p + neg_lr[label] * u, mu, nu
 
-        out = tree_map(leaf, labels, grads, state["mu"], state["nu"], params)
-        new_params = tree_map(lambda o: o[0], out)
-        new_state = {
-            "count": count_inc,
-            "sched_count": {g: c + 1
-                            for g, c in state["sched_count"].items()},
-            "mu": tree_map(lambda o: o[1], out),
-            "nu": tree_map(lambda o: o[2], out),
-        }
-        return new_params, new_state
+            out = tree_map(leaf, labels, grads, state["mu"], state["nu"],
+                           params)
+            new_params = tree_map(lambda o: o[0], out)
+            new_state = {
+                "count": count_inc,
+                "sched_count": {g: c + 1
+                                for g, c in state["sched_count"].items()},
+                "mu": tree_map(lambda o: o[1], out),
+                "nu": tree_map(lambda o: o[2], out),
+            }
+            return new_params, new_state
 
     return Optimizer(init=init, update=update)
 

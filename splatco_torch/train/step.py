@@ -105,7 +105,8 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
     row-major order; None computes them in the step).  `stage(name)`,
     when given, returns a context manager wrapped around each phase
     ("planes", "forward_view<i>", "losses", "backward", "stats", "adam"),
-    for timing.  The inputs are not modified.
+    for timing.  The inputs are not modified.  The step runs inside
+    `torch.profiler.record_function("train_step")`.
 
     `disable` is a profiling tool (tools/profile_step_recon_torch.py): it
     removes the named blocks, of DISABLE, so that the step's time can be
@@ -127,93 +128,95 @@ def make_train_step(cfg: ModelConfig, opt: OptimizationConfig, mv: int,
              iteration, consistency_on, tv_w, stats_on,
              pair_gates: Optional[torch.Tensor] = None,
              stage: Optional[Callable[[str], Any]] = None):
-        del iteration
-        phase = stage or (lambda name: contextlib.nullcontext())
-        leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
-        c = leaves["anchors"]["anchor"].shape[0]
-        k = cfg.n_offsets
-        with torch.no_grad():
-            vis_masks = [prefilter_voxel(leaves["anchors"], active, cam)
-                         for cam in cameras]
-        proxy = torch.zeros((c * k, 2), device=dev, requires_grad=True)
+        with torch.profiler.record_function("train_step"):
+            del iteration
+            phase = stage or (lambda name: contextlib.nullcontext())
+            leaves = tree_map(lambda p: p.detach().requires_grad_(), params)
+            c = leaves["anchors"]["anchor"].shape[0]
+            k = cfg.n_offsets
+            with torch.no_grad():
+                vis_masks = [prefilter_voxel(leaves["anchors"], active, cam)
+                             for cam in cameras]
+            proxy = torch.zeros((c * k, 2), device=dev, requires_grad=True)
 
-        total = 0.0
-        images = []
-        max_slots = torch.zeros((), dtype=torch.int64, device=dev)
-        num_clipped = torch.zeros((), dtype=torch.int64, device=dev)
-        with phase("planes"):
-            plane_feats = precompute_plane_feats(
-                leaves, contractor, activate_level,
-                compat_raw_domain=dkw.get("compat_raw_domain", False))
-        for i in range(mv):
-            with phase(f"forward_view{i}"):
-                out = render(
-                    leaves, active, contractor, cameras[i], bg,
-                    visible_mask=vis_masks[i],
-                    viewspace_proxy=proxy if i == mv - 1 else None,
-                    activate_level=activate_level, is_training=True,
-                    q_noise=q_noise, generator=generator, kmax=cfg.kmax,
-                    plane_feats=plane_feats, tile16=tile16,
-                    backend=backend, **dkw)
+            total = 0.0
+            images = []
+            max_slots = torch.zeros((), dtype=torch.int64, device=dev)
+            num_clipped = torch.zeros((), dtype=torch.int64, device=dev)
+            with phase("planes"):
+                plane_feats = precompute_plane_feats(
+                    leaves, contractor, activate_level,
+                    compat_raw_domain=dkw.get("compat_raw_domain", False))
+            for i in range(mv):
+                with phase(f"forward_view{i}"):
+                    out = render(
+                        leaves, active, contractor, cameras[i], bg,
+                        visible_mask=vis_masks[i],
+                        viewspace_proxy=proxy if i == mv - 1 else None,
+                        activate_level=activate_level, is_training=True,
+                        q_noise=q_noise, generator=generator, kmax=cfg.kmax,
+                        plane_feats=plane_feats, tile16=tile16,
+                        backend=backend, **dkw)
+                with phase("losses"):
+                    max_slots = torch.maximum(max_slots, out.max_slots)
+                    num_clipped = num_clipped + out.num_clipped
+                    ll1 = l1_loss(out.image, gts[i])
+                    ssim_l = (1.0 - ssim(out.image, gts[i])
+                              if "ssim" not in disable else 0.0)
+                    m = out.selection_mask.to(torch.float32)
+                    sreg = ((torch.prod(out.scaling, dim=1) * m).sum()
+                            / torch.clamp_min(m.sum(), 1.0)
+                            if "sreg" not in disable else 0.0)
+                    total = total + ((1.0 - lam) * ll1 + lam * ssim_l
+                                     + 0.01 * sreg)
+                images.append(out.image)
+
             with phase("losses"):
-                max_slots = torch.maximum(max_slots, out.max_slots)
-                num_clipped = num_clipped + out.num_clipped
-                ll1 = l1_loss(out.image, gts[i])
-                ssim_l = (1.0 - ssim(out.image, gts[i])
-                          if "ssim" not in disable else 0.0)
-                m = out.selection_mask.to(torch.float32)
-                sreg = ((torch.prod(out.scaling, dim=1) * m).sum()
-                        / torch.clamp_min(m.sum(), 1.0)
-                        if "sreg" not in disable else 0.0)
-                total = total + ((1.0 - lam) * ll1 + lam * ssim_l
-                                 + 0.01 * sreg)
-            images.append(out.image)
+                con = torch.zeros((), device=dev)
+                pidx = 0
+                for i in range(mv if "consistency" not in disable else 0):
+                    for j in range(i + 1, mv):
+                        mh = min(gts[i].shape[-2], gts[j].shape[-2])
+                        mw = min(gts[i].shape[-1], gts[j].shape[-1])
+                        gi, gj = gts[i][..., :mh, :mw], gts[j][..., :mh, :mw]
+                        gate = (ssim(gi, gj) if pair_gates is None
+                                else pair_gates[pidx])
+                        pidx += 1
+                        diff = l1_loss(gi - gj, images[i][..., :mh, :mw]
+                                       - images[j][..., :mh, :mw])
+                        con = con + torch.where(gate > 0.6, gate * diff.abs(),
+                                                0.0)
+                total = total + consistency_on * 0.05 * con
+                if "tv" not in disable:
+                    total = total + tv_loss(leaves["planes"], 1.0,
+                                            activate_level) * tv_w
 
-        with phase("losses"):
-            con = torch.zeros((), device=dev)
-            pidx = 0
-            for i in range(mv if "consistency" not in disable else 0):
-                for j in range(i + 1, mv):
-                    mh = min(gts[i].shape[-2], gts[j].shape[-2])
-                    mw = min(gts[i].shape[-1], gts[j].shape[-1])
-                    gi, gj = gts[i][..., :mh, :mw], gts[j][..., :mh, :mw]
-                    gate = (ssim(gi, gj) if pair_gates is None
-                            else pair_gates[pidx])
-                    pidx += 1
-                    diff = l1_loss(gi - gj, images[i][..., :mh, :mw]
-                                   - images[j][..., :mh, :mw])
-                    con = con + torch.where(gate > 0.6, gate * diff.abs(),
-                                            0.0)
-            total = total + consistency_on * 0.05 * con
-            if "tv" not in disable:
-                total = total + tv_loss(leaves["planes"], 1.0,
-                                        activate_level) * tv_w
+            with phase("backward"):
+                flat = tree_leaves(leaves)
+                grads = torch.autograd.grad(total, flat + [proxy],
+                                            allow_unused=True)
+                # what the loss does not reach (inactive levels, frozen heads,
+                # a view with no gaussian) gets zero gradients, as jax.grad
+                # gives it
+                grads = [g if g is not None else torch.zeros_like(p)
+                         for p, g in zip(flat + [proxy], grads)]
+                proxy_grad = grads[-1]
+                it = iter(grads[:-1])
+                grads = tree_map(lambda _: next(it), leaves)
 
-        with phase("backward"):
-            flat = tree_leaves(leaves)
-            grads = torch.autograd.grad(total, flat + [proxy],
-                                        allow_unused=True)
-            # what the loss does not reach (inactive levels, frozen heads,
-            # a view with no gaussian) gets zero gradients, as jax.grad
-            # gives it
-            grads = [g if g is not None else torch.zeros_like(p)
-                     for p, g in zip(flat + [proxy], grads)]
-            proxy_grad = grads[-1]
-            it = iter(grads[:-1])
-            grads = tree_map(lambda _: next(it), leaves)
-
-        if "stats" not in disable:
-            with phase("stats"):
-                stats = _accumulate_stats(stats, stats_on, vis_masks[-1],
-                                          out, proxy_grad, cameras[-1], c, k)
-        new_params = params
-        if "optimizer" not in disable:
-            with phase("adam"):
-                new_params, opt_state = tx.update(grads, opt_state, params)
-        metrics: Dict[str, Any] = {
-            "loss": total.detach(), "l1": ll1.detach(), "con": con.detach(),
-            "num_overflow": 0, "max_slots": max_slots,
-            "num_clipped": num_clipped}
-        return new_params, opt_state, stats, metrics
+            if "stats" not in disable:
+                with phase("stats"):
+                    stats = _accumulate_stats(stats, stats_on,
+                                              vis_masks[-1], out, proxy_grad,
+                                              cameras[-1], c, k)
+            new_params = params
+            if "optimizer" not in disable:
+                with phase("adam"):
+                    new_params, opt_state = tx.update(grads, opt_state, params)
+            metrics: Dict[str, Any] = {
+                "loss": total.detach(), "l1": ll1.detach(),
+                "con": con.detach(), "num_overflow": 0, "max_slots": max_slots,
+                "num_clipped": num_clipped}
+            return new_params, opt_state, stats, metrics
 
     return step
