@@ -262,6 +262,10 @@ Run from the repository root.  Phases, each of which fails loudly:
      its plain version (no one PyTorch call computes it), the radius-only
      launch also at the prefilter's sizes.  23c: the two kernels'
      launches on each phase's main path.
+ 24. the inference decode's CUDA graph (models/decode_graph.py): phase
+     4's orbit rendered eagerly (autograd on, where the graph declines)
+     and replayed (inference mode), twice each way, the 8-bit frames
+     equal; ms a frame each way and the graph's pool.
 Kernel times are splatco_torch.utils.measure.cuda_time_ms's.
 Prints a `kernels` JSON line (all twenty kernels), then, as the last line,
 {"ok": true, "device": {...}}.  Exits non-zero and prints no result when
@@ -303,6 +307,7 @@ from splatco_torch.data.scene import Scene
 from splatco_torch.eval import metrics_driver, popping, raft
 from splatco_torch.eval.render_driver import (load_trained, render_set,
                                               render_sets)
+from splatco_torch.models import decode_graph
 from splatco_torch.models.contraction import Contractor
 from splatco_torch.models.renderer import (anchor_plane_coords,
                                            generate_neural_gaussians,
@@ -1178,6 +1183,53 @@ def render_phase(params, state, cfg, cams, level: int, dev, tile16: bool):
     print(f"{name}: kernel {kernel_ms:.4f} ms, plain {plain_ms:.2f} ms")
     return {"launches": launches, "err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound": bnd}
+
+
+def decode_graph_phase(params, state, cfg, cams, level: int):
+    """Phase 24: the orbit rendered eagerly (autograd on: the decode's
+    graph declines) and replayed (inference mode), twice each way, each
+    replayed 8-bit frame equal to the eager one; ms a frame each way (the
+    host clock over a pass, synchronized), the decodes counted and the
+    device memory of the graph's pool."""
+    def frames(grad: bool):
+        mode = torch.enable_grad() if grad else torch.inference_mode()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with mode:
+            out = []
+            for cam in cams:
+                vis = prefilter_voxel(params["anchors"], state.active, cam)
+                img = render(params, state.active, state.contractor, cam,
+                             torch.zeros(3, device=cam.camera_center.device),
+                             visible_mask=vis, activate_level=level,
+                             kmax=cfg.kmax, **decode_kwargs(cfg)).image
+                out.append((img.clamp(0.0, 1.0) * 255.0).to(torch.uint8))
+        torch.cuda.synchronize()
+        return out, 1e3 * (time.perf_counter() - t0) / len(cams)
+
+    before = dict(decode_graph.STATS)
+    passes = [frames(grad) for grad in (True, False, True, False)]
+    counted = {k: decode_graph.STATS[k] - before.get(k, 0)
+               for k in ("eager", "captures", "replays")}
+    graph = decode_graph._graph
+    pool = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if graph is not None
+               and tuple(seg["segment_pool_id"]) == tuple(graph.graph.pool()))
+    print(f"decode graph: ms a frame eager / replayed "
+          f"{passes[0][1]:.3f} / {passes[1][1]:.3f}, "
+          f"{passes[2][1]:.3f} / {passes[3][1]:.3f}; decodes {counted}; "
+          f"the graph's pool {pool / 2**20:.1f} MiB")
+    for eager, replayed in ((passes[0][0], passes[1][0]),
+                            (passes[2][0], passes[3][0])):
+        for i, (a, b) in enumerate(zip(eager, replayed)):
+            if not torch.equal(a, b):
+                raise AssertionError(f"frame {i}: the replayed decode's "
+                                     "8-bit image differs from the eager one")
+    if counted["replays"] < len(cams):
+        raise AssertionError(f"the orbit replayed {counted['replays']} of "
+                             f"{2 * len(cams)} decodes")
+    print(f"decode graph: {2 * len(cams)} replayed frames equal the eager "
+          "ones")
 
 
 def records_and_cull(binned, tiles_x, tiles_y, tile,
@@ -4797,6 +4849,8 @@ def main() -> int:
     cams = orbit_cameras(args.frames, dev)
     level = 2
     fwd = render_phase(params, state, cfg, cams, level, dev, False)
+    # 24. the same orbit eager and through the decode's CUDA graph
+    decode_graph_phase(params, state, cfg, cams, level)
 
     # 6. small model card vs CPU
     small_model_agrees(args.seed, dev)

@@ -15,7 +15,9 @@ gradient the densification statistics read.
 `render` runs inside `torch.profiler.record_function("render")`, and the
 decode (`generate_neural_gaussians`, `precompute_plane_feats`) inside
 `record_function("decode")`, so that a profiler trace shows each frame
-and each decode.
+and each decode; a decode replayed as a CUDA graph
+(models/decode_graph.py) also opens `record_function("decode_graph")`
+inside it.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Any, Dict, NamedTuple, Optional
 import torch
 
 from splatco_torch.data.cameras import Camera
+from splatco_torch.models import decode_graph
 from splatco_torch.models import decoders as dec
 from splatco_torch.models.context_grid import spatial_ctx
 from splatco_torch.models.contraction import Contractor, contract
@@ -33,6 +36,7 @@ from splatco_torch.ops.projection import (project_gaussians_cols,
                                           visible_filter)
 from splatco_torch.ops.rasterize import rasterize
 from splatco_torch.ops.rasterize_reference import rasterize_dense
+from splatco_torch.train.optimizer import tree_leaves
 from splatco_torch.utils.math import normalize
 
 BACKENDS = ("cuda", "dense")
@@ -108,77 +112,114 @@ def generate_neural_gaussians(
     mask.  q_noise > 0 with a generator adds the tri-plane quantization
     noise (training).  `group` (parallel/collectives.Group), when the
     anchors are one shard of a gauss axis, sums the fusion heads'
-    BatchNorm statistics over that axis."""
+    BatchNorm statistics over that axis.  Without autograd on a card,
+    the decode is replayed as one CUDA graph where it can be
+    (models/decode_graph.py), with the same results."""
+    flags = dict(activate_level=activate_level,
+                 add_opacity_dist=add_opacity_dist, add_cov_dist=add_cov_dist,
+                 add_color_dist=add_color_dist, appearance_dim=appearance_dim,
+                 use_feat_bank=use_feat_bank,
+                 compat_raw_domain=compat_raw_domain,
+                 use_spatial_ctx=use_spatial_ctx)
+    anchor = params["anchors"]["anchor"]
+
+    def eager(mask, center):
+        return _decode(params, contractor, center, camera.uid, mask,
+                       plane_feats=plane_feats, q_noise=q_noise,
+                       generator=generator, group=group, **flags)
+
     with torch.profiler.record_function("decode"):
-        anchors = params["anchors"]
-        anchor = anchors["anchor"]
-        feat = anchors["feat"]
-        offsets = anchors["offsets"]
-        c, k, _ = offsets.shape
-        grid_scaling = torch.exp(anchors["scaling"])
+        inputs = (visible_mask, camera.camera_center)
+        key = None
+        if decode_graph.engages(anchor, q_noise, generator, group,
+                                plane_feats):
+            key = decode_graph.key_of(
+                tree_leaves(params) + [contractor.xyz_min,
+                                       contractor.xyz_max], inputs,
+                contractor.enabled,
+                camera.uid if appearance_dim > 0 else None,
+                *sorted(flags.items()))
+        return decode_graph.decode(eager, inputs, key, anchor)
 
-        xyz_norm = anchor_plane_coords(params, contractor, compat_raw_domain)
-        if use_spatial_ctx:
-            # per level, the context grids of the anchor features over the
-            # contracted domain
-            g_fea = tuple(spatial_ctx(xyz_norm, feat, -2.0, 2.0, level=i,
-                                      mask=visible_mask)
-                          for i in range(activate_level + 1))
-        else:
-            g_fea = torch.cat([feat, anchor, offsets.reshape(c, -1),
-                               grid_scaling], dim=1)
-        geo_fea = feature_planes_forward(
-            params["planes"], xyz_norm, g_fea, visible_mask,
-            activate_level=activate_level, plane_feats=plane_feats, q=q_noise,
-            generator=generator, group=group)
 
-        ob_view = anchor - camera.camera_center
-        ob_dist = torch.linalg.vector_norm(ob_view, dim=1, keepdim=True)
-        ob_view = ob_view / torch.clamp_min(ob_dist, 1e-12)
+def _decode(params, contractor: Contractor, camera_center: torch.Tensor,
+            camera_uid: int, visible_mask: torch.Tensor, *,
+            activate_level: int, add_opacity_dist: bool, add_cov_dist: bool,
+            add_color_dist: bool, appearance_dim: int, use_feat_bank: bool,
+            compat_raw_domain: bool, use_spatial_ctx: bool, plane_feats,
+            q_noise: float, generator: Optional[torch.Generator], group
+            ) -> Dict[str, torch.Tensor]:
+    """`generate_neural_gaussians`, eagerly, with the camera's centre
+    and uid in place of the camera."""
+    anchors = params["anchors"]
+    anchor = anchors["anchor"]
+    feat = anchors["feat"]
+    offsets = anchors["offsets"]
+    c, k, _ = offsets.shape
+    grid_scaling = torch.exp(anchors["scaling"])
 
-        if use_feat_bank:
-            bank_w = dec.feature_bank_mlp(
-                params["decoders"], torch.cat([ob_view, ob_dist], dim=1)
-            )[:, None, :]  # [C,1,3]
-            f = feat[:, :, None]
-            feat = (f[:, ::4, :1].repeat(1, 4, 1) * bank_w[:, :, :1]
-                    + f[:, ::2, :1].repeat(1, 2, 1) * bank_w[:, :, 1:2]
-                    + f[:, ::1, :1] * bank_w[:, :, 2:]).squeeze(-1)
+    xyz_norm = anchor_plane_coords(params, contractor, compat_raw_domain)
+    if use_spatial_ctx:
+        # per level, the context grids of the anchor features over the
+        # contracted domain
+        g_fea = tuple(spatial_ctx(xyz_norm, feat, -2.0, 2.0, level=i,
+                                  mask=visible_mask)
+                      for i in range(activate_level + 1))
+    else:
+        g_fea = torch.cat([feat, anchor, offsets.reshape(c, -1),
+                           grid_scaling], dim=1)
+    geo_fea = feature_planes_forward(
+        params["planes"], xyz_norm, g_fea, visible_mask,
+        activate_level=activate_level, plane_feats=plane_feats, q=q_noise,
+        generator=generator, group=group)
 
-        cat_local = torch.cat([feat, ob_view, ob_dist, geo_fea], dim=1)
-        cat_local_wod = torch.cat([feat, ob_view, geo_fea], dim=1)
+    ob_view = anchor - camera_center
+    ob_dist = torch.linalg.vector_norm(ob_view, dim=1, keepdim=True)
+    ob_view = ob_view / torch.clamp_min(ob_dist, 1e-12)
 
-        neural_opacity = dec.opacity_mlp(
-            params["decoders"],
-            cat_local if add_opacity_dist else cat_local_wod
-        ).reshape(-1)  # [C*K]
-        mask = (neural_opacity > 0.0) & visible_mask.repeat_interleave(k)
-        opacity = torch.where(mask, neural_opacity, 0.0)
+    if use_feat_bank:
+        bank_w = dec.feature_bank_mlp(
+            params["decoders"], torch.cat([ob_view, ob_dist], dim=1)
+        )[:, None, :]  # [C,1,3]
+        f = feat[:, :, None]
+        feat = (f[:, ::4, :1].repeat(1, 4, 1) * bank_w[:, :, :1]
+                + f[:, ::2, :1].repeat(1, 2, 1) * bank_w[:, :, 1:2]
+                + f[:, ::1, :1] * bank_w[:, :, 2:]).squeeze(-1)
 
-        color_in = cat_local if add_color_dist else cat_local_wod
-        if appearance_dim > 0:
-            app = dec.appearance_embedding(params["decoders"], camera.uid, c)
-            color_in = torch.cat([color_in, app], dim=1)
-        color = dec.color_mlp(params["decoders"], color_in).reshape(c * k, 3)
+    cat_local = torch.cat([feat, ob_view, ob_dist, geo_fea], dim=1)
+    cat_local_wod = torch.cat([feat, ob_view, geo_fea], dim=1)
 
-        scale_rot = dec.cov_mlp(
-            params["decoders"], cat_local if add_cov_dist else cat_local_wod
-        ).reshape(c * k, 7)
+    neural_opacity = dec.opacity_mlp(
+        params["decoders"],
+        cat_local if add_opacity_dist else cat_local_wod
+    ).reshape(-1)  # [C*K]
+    mask = (neural_opacity > 0.0) & visible_mask.repeat_interleave(k)
+    opacity = torch.where(mask, neural_opacity, 0.0)
 
-        # each anchor row repeated k times, as an expand (its backward is a
-        # sum over k, deterministic on the card)
-        def rep(a):
-            return a[:, None].expand(c, k, a.shape[1]).reshape(c * k, -1)
+    color_in = cat_local if add_color_dist else cat_local_wod
+    if appearance_dim > 0:
+        app = dec.appearance_embedding(params["decoders"], camera_uid, c)
+        color_in = torch.cat([color_in, app], dim=1)
+    color = dec.color_mlp(params["decoders"], color_in).reshape(c * k, 3)
 
-        scaling_rep = rep(grid_scaling)  # [C*K,6]
-        anchor_rep = rep(anchor)
-        scaling = scaling_rep[:, 3:] * torch.sigmoid(scale_rot[:, :3])
-        rot = normalize(scale_rot[:, 3:7], eps=1e-12)
-        xyz = anchor_rep + offsets.reshape(c * k, 3) * scaling_rep[:, :3]
-        return {
-            "xyz": xyz, "color": color, "opacity": opacity, "scaling": scaling,
-            "rot": rot, "neural_opacity": neural_opacity, "mask": mask,
-        }
+    scale_rot = dec.cov_mlp(
+        params["decoders"], cat_local if add_cov_dist else cat_local_wod
+    ).reshape(c * k, 7)
+
+    # each anchor row repeated k times, as an expand (its backward is a
+    # sum over k, deterministic on the card)
+    def rep(a):
+        return a[:, None].expand(c, k, a.shape[1]).reshape(c * k, -1)
+
+    scaling_rep = rep(grid_scaling)  # [C*K,6]
+    anchor_rep = rep(anchor)
+    scaling = scaling_rep[:, 3:] * torch.sigmoid(scale_rot[:, :3])
+    rot = normalize(scale_rot[:, 3:7], eps=1e-12)
+    xyz = anchor_rep + offsets.reshape(c * k, 3) * scaling_rep[:, :3]
+    return {
+        "xyz": xyz, "color": color, "opacity": opacity, "scaling": scaling,
+        "rot": rot, "neural_opacity": neural_opacity, "mask": mask,
+    }
 
 
 def rasterize_backend(backend: str, proj, colors, opacities, bg,

@@ -10,13 +10,17 @@ together) when a script calls it.
 
 `LAUNCHES` counts kernel launches by name: each wrapper adds one
 (`count_launch`, under a lock, since a viewer thread launches too) where
-it launches its kernel, and nowhere else.  `function`, `stream` and
-`launched` are the wrappers' shared steps: the C entry point, the stream
-to launch on, and the check of a launch's CUDA error before it counts.
+it launches its kernel, and nowhere else.  Under a CUDA graph's capture
+nothing runs: inside `captured_launches` a thread's launches are recorded
+apart, and `count_replay` adds them on each replay of the graph.
+`function`, `stream` and `launched` are the wrappers' shared steps: the C
+entry point, the stream to launch on, and the check of a launch's CUDA
+error before it counts.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -43,11 +47,33 @@ LAUNCHES: collections.Counter = collections.Counter()
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 _count_lock = threading.Lock()
+_capturing = threading.local()
 
 
 def count_launch(name: str) -> None:
+    recorded = getattr(_capturing, "launches", None)
+    if recorded is not None:
+        recorded[name] += 1
+        return
     with _count_lock:
         LAUNCHES[name] += 1
+
+
+@contextlib.contextmanager
+def captured_launches():
+    """Yields a Counter of the launches this thread makes inside the
+    block, which are kept out of `LAUNCHES`."""
+    _capturing.launches = collections.Counter()
+    try:
+        yield _capturing.launches
+    finally:
+        _capturing.launches = None
+
+
+def count_replay(launches: collections.Counter) -> None:
+    """Adds a replayed graph's recorded launches to `LAUNCHES`."""
+    with _count_lock:
+        LAUNCHES.update(launches)
 
 
 def sources() -> list:
