@@ -168,7 +168,7 @@ def run(cfg: Dict, traffic: Dict, seed: int, seconds: float, trace: bool,
         params = inputs.make_params(cfg, seed, dev)
         cams = [rm.look_at(device=dev, **v)
                 for v in inputs.orbit(cfg, traffic)]
-        window_ = T.Window(*C.window_events(prof), units=win["frames"],
+        window_ = T.Window(**C.window_events(prof), units=win["frames"],
                            unit_views=win["views"], stages={},
                            counts=C.counts(cfg, traffic["activate_level"],
                                            params, cams, dev),

@@ -280,7 +280,7 @@ def run(cfg: Dict, traffic: Dict, seed: int, seconds: float, trace: bool,
     ok, rows = check.judge(numbers, traffic["limits"])
     t = C.log("reference", t)
     if trace:
-        window_ = T.Window(*C.window_events(prof), units=win["steps"],
+        window_ = T.Window(**C.window_events(prof), units=win["steps"],
                            unit_views=win["views"], stages=stages,
                            counts=C.counts(cfg, traffic["activate_level"],
                                            trainer.tree(), ref_cams, dev),

@@ -105,18 +105,26 @@ def profiled(enabled: bool, dev):
         yield prof
 
 
-def window_events(prof):
-    """(ops, ranges, host, window_s) inside the window's host range."""
-    ops, ranges, host = T.profile_events(prof)
-    spans = [(s, e) for n, s, e in host if n == WINDOW_RANGE]
+def window_events(prof) -> Dict:
+    """The trace's events inside the window's host range, with their
+    correlation ids, and the window's length: trace.Window's `ops`,
+    `ranges`, `host`, `op_corr`, `host_corr` and `window_s`."""
+    ev = T.profile_events(prof)
+    spans = [(s, e) for n, s, e in ev.host if n == WINDOW_RANGE]
     if not spans:
         raise RuntimeError("the traced window's range is not in the trace")
     ws, we = spans[0]
 
-    def inside(evs):
-        return [ev for ev in evs if ws <= ev[1] < we]
+    def inside(evs, *ids):
+        """The events that start in the window, and their ids."""
+        keep = [k for k, e in enumerate(evs) if ws <= e[1] < we]
+        return [[lst[k] for k in keep] for lst in (evs, *ids)]
 
-    return inside(ops), inside(ranges), inside(host), (we - ws) / 1e9
+    ops, op_corr = inside(ev.ops, ev.op_corr)
+    host, host_corr = inside(ev.host, ev.host_corr)
+    ranges, = inside(ev.ranges)
+    return {"ops": ops, "ranges": ranges, "host": host, "op_corr": op_corr,
+            "host_corr": host_corr, "window_s": (we - ws) / 1e9}
 
 
 def counts(cfg: Dict, level: int, params, cams, dev) -> Dict:

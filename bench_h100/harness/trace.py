@@ -5,13 +5,17 @@ Times are nanoseconds on the profiler's clock, which the host's and the
 device's events share.  A device operation is a kernel, memcpy or memset
 (`ops`); a device-side range is the span a `record_function` range's
 work covers on the device (`ranges`); host operations are the CPU-side
-operators and ranges (`host`)."""
+operators, ranges and CUDA runtime calls (`host`).  Each device operation
+and host event keeps its correlation id (`op_corr`, `host_corr`, lists
+parallel to `ops` and `host`): a runtime call and the operations it
+launched share one, the kernels of a replayed CUDA graph that of its
+`cudaGraphLaunch`."""
 from __future__ import annotations
 
 import bisect
 import dataclasses
 import re
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 Interval = Tuple[str, int, int]  # (name, start ns, end ns)
 
@@ -35,22 +39,41 @@ class Window:
     latency_ms: List[float] = dataclasses.field(default_factory=list)
     setup_s: float = 0.0      # process start to the window's start
     peak_bytes: int = 0       # the device allocator's peak in the window
+    # the correlation id of each of `ops` and of `host`, in their order
+    op_corr: List[int] = dataclasses.field(default_factory=list)
+    host_corr: List[int] = dataclasses.field(default_factory=list)
 
 
-def profile_events(prof) -> Tuple[List[Interval], List[Interval],
-                                  List[Interval]]:
-    """(device ops, device-side ranges, host ops) of a finished
-    torch.profiler.profile."""
-    ops, ranges, host = [], [], []
+class Events(NamedTuple):
+    """The events of a trace, each list in the profiler's order."""
+    ops: List[Interval]
+    ranges: List[Interval]
+    host: List[Interval]
+    op_corr: List[int]
+    host_corr: List[int]
+
+
+# a CUDA graph's launch, under the name a card's trace gives it (a
+# versioned entry point adds a `_v<n>` suffix)
+GRAPH_LAUNCH = re.compile(r"^cudaGraphLaunch(_v\d+)?$")
+
+
+def profile_events(prof) -> Events:
+    """The device ops, device-side ranges and host events of a finished
+    torch.profiler.profile, with the ops' and host events' correlation
+    ids."""
+    ev = Events([], [], [], [], [])
     for e in prof.profiler.kineto_results.events():
-        start, end = e.start_ns(), e.end_ns()
-        on_device = str(e.device_type()).endswith("CUDA")
-        if on_device:
-            (ranges if e.is_user_annotation() else ops).append(
-                (e.name(), start, end))
+        item = (e.name(), e.start_ns(), e.end_ns())
+        if not str(e.device_type()).endswith("CUDA"):
+            ev.host.append(item)
+            ev.host_corr.append(e.correlation_id())
+        elif e.is_user_annotation():
+            ev.ranges.append(item)
         else:
-            host.append((e.name(), start, end))
-    return ops, ranges, host
+            ev.ops.append(item)
+            ev.op_corr.append(e.correlation_id())
+    return ev
 
 
 def gaps(intervals: Iterable[Tuple[int, int]]) -> List[Tuple[int, int]]:
@@ -83,17 +106,43 @@ def union_ns(intervals: Iterable[Tuple[int, int]]) -> int:
     return sum(e - s for s, e in merged(intervals))
 
 
+def ops_in_ranges(w: Window, name: str) -> List[int]:
+    """The indices of the ops that lie inside a `name` device-side
+    range."""
+    pieces = merged((s, e) for n, s, e in w.ranges if n == name)
+    starts = [p[0] for p in pieces]
+    inside = []
+    for k, (_, s, e) in enumerate(w.ops):
+        i = bisect.bisect_right(starts, s) - 1
+        if i >= 0 and e <= pieces[i][1]:
+            inside.append(k)
+    return inside
+
+
 def in_ranges_ns(w: Window, name: str) -> Tuple[int, int, int]:
     """(device time of the ops inside the `name` ranges, the ranges'
     span, the ops inside them)."""
     pieces = merged((s, e) for n, s, e in w.ranges if n == name)
-    starts = [p[0] for p in pieces]
-    inside = []
-    for _, s, e in w.ops:
+    inside = ops_in_ranges(w, name)
+    return (ops_ns(w, inside), sum(e - s for s, e in pieces), len(inside))
+
+
+def ops_ns(w: Window, which: Iterable[int]) -> int:
+    """The device time of the ops with these indices (their union)."""
+    return union_ns((w.ops[k][1], w.ops[k][2]) for k in which)
+
+
+def graph_ops(w: Window, span: str) -> List[int]:
+    """The indices of the ops that a `cudaGraphLaunch` started inside a
+    `span` host span launched: those that share its correlation id."""
+    spans = merged((s, e) for n, s, e in w.host if n == span)
+    starts = [s for s, _ in spans]
+    launches = set()
+    for (n, s, _), corr in zip(w.host, w.host_corr):
         i = bisect.bisect_right(starts, s) - 1
-        if i >= 0 and e <= pieces[i][1]:
-            inside.append((s, e))
-    return (union_ns(inside), sum(e - s for s, e in pieces), len(inside))
+        if GRAPH_LAUNCH.match(n) and i >= 0 and s < spans[i][1]:
+            launches.add(corr)
+    return [k for k, corr in enumerate(w.op_corr) if corr in launches]
 
 
 def kernel_ns(w: Window, pattern: str) -> Tuple[int, int]:

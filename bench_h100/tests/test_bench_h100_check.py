@@ -39,19 +39,6 @@ def _copy(factory, anchors: int, width: int, height: int) -> Path:
     for sub in ("configs", "traffic", "metrics", "drivers"):
         shutil.copytree(ROOT / "bench_h100" / sub, base / sub)
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    # the 16 px configuration, which no cell of BENCHMARK.json runs yet
-    # (PERF.md, Open questions), run here as a cell of the copy
-    if "render-qs-v3" not in {w["name"] for w in bench["workloads"]}:
-        bench["configs"].append({
-            "name": "splatco-quickstart-v3", "source": "", "reduced": [],
-            "file": "bench_h100/configs/splatco-quickstart-v3.json",
-            "why": ""})
-        bench["workloads"].append({
-            "name": "render-qs-v3", "config": "splatco-quickstart-v3",
-            "traffic": "orbit-render", "chips": 1, "why": ""})
-        for m in bench["end_to_end"]:
-            if "render-qs-v2" in m.get("workloads", []):
-                m["workloads"].append("render-qs-v3")
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     for path in (base / "configs").glob("*.json"):
         c = json.loads(path.read_text())
@@ -95,21 +82,27 @@ def _run(tiny, workload, seconds=0.05, fault=None, trace=False):
                             base=tiny / "bench_h100")
 
 
-def test_sound_training_run_is_correct(tiny):
-    res = _run(tiny, "train-qs-v2")
+TRAIN = ["train-qs-v2", "train-qs-v3"]
+RENDER = ["render-qs-v2", "render-qs-v3"]
+
+
+@pytest.mark.parametrize("workload", TRAIN)
+def test_sound_training_run_is_correct(tiny, workload):
+    res = _run(tiny, workload)
     assert res["correct"], res["checks"]
     assert res["attempted"] >= 1 and res["failed"] == 0
     # the CPU has no device allocator whose peak train_peak_mem_gib reads
     assert set(res["metrics"]) == {"train_step_ms", "setup_s"}
 
 
+@pytest.mark.parametrize("workload", TRAIN)
 @pytest.mark.parametrize("fault", ["unchanged", "half_batch", "altered"])
-def test_planted_training_fault_is_not_correct(tiny, fault):
-    res = _run(tiny, "train-qs-v2", fault=fault)
+def test_planted_training_fault_is_not_correct(tiny, fault, workload):
+    res = _run(tiny, workload, fault=fault)
     assert not res["correct"], res["checks"]
 
 
-@pytest.mark.parametrize("workload", ["render-qs-v2", "render-qs-v3"])
+@pytest.mark.parametrize("workload", RENDER)
 def test_sound_render_run_is_correct(tiny, workload):
     res = _run(tiny, workload, seconds=4.0)
     assert res["correct"], res["checks"]
@@ -117,8 +110,9 @@ def test_sound_render_run_is_correct(tiny, workload):
     assert set(res["metrics"]) == {"render_frame_ms", "setup_s"}
 
 
-def test_altered_frames_are_not_correct(tiny):
-    res = _run(tiny, "render-qs-v2", seconds=4.0, fault="altered")
+@pytest.mark.parametrize("workload", RENDER)
+def test_altered_frames_are_not_correct(tiny, workload):
+    res = _run(tiny, workload, seconds=4.0, fault="altered")
     assert not res["correct"], res["checks"]
 
 
@@ -142,7 +136,7 @@ def test_nonfinite_frames_fail(tiny, monkeypatch):
     assert not res["correct"]
 
 
-@pytest.mark.parametrize("workload", ["train-qs-v2", "render-qs-v2"])
+@pytest.mark.parametrize("workload", TRAIN + RENDER)
 def test_traced_run_reads_per_layer_metrics(tiny, workload, monkeypatch):
     """A traced run on the CPU: the trace is read and the per-layer
     metrics that need no device events are reported; a render run's
@@ -163,7 +157,7 @@ def test_traced_run_reads_per_layer_metrics(tiny, workload, monkeypatch):
         assert "render_frame_p95_ms.host" in res["metrics"]
 
 
-@pytest.mark.parametrize("workload", ["train-qs-v2", "render-qs-v2"])
+@pytest.mark.parametrize("workload", TRAIN + RENDER)
 def test_tf32_control_is_not_correct(control_size, workload):
     root = control_size
     bench = spec.load_benchmark(root)
@@ -221,7 +215,7 @@ def card():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("workload", ["train-qs-v2", "render-qs-v2"])
+@pytest.mark.parametrize("workload", TRAIN + RENDER)
 def test_cell_runs_on_the_card(card, workload):
     out = subprocess.run(
         [sys.executable, "bench_h100/run.py", "--workload", workload,
